@@ -1,0 +1,980 @@
+"""Vectorized fabric engine in PyTorch: whole-grid multi-host simulation.
+
+The port of ``repro.fabric.vector``'s dense engine for its static
+configuration: static ECMP routes, DCQCN senders, strict-priority
+switches, whole-link receiver PFC, fixed dt.  The entire tick body is
+packed into stacked tensors and advances all grid points at once:
+
+* per-flow DCQCN/offer state as ``[G, F]`` tensors, plus a slot-major
+  CNP propagation ring ``[G, Hc, 3, F]``;
+* per-port queue state as one ``[G, 2, P, F]`` tensor (axis 1: queued
+  bytes, ECN-marked subset) covering every NIC egress queue and switch
+  output port on some flow's path; per-(TC, port) occupancy and the
+  PFC assert/pause state ``[G, Q, P]`` come from one-hot ``matmul``s
+  with the per-point flow->class one-hot;
+* per-receiver datapath state as ``[G, R]`` tensors, the QoS admission
+  classes as ``[G, Q, R]`` and the release rings as ``[G, H, 2, R]``.
+
+Semantics are the reference's batch-fluid tick, op for op: four
+tier-ordered forwarding stages with cut-through inside the tick,
+proportional buffer-space allocation and one pre-batch ECN-knee decision
+per port per stage, receiver CNPs to the heaviest recently-arriving flow
+(lowest flow id on ties), per-flow DCQCN CNP pacing, and per-priority
+PFC pause propagation.  The tick's two priority water-fills go through
+:mod:`repro_torch.fabric.fused` (CUDA kernels on the card).
+
+The grid axis is written out (no vmap) and the tick loop runs eagerly
+from the host with the tick index a Python int: nothing in the loop
+reads a device value back, so the host only waits at the end.
+
+Grids that need the reference's other layers — dynamic routing or link
+failures, WRR scheduling, per-TC host PFC, the CC zoo, the message
+layer, fault injection, link flaps, 3-level (sparse) fabrics or adaptive
+dt — raise ``NotImplementedError`` naming the feature.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .._device import full_fp32_matmul, resolve_device, resolve_dtype
+from ..core.datapath import N_QOS, hold_us_baseline, hold_us_jet
+from ..core.dcqcn import DcqcnConfig
+from . import fused
+
+_STAGES = 4          # NIC egress, leaf uplink, spine, leaf downlink
+
+# pvals entries that stay integer (tick offsets)
+_INT_KEYS = frozenset(["d_base", "d_strag", "cnp_dly"])
+
+_RECV_SCALARS = [
+    ("jet", lambda c: 1.0 if c.mode == "jet" else 0.0),
+    ("pfc_en", lambda c: 1.0 if c.pfc_enabled else 0.0),
+    ("wm_cnp", lambda c: 1.0 if c.rnic_ecn_cnp else 0.0),
+    ("line1", lambda c: c.line_rate_gbps),
+    ("pcie", lambda c: c.pcie_gbps),
+    ("membw", lambda c: c.membw_total_gbps),
+    ("cpu_bw", lambda c: c.cpu_membw_gbps),
+    ("qp_bytes", lambda c: c.num_qps * c.msg_bytes),
+    ("ddio", lambda c: c.ddio_bytes),
+    ("knee", lambda c: c.miss_knee),
+    ("rnic_buf", lambda c: c.rnic_buffer_bytes),
+    ("xoff", lambda c: c.pfc_xoff),
+    ("xon", lambda c: c.pfc_xon),
+    ("ecn_th", lambda c: c.ecn_threshold),
+    ("cnp_iv", lambda c: c.cnp_interval_us),
+    ("pool", lambda c: c.jet_pool_bytes),
+    ("sfrac", lambda c: c.straggler_frac),
+    ("safe", lambda c: c.cache_safe),
+    ("danger", lambda c: c.cache_danger),
+    ("mem_esc", lambda c: c.mem_esc_bytes),
+]
+
+_DCQCN_SCALARS = [
+    ("dline", lambda d: d.line_rate_gbps),
+    ("minr", lambda d: d.min_rate_gbps),
+    ("g", lambda d: d.g),
+    ("a_tmr", lambda d: d.alpha_timer_us),
+    ("r_tmr", lambda d: d.rate_timer_us),
+    ("bctr", lambda d: d.byte_counter_mb * (1 << 20)),
+    ("ai", lambda d: d.ai_rate_gbps),
+    ("hai", lambda d: d.hai_rate_gbps),
+    ("fth", lambda d: float(d.f_threshold)),
+]
+
+_SWITCH_SCALARS = [
+    ("buf", lambda s: float(s.port_buffer_bytes)),
+]
+
+# per-TC switch knobs: resolved to [N_QOS]-vectors per grid point
+_SWITCH_TC = [
+    ("kmin", lambda s, tc: s.kmin_frac(tc)),
+    ("sw_xoff", lambda s, tc: s.xoff_frac(tc)),
+    ("sw_xon", lambda s, tc: s.xon_frac(tc)),
+]
+
+# Fields of the reference's packing that belong to layers this engine
+# does not run, with the value a static dense grid packs them at; a
+# packing that sets any other value is refused by ``from_arrays``.
+_STATIC_DEFAULTS = {
+    "upP": None, "dnP": None, "candS": None, "crossF": None, "T1": None,
+    "init_spine": None, "dyn_route": False, "any_wrr": False,
+    "host_tc": False, "settle_ring": 1, "n_spines": 0, "any_cc": False,
+    "any_msg": False, "msg_ring": 1, "any_flt": False, "any_flap": False,
+    "sparse": False, "port_of": None, "prv_port": None, "nxt_slot": None,
+    "pack_fail": False, "pause_extra": None, "pausable_extra": None,
+}
+# reference packing fields with no meaning here (its program-cache key)
+_IGNORED = frozenset(["structure_key"])
+
+
+def unsupported_features(scens: Sequence) -> List[str]:
+    """Names of the reference-engine layers a grid needs that this port
+    does not run (empty = the grid runs here).  Reads scenarios by duck
+    type, so the reference's scenario objects can be checked too."""
+    def attr(o, name, default=None):
+        return getattr(o, name, default)
+
+    feats = []
+
+    def need(name, hit):
+        if hit and name not in feats:
+            feats.append(name)
+
+    for s in scens:
+        topo, fab = s.topology, s.fabric
+        need("dynamic routing (mode != static_ecmp)", fab.routing.is_dynamic)
+        need("link failure schedules", bool(attr(topo, "link_down")))
+        need("link flaps", bool(attr(topo, "link_flaps")))
+        need("3-level super-spine fabrics (sparse incidence)",
+             bool(attr(topo, "super_spines")))
+        need("WRR switch scheduling", fab.switch.scheduler == "wrr")
+        need("fault injection (FaultConfig)",
+             attr(fab, "faults") is not None)
+        msgs = [f.msg if attr(f, "msg") is not None else attr(fab, "msg")
+                for f in s.flows]
+        need("the message layer (MessageConfig)",
+             any(m is not None for m in msgs))
+        ccs = [f.cc if attr(f, "cc") is not None else attr(fab, "cc")
+               for f in s.flows]
+        need("the CC zoo (non-DCQCN congestion control)",
+             any(c is not None and c.algo != "dcqcn" for c in ccs))
+        if fab.switch.per_tc:
+            need("per-TC host PFC",
+                 any(fab.receiver_cfg(f.dst).host_pfc_per_tc
+                     for f in s.flows))
+    return feats
+
+
+def _dcqcn_of(s, f, line: float) -> DcqcnConfig:
+    """Per-line-rate DCQCN, or the override a DCQCN ``cc`` carries."""
+    c = f.cc if getattr(f, "cc", None) is not None \
+        else getattr(s.fabric, "cc", None)
+    if c is not None and c.algo == "dcqcn" and c.dcqcn is not None:
+        return c.dcqcn
+    return DcqcnConfig(line_rate_gbps=line)
+
+
+# --------------------------------------------------------------------------- #
+# Packing: scenarios -> static structure + stacked per-point parameters
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class FabricSweepParams:
+    """Static fabric structure + stacked per-point parameters (numpy).
+
+    Shapes: F flows, P ports, R receivers, G grid points, H ring horizon.
+    """
+    # -- static structure (shared by every grid point) ----------------------
+    port_keys: List[Tuple[str, str]]     # port id -> out-link key
+    recv_hosts: List[str]
+    flow_tags: List[str]
+    stage_mask: np.ndarray               # [S, P] bool: ports of each stage
+    occ: List[np.ndarray]                # S x [P, F]: flow's port per stage
+    dest: List[np.ndarray]               # 3 x [P, F]: routing after stage k
+    recv_onehot: np.ndarray              # [R, F]
+    recv_of: np.ndarray                  # [F] int32
+    qos_of: np.ndarray                   # [F] int32: flow's admission class
+    prev_onehot: np.ndarray              # [P, F, P]: ingress port of (p, f)
+    owner_recv: np.ndarray               # [P] int32: stage-3 port's receiver
+    # -- per-point parameters ----------------------------------------------
+    pvals: Dict[str, np.ndarray]         # [G], [G, F], [G, R] or [G, P]
+    n_points: int
+    n_flows: int
+    n_ports: int
+    n_recv: int
+    ticks: int
+    dt_us: float
+    ring_len: int
+    cnp_ring: int                        # CNP propagation ring length
+
+    @classmethod
+    def from_scenarios(cls, scens: Sequence) -> "FabricSweepParams":
+        """Pack a grid of scenarios (anything with ``.topology``,
+        ``.flows``, ``.fabric``) whose points share topology structure,
+        routes and the flow set; numeric knobs may vary per point."""
+        if not scens:
+            raise ValueError("empty fabric sweep grid")
+        feats = unsupported_features(scens)
+        if feats:
+            raise NotImplementedError(
+                "the PyTorch fabric engine runs static-ECMP dense grids; "
+                "this grid needs " + ", ".join(feats))
+        s0 = scens[0]
+        topo0, flows0 = s0.topology, s0.flows
+        dt = s0.fabric.dt_us
+        ticks = int(s0.fabric.sim_time_s * 1e6 / dt)
+        F = len(flows0)
+        recv_hosts = sorted({f.dst for f in flows0})
+        for s in scens:
+            s.topology.validate()
+            if s.fabric.dt_us != dt or \
+                    int(s.fabric.sim_time_s * 1e6 / s.fabric.dt_us) != ticks:
+                raise ValueError("grid points must share dt and sim_time")
+            if len(s.flows) != F or any(
+                    (a.src, a.dst, a.tag, a.qos)
+                    != (b.src, b.dst, b.tag, b.qos)
+                    for a, b in zip(s.flows, flows0)):
+                raise ValueError("grid points must share the flow set "
+                                 "(src/dst/tag/qos); offered/burst/start "
+                                 "may vary")
+        # static ECMP: routes are frozen structure and must agree
+        routes = [topo0.route(f.src, f.dst, fid)
+                  for fid, f in enumerate(flows0)]
+        for s in scens:
+            if any(s.topology.route(f.src, f.dst, fid) != routes[fid]
+                   for fid, f in enumerate(s.flows)):
+                raise ValueError("grid points must share routes (same "
+                                 "topology structure)")
+
+        # ---- ports on some flow's path, tagged with their stage ---------- #
+        port_id: Dict[Tuple[str, str], int] = {}
+        port_stage: List[int] = []
+
+        def add(key, stage):
+            pid = port_id.setdefault(key, len(port_id))
+            if pid == len(port_stage):
+                port_stage.append(stage)
+            elif port_stage[pid] != stage:
+                raise ValueError(f"port {key} used in two stages")
+            return pid
+
+        cols = np.arange(F)
+        stage_ports = np.full((_STAGES, F), -1, np.int32)
+        prev_port = np.full((_STAGES, F), -1, np.int32)
+        for fid, nodes in enumerate(routes):
+            if len(nodes) == 3:                   # intra-leaf
+                src, leaf, dst = nodes
+                p0 = add((src, leaf), 0)
+                p3 = add((leaf, dst), 3)
+                stage_ports[0, fid], stage_ports[3, fid] = p0, p3
+                prev_port[3, fid] = p0
+            else:                                 # via one spine
+                src, sl, spine, dl, dst = nodes
+                p0 = add((src, sl), 0)
+                p1 = add((sl, spine), 1)
+                p2 = add((spine, dl), 2)
+                p3 = add((dl, dst), 3)
+                stage_ports[:, fid] = (p0, p1, p2, p3)
+                prev_port[1, fid], prev_port[2, fid], \
+                    prev_port[3, fid] = p0, p1, p2
+        P = len(port_id)
+        port_keys = list(port_id)
+
+        def onehot(idx):                          # [P, F] from [F] ids
+            oh = np.zeros((P, F))
+            valid = idx >= 0
+            oh[idx[valid], cols[valid]] = 1.0
+            return oh
+
+        occ = [onehot(stage_ports[k]) for k in range(_STAGES)]
+        # destination port after stages 0..2 (stage 3 -> receivers)
+        d0 = np.where(stage_ports[1] >= 0, stage_ports[1], stage_ports[3])
+        dest = [onehot(d0), onehot(stage_ports[2]), onehot(stage_ports[3])]
+        prev_onehot = np.zeros((P, F, P))
+        for k in range(1, _STAGES):
+            for fid in range(F):
+                p, pr = stage_ports[k, fid], prev_port[k, fid]
+                if p >= 0 and pr >= 0:
+                    prev_onehot[p, fid, pr] = 1.0
+
+        R = len(recv_hosts)
+        ridx = {h: i for i, h in enumerate(recv_hosts)}
+        recv_of = np.array([ridx[f.dst] for f in flows0], np.int32)
+        qos_of = np.array([int(f.qos) for f in flows0], np.int32)
+        stage_mask = np.zeros((_STAGES, P), bool)
+        for p, st in enumerate(port_stage):
+            stage_mask[st, p] = True
+        recv_onehot = np.zeros((R, F))
+        recv_onehot[recv_of, cols] = 1.0
+        owner_recv = np.full(P, -1, np.int32)
+        for (a, b), pid in port_id.items():
+            if port_stage[pid] == _STAGES - 1:
+                owner_recv[pid] = ridx[b]
+
+        # ---- stacked per-point parameters -------------------------------- #
+        pv: Dict[str, List] = {k: [] for k in
+                               ["gbps", "ecn_en", "can_assert", "line",
+                                "cap", "burst", "start", "cnp_iv_f",
+                                "d_base", "d_strag", "cnp_dly", "clsF",
+                                "on_us", "off_us"]}
+        for name, _ in _RECV_SCALARS + _DCQCN_SCALARS + _SWITCH_SCALARS \
+                + _SWITCH_TC:
+            pv[name] = []
+        # switch traffic class of each flow as a [Q, F] one-hot; legacy
+        # per-link points collapse every flow onto TC 0
+        cls_true = np.zeros((N_QOS, F))
+        cls_true[[int(f.qos) for f in flows0], np.arange(F)] = 1.0
+        cls_legacy = np.zeros((N_QOS, F))
+        cls_legacy[0, :] = 1.0
+        is_switch = np.array(port_stage) > 0
+        for s in scens:
+            topo, sw = s.topology, s.fabric.switch
+            for name, fn in _SWITCH_SCALARS:
+                pv[name].append(fn(sw))
+            for name, fn in _SWITCH_TC:
+                pv[name].append([fn(sw, tc) for tc in range(N_QOS)])
+            pv["clsF"].append(cls_true if sw.per_tc else cls_legacy)
+            pv["gbps"].append([topo.links[k].gbps for k in port_keys])
+            pv["ecn_en"].append(is_switch * float(sw.ecn_enabled))
+            pv["can_assert"].append(is_switch * float(sw.pfc_enabled))
+            rcfgs = {h: s.fabric.receiver_cfg(h) for h in recv_hosts}
+            for c in rcfgs.values():
+                if c.cpu_membw_schedule is not None:
+                    raise ValueError("cpu_membw_schedule is not sweepable")
+                if c.host_pfc_per_tc and not sw.per_tc:
+                    raise ValueError("host_pfc_per_tc requires "
+                                     "SwitchConfig.per_tc")
+            for name, fn in _RECV_SCALARS:
+                pv[name].append([fn(rcfgs[h]) for h in recv_hosts])
+            d_b, d_s = [], []
+            for h in recv_hosts:
+                c = rcfgs[h]
+                hold = hold_us_jet(c) if c.mode == "jet" \
+                    else hold_us_baseline(c)
+                d_b.append(max(1, int(hold / dt)))
+                d_s.append(max(1, int(hold * c.straggler_mult / dt)))
+            pv["d_base"].append(d_b)
+            pv["d_strag"].append(d_s)
+            # per-flow NP->RP propagation delay (Flow override, falling
+            # back to the FabricConfig scalar)
+            pv["cnp_dly"].append([
+                max(0, int(round(
+                    (f.cnp_delay_us if f.cnp_delay_us is not None
+                     else s.fabric.cnp_delay_us) / dt)))
+                for f in s.flows])
+            line = [topo.access_gbps(f.src) for f in s.flows]
+            pv["line"].append(line)
+            pv["cap"].append([np.inf if f.offered_gbps is None
+                              else f.offered_gbps for f in s.flows])
+            pv["burst"].append([np.inf if f.burst_bytes is None
+                                else f.burst_bytes for f in s.flows])
+            pv["start"].append([f.start_us for f in s.flows])
+            pv["on_us"].append([np.inf if f.on_off_us is None
+                                else f.on_off_us[0] for f in s.flows])
+            pv["off_us"].append([0.0 if f.on_off_us is None
+                                 else f.on_off_us[1] for f in s.flows])
+            pv["cnp_iv_f"].append([rcfgs[f.dst].cnp_interval_us
+                                   for f in s.flows])
+            dcq = [_dcqcn_of(s, f, lr) for f, lr in zip(s.flows, line)]
+            for name, fn in _DCQCN_SCALARS:
+                pv[name].append([fn(d) for d in dcq])
+        pvals = {k: np.asarray(v, np.int32 if k in _INT_KEYS
+                               else np.float64)
+                 for k, v in pv.items()}
+        H = int(max(pvals["d_base"].max(), pvals["d_strag"].max())) + 2
+        Hc = int(pvals["cnp_dly"].max()) + 1
+        return cls(port_keys=port_keys, recv_hosts=recv_hosts,
+                   flow_tags=[f.tag for f in flows0],
+                   stage_mask=stage_mask, occ=occ, dest=dest,
+                   recv_onehot=recv_onehot, recv_of=recv_of, qos_of=qos_of,
+                   prev_onehot=prev_onehot, owner_recv=owner_recv,
+                   pvals=pvals, n_points=len(scens), n_flows=F, n_ports=P,
+                   n_recv=R, ticks=ticks, dt_us=dt, ring_len=H,
+                   cnp_ring=Hc)
+
+    @classmethod
+    def from_arrays(cls, d: Dict) -> "FabricSweepParams":
+        """Build the packing from the reference's (``repro``'s
+        ``FabricSweepParams`` as a field -> value dict of numpy arrays and
+        Python scalars), so both engines can run on identical packed
+        parameters.  Raises if the packing sets a sparse or dynamic
+        field, or carries a field this port does not know."""
+        names = [f.name for f in dataclasses.fields(cls)]
+        missing = [n for n in names if n not in d]
+        if missing:
+            raise ValueError(f"packing lacks {missing}")
+        for k, v in d.items():
+            if k in names or k in _IGNORED:
+                continue
+            if k not in _STATIC_DEFAULTS:
+                raise ValueError(f"unknown packing field {k!r}")
+            want = _STATIC_DEFAULTS[k]
+            if (v is not None) if want is None else (v != want):
+                raise NotImplementedError(
+                    f"packing sets {k}={v!r}: the PyTorch fabric engine "
+                    "runs static-ECMP dense grids only")
+        return cls(**{n: d[n] for n in names})
+
+
+# --------------------------------------------------------------------------- #
+# Host-side preparation
+# --------------------------------------------------------------------------- #
+def _np_params(fsp: FabricSweepParams, dtype) -> Dict[str, np.ndarray]:
+    p = {k: (v if v.dtype == np.int32 else v.astype(dtype))
+         for k, v in fsp.pvals.items()}
+    # closed-flow completion threshold (fabric.burst_done_bytes)
+    burst = fsp.pvals["burst"]
+    p["burst_done"] = np.where(
+        np.isfinite(burst),
+        burst - np.maximum(1e-6, 1e-4 * np.where(np.isfinite(burst),
+                                                 burst, 0.0)),
+        np.inf).astype(dtype)
+    p["d2"] = np.stack([p.pop("d_base"), p.pop("d_strag")], -2)
+    return p
+
+
+def _static(fsp: FabricSweepParams) -> Dict[str, object]:
+    """Static structure arrays (numpy, float64 / int / bool)."""
+    P, F = fsp.n_ports, fsp.n_flows
+    owner = fsp.owner_recv
+    cls_onehot = np.zeros((N_QOS, F))
+    cls_onehot[fsp.qos_of, np.arange(F)] = 1.0
+    sel = np.zeros((2, 2, 1, 1))
+    sel[0, 0], sel[1, 1] = 1.0, 1.0
+    return {
+        "cls_of": fsp.qos_of,
+        "cls_recv": cls_onehot[:, None, :] * fsp.recv_onehot[None, :, :],
+        "stage": fsp.stage_mask,
+        "recv_onehot": fsp.recv_onehot,
+        "recv_of": fsp.recv_of,
+        "owner_clamp": np.maximum(owner, 0),
+        "owner_valid": owner >= 0,
+        "occ": list(fsp.occ),
+        "dest": list(fsp.dest),
+        "prev_mat": fsp.prev_onehot.reshape(P * F, P),
+        "sel0": sel[0],
+        "sel1": sel[1],
+    }
+
+
+def _to_device(a, dtype: torch.dtype, device: torch.device):
+    """numpy -> torch on ``device``: floats in the engine dtype, bools as
+    bool, integers as int64 (index tensors for gathers)."""
+    if isinstance(a, list):
+        return [_to_device(x, dtype, device) for x in a]
+    a = np.asarray(a)
+    if a.dtype == bool:
+        return torch.as_tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _init_state(fsp: FabricSweepParams, p, dtype, device):
+    """Zero/steady-state carry, every tensor with the leading grid axis."""
+    G, F, P, R = fsp.n_points, fsp.n_flows, fsp.n_ports, fsp.n_recv
+    H, Hc = fsp.ring_len, fsp.cnp_ring
+
+    def z(*sh):
+        return torch.zeros((G,) + sh, dtype=dtype, device=device)
+
+    def full(v, *sh, dt=dtype):
+        return torch.full((G,) + sh, v, dtype=dt, device=device)
+
+    def flags(*sh):
+        return torch.zeros((G,) + sh, dtype=torch.bool, device=device)
+
+    return {
+        # flows
+        "rc": p["dline"] + z(F), "rt": p["dline"] + z(F),
+        "alpha": full(1.0, F),
+        "t_us": z(F), "byts": z(F), "t_stage": z(F), "b_stage": z(F),
+        "a_tus": z(F), "injected": z(F), "delivered": z(F),
+        "inj_lo": z(F), "deliv_lo": z(F),
+        "completion": full(float("inf"), F),
+        "backlog": z(F),
+        # immediate first paced CNP, as in the scalar driver
+        "pace_tus": full(float("inf"), F),
+        # CNP propagation ring (slot-major, 3 notification sources)
+        "cring": z(Hc, 3, F),
+        # ports (axis 1: 0 = queued bytes, 1 = ECN-marked subset)
+        "qm": z(2, P, F),
+        "asserted": flags(N_QOS, P),
+        "paused": flags(N_QOS, P),
+        "pause_us": z(P),
+        "pause_tc_us": z(N_QOS, P),
+        "ever_paused": flags(P),
+        # receivers ("qos_q" = HostDatapath's per-class RNIC buffer)
+        "qos_q": z(N_QOS, R), "resident": z(R), "strag_res": z(R),
+        "esc_debt": z(R), "repl_debt": z(R), "repl_mem": z(R),
+        "rnic_drop": z(R), "drained": z(R), "nic_dram": z(R),
+        "mem_fb": z(R),
+        "esc_dram": z(R), "miss_sum": z(R), "pool_sum": z(R),
+        "pool_peak": z(R), "cnps": z(R), "ecns": z(R), "replaces": z(R),
+        "copies": z(R), "pfc_us": z(R), "ecn_tus": z(R),
+        "cnp_tus": p["cnp_iv"] + z(R),   # allow an immediate first CNP
+        "pfc": flags(R),
+        "ring": z(H, 2, R),     # slot-major; axis 2: base / straggler
+        "heavy": full(-1, R, dt=torch.int32),
+        # fleet counters
+        "ecn_marked": z(), "sw_dropped": z(),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# The per-tick step
+# --------------------------------------------------------------------------- #
+def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
+               dtype: torch.dtype, device: torch.device, impl: str):
+    """Build ``step(state, t) -> state`` over ``[G, ...]`` tensors.
+
+    ``st`` holds the static structure tensors (no grid axis), ``p`` the
+    per-point parameters ``[G, ...]``, both on ``device``.  Queued bytes
+    and their ECN-marked subset travel together as one ``[G, 2, P, F]``
+    tensor and the two release rings as one ``[G, H, 2, R]`` tensor.
+    Per-point constants are hoisted out of the tick.
+    """
+    def c(x):                            # 0-d constant of the engine dtype
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    bpt = c(1e9 / 8.0 * dt * 1e-6)       # bytes per (Gbps * tick)
+    fdt = c(dt)
+    zero, one, tiny = c(0.0), c(1.0), c(1e-30)
+    half, inf = c(0.5), c(float("inf"))
+    eps_q = c(1e-9)
+    fold_at = c(65536.0)
+    # simulated end-of-tick time of every tick, (t + 1) * dt in the
+    # engine dtype, so the loop indexes it with the Python tick
+    nows = (torch.arange(ticks, device=device).to(dtype) + one) * fdt
+    arangeF = torch.arange(st["recv_of"].shape[0], dtype=torch.int32,
+                           device=device)
+    cls_of, recv_of = st["cls_of"], st["recv_of"]
+    occ, dest = st["occ"], st["dest"]
+    # loop-invariant per-point quantities
+    budget = p["gbps"] * bpt
+    budget_crumb = budget * c(1e-6)
+    clsF = p["clsF"]                                   # [G, Q, F]
+    buf_tc = p["buf"][:, None, None]
+    kmin_th = p["kmin"][..., None] * buf_tc
+    ecn_on = p["ecn_en"] > 0.5
+    can_assert = p["can_assert"] > 0.5
+    sxoff = p["sw_xoff"][..., None]
+    sxon = p["sw_xon"][..., None]
+    onoff = p["off_us"] > zero
+    period = torch.where(onoff, p["on_us"] + p["off_us"], one)
+    jet = p["jet"] > 0.5
+    avail_dram = torch.maximum(zero, p["membw"] - p["cpu_bw"])
+    jet_cap = torch.minimum(p["pcie"], p["line1"] * 4.0) * bpt
+    strag_share = torch.where(jet, p["sfrac"], zero)
+    inv_knee = one / (p["knee"] * p["ddio"])
+    rx_pfc_en = p["pfc_en"] > 0.5
+    wm_en = p["wm_cnp"] > 0.5
+    linecap = torch.minimum(p["line"], p["cap"])
+
+    def cut(s, fire):
+        """DCQCN on_cnp for flows where ``fire`` holds."""
+        s["rt"] = torch.where(fire, s["rc"], s["rt"])
+        s["rc"] = torch.where(
+            fire, torch.maximum(p["minr"],
+                                s["rc"] * (1.0 - s["alpha"] / 2.0)),
+            s["rc"])
+        s["alpha"] = torch.where(
+            fire, torch.minimum(one, (1.0 - p["g"]) * s["alpha"] + p["g"]),
+            s["alpha"])
+        for k in ("t_us", "byts", "t_stage", "b_stage", "a_tus"):
+            s[k] = torch.where(fire, zero, s[k])
+
+    def class_tot(q0):
+        """Per-(TC, port) occupancy [G, Q, P] from per-flow bytes
+        [G, P, F] — one small matmul with the class one-hot."""
+        return torch.matmul(clsF, q0.transpose(-1, -2))
+
+    def to_flows(x_q):
+        """Scatter a per-(TC, port) value [G, Q, P] to (port, flow)
+        [G, P, F]; one class per flow, so one nonzero term per entry."""
+        return torch.matmul(x_q.transpose(-1, -2), clsF)
+
+    def drain(s, k):
+        """Stage-k ports forward up to rate*dt: strict-priority budget
+        grants (the fused water-fill), pro rata across the flows of a
+        class.  Returns the drained tensor ``out`` [G, 2, P, F]."""
+        qm = s["qm"]
+        qtc = class_tot(qm[:, 0])                            # [G, Q, P]
+        can_q = st["stage"][k] & ~s["paused"] & (qtc > zero)
+        frac_q = fused.priority_grants(qtc, can_q, budget, budget_crumb,
+                                       impl=impl)
+        frac_pf = to_flows(frac_q)
+        can_pf = to_flows(torch.where(can_q, one, zero))
+        out = qm * frac_pf[:, None]
+        qm = qm - out
+        # sub-1e-9 residues vanish with their marks
+        gone = (can_pf > half) & (qm[:, 0] < eps_q)
+        s["qm"] = torch.where(gone[:, None], zero, qm)
+        return out
+
+    def enqueue(s, A):
+        """Batch-enqueue routed arrivals ``A`` [G, 2, P, F]: proportional
+        split of each class's buffer partition, one ECN knee decision per
+        (TC, port) against that class's pre-batch occupancy."""
+        qtc = class_tot(s["qm"][:, 0])                       # pre-batch
+        tot_q = class_tot(A[:, 0])
+        space_q = torch.maximum(buf_tc - qtc, zero)
+        scale_q = torch.where(tot_q > space_q,
+                              space_q / torch.maximum(tot_q, tiny), one)
+        take = A * to_flows(scale_q)[:, None]
+        lost = (A - take)[:, 0]
+        # fluid go-back-N: tail-dropped bytes re-open the sender's tap
+        s["inj_lo"] = s["inj_lo"] - lost.sum(-2)
+        s["sw_dropped"] = s["sw_dropped"] + lost.sum((-1, -2))
+        mark_q = ecn_on[:, None, :] & (qtc > kmin_th)
+        mark_pf = to_flows(torch.where(mark_q, one, zero))   # [G, P, F]
+        dm = torch.where(mark_pf > half, take[:, 0] - take[:, 1], zero)
+        s["ecn_marked"] = s["ecn_marked"] + dm.sum((-1, -2))
+        s["qm"] = s["qm"] + take + dm[:, None] * st["sel1"]
+
+    def fold(s, hi, lo):
+        """Drain a split accumulator's low part into its high part once it
+        outgrows 64 KiB (bounds float32 drift over a run)."""
+        full = torch.abs(s[lo]) >= fold_at
+        s[hi] = s[hi] + torch.where(full, s[lo], zero)
+        s[lo] = torch.where(full, zero, s[lo])
+
+    def step(s, t: int):
+        s = dict(s)
+        now = nows[t]
+        fold(s, "injected", "inj_lo")
+        fold(s, "delivered", "deliv_lo")
+
+        # ---- 1. senders: DCQCN advance + offer ---------------------------- #
+        adv = now > p["start"]
+        adv_dt = torch.where(adv, fdt, zero)
+        a_tus = s["a_tus"] + adv_dt
+        a_fire = adv & (a_tus >= p["a_tmr"])
+        s["alpha"] = torch.where(a_fire, (1.0 - p["g"]) * s["alpha"],
+                                 s["alpha"])
+        s["a_tus"] = torch.where(a_fire, zero, a_tus)
+        t_us = s["t_us"] + adv_dt
+        byts = torch.where(adv, s["byts"] + s["rc"] * bpt, s["byts"])
+        t_fire = adv & (t_us >= p["r_tmr"])
+        s["t_stage"] = s["t_stage"] + t_fire
+        s["t_us"] = torch.where(t_fire, zero, t_us)
+        b_fire = adv & (byts >= p["bctr"])
+        s["b_stage"] = s["b_stage"] + b_fire
+        s["byts"] = torch.where(b_fire, zero, byts)
+        fired = t_fire | b_fire
+        stage = torch.minimum(s["t_stage"], s["b_stage"])
+        s["rt"] = torch.where(fired & (stage == p["fth"]),
+                              torch.minimum(p["dline"], s["rt"] + p["ai"]),
+                              s["rt"])
+        s["rt"] = torch.where(fired & (stage > p["fth"]),
+                              torch.minimum(p["dline"], s["rt"] + p["hai"]),
+                              s["rt"])
+        s["rc"] = torch.where(fired,
+                              torch.minimum(p["dline"],
+                                            0.5 * (s["rc"] + s["rt"])),
+                              s["rc"])
+
+        gbps = torch.minimum(s["rc"], linecap)
+        room = torch.maximum(p["burst"] - (s["injected"] + s["inj_lo"]),
+                             zero)
+        # burst-train duty cycle: the tap only opens during the on-phase
+        active = adv & (~onoff | (torch.fmod(now - p["start"], period)
+                                  < p["on_us"]))
+        offer = torch.where(active, torch.minimum(gbps * bpt, room), zero)
+        # source-side backpressure: the NIC queue never overflows, bytes
+        # that don't fit in the flow's class partition stay un-injected
+        off_pf = occ[0] * offer[:, None, :]
+        tot_q = class_tot(off_pf)                            # [G, Q, P]
+        space_q = torch.maximum(buf_tc - class_tot(s["qm"][:, 0]), zero)
+        scale_q = torch.where(tot_q > space_q,
+                              space_q / torch.maximum(tot_q, tiny), one)
+        take_f = offer * (occ[0] * to_flows(scale_q)).sum(-2)
+        s["inj_lo"] = s["inj_lo"] + take_f
+        s["qm"] = s["qm"] + (occ[0] * take_f[:, None, :])[:, None] \
+            * st["sel0"]
+
+        # ---- 2. tier-ordered forwarding (cut-through within the tick) ---- #
+        for k in range(_STAGES - 1):
+            out = drain(s, k)
+            fbm = (occ[k] * out).sum(-2)                     # [G, 2, F]
+            enqueue(s, dest[k] * fbm[..., None, :])
+        out = drain(s, _STAGES - 1)
+        fbm = (occ[_STAGES - 1] * out).sum(-2)
+        arr_b = fbm[:, 0]
+        arr_m = fbm[:, 1]
+
+        # ---- 3. receivers advance one tick (HostDatapath, stacked) -------- #
+        arr_rb = st["recv_onehot"] * arr_b[:, None, :]       # [G, R, F]
+        # QoS-classed arrivals [G, Q, R] (admission class x receiver)
+        arr_cr = (st["cls_recv"] * arr_b[:, None, None, :]).sum(-1)
+        arr_tot = arr_cr.sum(-2)
+        # admission: RNIC buffer space granted in QoS-priority order —
+        # the second fused priority water-fill
+        space_r = torch.maximum(p["rnic_buf"] - s["qos_q"].sum(-2), zero)
+        acc_cr = fused.priority_admit(arr_cr, space_r, impl=impl)
+        accepted = acc_cr[:, 0]
+        for q_i in range(1, N_QOS):
+            accepted = accepted + acc_cr[:, q_i]
+        s["rnic_drop"] = s["rnic_drop"] + (arr_tot - accepted)
+        s["qos_q"] = s["qos_q"] + acc_cr
+
+        ws = p["qp_bytes"] + s["resident"]
+        miss = torch.clamp((ws - p["ddio"]) * inv_knee, zero, one)
+        s["miss_sum"] = s["miss_sum"] + torch.where(jet, zero, miss)
+        ddio_bw = torch.where(miss > 1e-9,
+                              torch.minimum(p["pcie"],
+                                            avail_dram / (2.0 * miss + tiny)),
+                              p["pcie"])
+        # drain budget granted in QoS-priority order; under Jet pool
+        # pressure (< cache_safe free) the LOW class spills to DRAM (§5)
+        rbudget = torch.where(jet, jet_cap, ddio_bw * bpt)
+        pool_free = torch.maximum(zero, p["pool"] - s["resident"])
+        spill = jet & (pool_free / p["pool"] < p["safe"])
+        pf = torch.where(jet, pool_free, inf)
+        drained = pool_drained = fallback = zero
+        new_q = []
+        for q_i in range(N_QOS):
+            qq = s["qos_q"][:, q_i]
+            take = torch.minimum(torch.minimum(qq, rbudget), pf)
+            if q_i == N_QOS - 1:        # LOW spills instead of waiting
+                take = torch.where(spill, torch.minimum(qq, rbudget), take)
+                spilled = torch.where(spill, take, zero)
+            else:
+                spilled = zero
+            pf = pf - (take - spilled)
+            rbudget = rbudget - take
+            new_q.append(qq - take)
+            drained = drained + take
+            pool_drained = pool_drained + (take - spilled)
+            fallback = fallback + spilled
+        s["qos_q"] = torch.stack(new_q, -2)
+        s["nic_dram"] = s["nic_dram"] + \
+            torch.where(jet, fallback, drained * 2.0 * miss)
+        s["mem_fb"] = s["mem_fb"] + fallback
+        strag_part = pool_drained * strag_share
+        parts = torch.stack([pool_drained * (1.0 - strag_share),
+                             strag_part], -2)
+        # release ring [G, H, 2, R]: an in-place slot write
+        s["ring"][:, t % H] = parts
+        s["resident"] = s["resident"] + pool_drained
+        s["strag_res"] = s["strag_res"] + strag_part
+        s["drained"] = s["drained"] + drained
+
+        idx = (t - p["d2"]) % H                              # [G, 2, R]
+        r2 = torch.take_along_dim(s["ring"], idx[:, None], 1)[:, 0]
+        r2 = torch.where(t >= p["d2"], r2, zero)
+        for j, is_strag in ((0, False), (1, True)):
+            r = r2[:, j]
+            void = torch.minimum(r, s["esc_debt"])
+            s["esc_debt"] = s["esc_debt"] - void
+            r = r - void
+            repay = torch.minimum(void, s["repl_debt"])
+            s["repl_debt"] = s["repl_debt"] - repay
+            s["repl_mem"] = torch.maximum(zero, s["repl_mem"] - repay)
+            s["resident"] = torch.maximum(zero, s["resident"] - r)
+            if is_strag:
+                s["strag_res"] = torch.maximum(zero, s["strag_res"] - r)
+
+        # Jet escape ladder (paper Algorithm 1)
+        avail = torch.maximum(zero, p["pool"] - s["resident"]) / p["pool"]
+        esc_on = jet & (avail < p["safe"])
+        can_rep = s["repl_mem"] < p["mem_esc"]
+        x_rep = torch.where(esc_on & can_rep,
+                            torch.maximum(zero, torch.minimum(
+                                s["strag_res"],
+                                p["mem_esc"] - s["repl_mem"])),
+                            zero)
+        s["resident"] = s["resident"] - x_rep
+        s["strag_res"] = s["strag_res"] - x_rep
+        s["esc_debt"] = s["esc_debt"] + x_rep
+        s["repl_debt"] = s["repl_debt"] + x_rep
+        s["repl_mem"] = s["repl_mem"] + x_rep
+        s["esc_dram"] = s["esc_dram"] + 0.1 * x_rep
+        s["replaces"] = s["replaces"] + (x_rep > zero)
+        x_cop = torch.where(esc_on & ~can_rep, s["strag_res"], zero)
+        s["resident"] = s["resident"] - x_cop
+        s["strag_res"] = s["strag_res"] - x_cop
+        s["esc_debt"] = s["esc_debt"] + x_cop
+        s["esc_dram"] = s["esc_dram"] + x_cop
+        s["copies"] = s["copies"] + (x_cop > zero)
+        avail2 = torch.maximum(zero, p["pool"] - s["resident"]) / p["pool"]
+        in_danger = esc_on & (avail2 < p["danger"])
+        s["ecn_tus"] = torch.where(in_danger, s["ecn_tus"] + fdt,
+                                   s["ecn_tus"])
+        esc_fire = in_danger & (s["ecn_tus"] >= p["cnp_iv"])
+        s["ecn_tus"] = torch.where(esc_fire, zero, s["ecn_tus"])
+        s["cnps"] = s["cnps"] + esc_fire
+        s["ecns"] = s["ecns"] + esc_fire
+        s["pool_sum"] = s["pool_sum"] + torch.where(jet, s["resident"], zero)
+        s["pool_peak"] = torch.maximum(s["pool_peak"],
+                                       torch.where(jet, s["resident"], zero))
+
+        # receiver congestion signalling (whole-link RNIC gate)
+        q_frac = s["qos_q"].sum(-2) / p["rnic_buf"]
+        s["pfc"] = rx_pfc_en & torch.where(s["pfc"], q_frac >= p["xon"],
+                                           q_frac > p["xoff"])
+        s["pfc_us"] = s["pfc_us"] + torch.where(s["pfc"], fdt, zero)
+        cnp_tus = s["cnp_tus"] + fdt
+        wm_fire = wm_en & (q_frac > p["ecn_th"]) & (cnp_tus >= p["cnp_iv"])
+        s["cnp_tus"] = torch.where(wm_fire, zero, cnp_tus)
+        s["cnps"] = s["cnps"] + wm_fire
+
+        # ---- 4. feedback routes back to the senders ----------------------- #
+        # per-class acceptance share: a flow recovers the share its own
+        # admission class received
+        share_cr = torch.where(arr_cr > zero,
+                               acc_cr / torch.maximum(arr_cr, tiny), zero)
+        deliv = arr_b * share_cr[:, cls_of, recv_of]
+        s["deliv_lo"] = s["deliv_lo"] + deliv
+        # RNIC tail drops are retransmitted too (fluid RC)
+        s["inj_lo"] = s["inj_lo"] - (arr_b - deliv)
+        s["completion"] = torch.where(
+            torch.isinf(s["completion"])
+            & (s["delivered"] + s["deliv_lo"] >= p["burst_done"]),
+            now, s["completion"])
+
+        # receiver CNPs hit the heaviest recently-arriving flow (lowest
+        # flow id on ties: argmax returns the first maximum); with nothing
+        # arriving the previous target stays throttled
+        has_arr = arr_tot > zero
+        heavy_new = torch.argmax(arr_rb, -1).to(torch.int32)
+        s["heavy"] = torch.where(has_arr, heavy_new, s["heavy"])
+        is_heavy = arangeF == s["heavy"][:, recv_of]
+        f_esc = is_heavy & esc_fire[:, recv_of]
+        f_wm = is_heavy & wm_fire[:, recv_of]
+        # switch ECN marks -> per-flow CNPs, paced per DCQCN NP
+        s["backlog"] = s["backlog"] + arr_m
+        pace_tus = s["pace_tus"] + fdt
+        pace_fire = (s["backlog"] > zero) & (pace_tus >= p["cnp_iv_f"])
+        s["pace_tus"] = torch.where(pace_fire, zero, pace_tus)
+        s["backlog"] = torch.where(pace_fire, zero, s["backlog"])
+        # CNP propagation ring [G, Hc, 3, F]: notifications generated this
+        # tick (slot t % Hc) cut their sender its own cnp_delay ticks
+        # later (a per-flow gather; unwritten slots still hold zero)
+        fires = torch.stack([torch.where(f_esc, one, zero),
+                             torch.where(f_wm, one, zero),
+                             torch.where(pace_fire, one, zero)], -2)
+        s["cring"][:, t % Hc] = fires
+        cidx = (t - p["cnp_dly"]) % Hc                       # [G, F]
+        due = torch.take_along_dim(s["cring"], cidx[:, None, None, :],
+                                   1)[:, 0]
+        for j in range(3):
+            cut(s, due[:, j] > half)
+
+        # ---- 5. per-priority PFC pause propagation ------------------------ #
+        q0 = s["qm"][:, 0]
+        frac_occ = class_tot(q0) / buf_tc                    # [G, Q, P]
+        s["asserted"] = can_assert[:, None, :] & \
+            torch.where(s["asserted"], frac_occ >= sxon, frac_occ > sxoff)
+        # a flow contributes a pause iff its own class is over watermark
+        # at the port it is queued in: scatter the per-class assert state
+        # back to (port, flow), then to that flow's class on its ingress
+        # link — [G, Q, P*F] @ [P*F, P]
+        assert_pf = to_flows(torch.where(s["asserted"], one, zero))
+        contrib = torch.where((assert_pf > half) & (q0 > zero), one, zero)
+        contrib_q = contrib[:, None] * clsF[:, :, None, :]   # [G, Q, P, F]
+        flat = contrib_q.reshape(contrib_q.shape[:2] + (-1,))
+        link_paused = torch.matmul(flat, st["prev_mat"]) > zero
+        link_any = link_paused.any(-2)
+        s["pause_us"] = s["pause_us"] + torch.where(link_any, fdt, zero)
+        s["pause_tc_us"] = s["pause_tc_us"] + \
+            torch.where(link_paused, fdt, zero)
+        s["ever_paused"] = s["ever_paused"] | link_any
+        # the receiver RNIC gate pauses its whole access link
+        rx_gate = s["pfc"][:, st["owner_clamp"]] & st["owner_valid"]
+        s["paused"] = link_paused | rx_gate[:, None, :]
+        return s
+
+    return step
+
+
+# --------------------------------------------------------------------------- #
+# Results
+# --------------------------------------------------------------------------- #
+def _results(s: Dict[str, np.ndarray],
+             fsp: FabricSweepParams) -> Dict[str, np.ndarray]:
+    sim_us = fsp.ticks * fsp.dt_us
+    per_gbps = 8.0 / (sim_us * 1e-6) / 1e9
+    deliv = np.asarray(s["delivered"], np.float64) \
+        + np.asarray(s["deliv_lo"], np.float64)
+    goodput = deliv * per_gbps
+    comp = np.asarray(s["completion"], np.float64)
+    tags = np.array(fsp.flow_tags)
+    inc_mask = (tags == "incast")[None, :] \
+        & np.isfinite(fsp.pvals["burst"])
+    inc_comp = np.where(
+        inc_mask.any(-1),
+        np.where(inc_mask, comp, -np.inf).max(-1), np.nan)
+    vic = tags == "victim"
+    G = fsp.n_points
+    victim = goodput[:, vic].mean(-1) if vic.any() else np.zeros(G)
+    out = {
+        "flow_goodput_gbps": goodput,
+        "flow_delivered_bytes": deliv,
+        "flow_completion_us": comp,
+        "incast_completion_us": inc_comp,
+        "victim_goodput_gbps": victim,
+        "has_victim": np.full(G, bool(vic.any())),
+        "pause_fanout": np.asarray(s["ever_paused"]).sum(-1),
+        "pause_total_us": np.asarray(s["pause_us"], np.float64).sum(-1),
+        # per-priority pause budget: [G, Q] microseconds summed over
+        # ingress links
+        "pause_tc_total_us": np.asarray(s["pause_tc_us"],
+                                        np.float64).sum(-1),
+        "pause_tc_fanout": (np.asarray(s["pause_tc_us"], np.float64)
+                            > 0.0).sum(-1),
+        "ecn_marked_bytes": np.asarray(s["ecn_marked"], np.float64),
+        "switch_dropped_bytes": np.asarray(s["sw_dropped"], np.float64),
+        "recv_goodput_gbps": np.asarray(s["drained"], np.float64)
+        * per_gbps,
+        "recv_cnp_count": np.asarray(s["cnps"], np.float64),
+        "recv_escape_ecn": np.asarray(s["ecns"], np.float64),
+        "recv_pfc_pause_us": np.asarray(s["pfc_us"], np.float64),
+        "recv_rnic_dropped_bytes": np.asarray(s["rnic_drop"], np.float64),
+        "recv_mem_fallback_bytes": np.asarray(s["mem_fb"], np.float64),
+    }
+    # candidate ingress links that can ever receive a pause = ports with
+    # ingress support (the scalar driver's `pausable` set exactly)
+    pmask = fsp.prev_onehot.sum((0, 1)) > 0
+    n_pausable = np.full(G, pmask.sum())
+    out["n_pausable_links"] = n_pausable
+    out["pause_storm"] = np.where(
+        n_pausable > 0,
+        out["pause_tc_fanout"].max(-1) / np.maximum(n_pausable, 1), 0.0)
+    # layers this engine does not run report their zero outputs
+    for k in ("retransmit_bytes", "dropped_pkts", "deadlock_ticks",
+              "msg_count_total", "reroute_count"):
+        out[k] = np.zeros(G)
+    out["has_messages"] = np.zeros(G, bool)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Entry points
+# --------------------------------------------------------------------------- #
+def run_packed(fsp: FabricSweepParams, device=None,
+               dtype: Optional[torch.dtype] = None,
+               impl: str = "auto") -> Dict[str, np.ndarray]:
+    """Advance a packed grid (see :func:`run_fabric_sweep`)."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dev, dtype)
+    full_fp32_matmul()
+    fused.resolve_impl(impl, dev)            # reject a bad impl up front
+    np_dt = np.float32 if dt == torch.float32 else np.float64
+    p = {k: _to_device(v, dt, dev) for k, v in _np_params(fsp, np_dt).items()}
+    st = {k: _to_device(v, dt, dev) for k, v in _static(fsp).items()}
+    step = _make_step(st, p, fsp.dt_us, fsp.ring_len, fsp.cnp_ring,
+                      fsp.ticks, dt, dev, impl)
+    s = _init_state(fsp, p, dt, dev)
+    for t in range(fsp.ticks):
+        s = step(s, t)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return _results({k: v.cpu().numpy() for k, v in s.items()}, fsp)
+
+
+def run_fabric_sweep(scenarios: Sequence, device=None,
+                     dtype: Optional[torch.dtype] = None,
+                     impl: str = "auto",
+                     adaptive_dt: bool = False) -> Dict[str, np.ndarray]:
+    """Advance a grid of fabric scenarios through the full multi-host
+    recurrence at once; returns ``{metric: array}`` aligned with the input
+    order (arrays are ``[G]``, ``[G, F]`` or ``[G, R]`` — flow order is the
+    scenario flow list, receiver order is ``sorted({flow.dst})``), with
+    the keys the reference returns for static grids.
+
+    ``device=None`` runs on CUDA and raises ``RuntimeError`` without it;
+    pass ``device="cpu"`` for the CPU.  ``dtype`` defaults to float32
+    (the only CUDA dtype); float64 on the CPU is the oracle mode.
+    ``impl="auto"`` launches the CUDA water-fill kernels on the card and
+    runs their plain versions on the CPU.  ``adaptive_dt`` macro-ticking
+    is not part of this port and raises ``NotImplementedError``.
+    """
+    if adaptive_dt:
+        raise NotImplementedError("adaptive_dt macro-ticking is not part "
+                                  "of the PyTorch fabric engine yet")
+    return run_packed(FabricSweepParams.from_scenarios(scenarios),
+                      device=device, dtype=dtype, impl=impl)
