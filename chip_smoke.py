@@ -9,11 +9,19 @@ Each phase prints one JSON line:
 
 1. ``card``: the card's name and power limit (``nvidia-smi``), the
    PyTorch/CUDA versions, and the CUDA kernels' build from the sources
-   in the checkout (seconds, ptxas register report).
-2. ``kernel``: each CUDA kernel at the main path's shape and at one large
-   shape, on seeded inputs, held against its plain PyTorch version on the
-   card bit for bit; per-call time of both from CUDA events, and the
-   bound (bytes moved over the card's memory rate).
+   in the checkout (one ``nvcc`` per source, all started together;
+   seconds, ptxas register report).
+2. ``kernel``: each CUDA kernel on seeded inputs at the shapes its main
+   path gives it and at large ones, held against its plain PyTorch
+   version on the card (the water-fills bit for bit; flash attention and
+   the SSD scan within 2e-4 abs + rel in float32, the tier of
+   ``tests/test_kernels.py``, and 1e-2 in bfloat16, five times the error
+   measured on the H100 where that file allows 5e-2); per-call time of
+   both from CUDA events, the bound (the larger of bytes over the memory
+   rate and operations over the type's peak) and, for every flash
+   attention case, the time of one ``F.scaled_dot_product_attention``
+   call on the same inputs and mask as a yardstick (the port never calls
+   it).
 3. ``main_path``: the fabric bench's 48-point, 8-sender incast grid
    (receiver mode x PFC x 12 burst sizes) at full width, depth cut from
    20 ms to 2 ms, through ``run_fabric_sweep`` on the card.  Every launch
@@ -24,6 +32,19 @@ Each phase prints one JSON line:
 4. ``profile``: a 50-tick run of the same grid under ``torch.profiler``:
    kernels launched per tick, device busy share, the water-fills' device
    time per launch and the top kernels by device time.
+5. ``serve``: zamba2-1.2b at full width (38 layers, d_model 2048, vocab
+   32000, float32, seeded random weights) behind the Jet-admitted
+   ``ServingEngine`` (4 lanes, max_len 1280): 6 requests with prompts of
+   64..1024 tokens, 16 new tokens each.  Every prompt's prefill through
+   the kernels must match its prefill through the plain versions within
+   2e-3 of the largest magnitude (logits, Mamba2 and KV states); the
+   engine run must serve 6/6 requests, launch flash attention exactly
+   6 x 6 and the SSD scan 6 x 38 times, and generate the tokens of a
+   plain-version engine run, except after a step whose plain top-2 logit
+   margin was below 1e-3.
+6. ``profile_serve``: one 1024-token prefill and 8 four-lane decode steps
+   under ``torch.profiler``: kernels per decode step, device busy shares,
+   and the two kernels' device time per launch.
 
 Then the card line as ``nvidia-smi`` prints it, the ``kernels`` summary
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -45,10 +66,21 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TOL = 5e-4                  # bench_floors.json dev_goodput_vs_numpy
 SIM_TIME_S = 0.002          # depth cut: 20 ms -> 2 ms (2000 ticks)
 BURSTS_MB = [0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0]
-KERNEL_SOURCE = "src/repro_torch/csrc/fused_waterfill.cu"
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
+SOURCES = {"priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
+           "priority_admit": "src/repro_torch/csrc/fused_waterfill.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 REPLACES = {"priority_grants": "src/repro/fabric/fused.py:99",
-            "priority_admit": "src/repro/fabric/fused.py:142"}
+            "priority_admit": "src/repro/fabric/fused.py:142",
+            "flash_attention": "src/repro/kernels/jet_flash_attention.py:77",
+            "ssd_scan": "src/repro/kernels/mamba2_ssd.py:63"}
 LARGE = (4096, 3, 4096)
+SERVE_PROMPTS = [64, 128, 256, 512, 1024, 256]
+SERVE_NEW = 16
+STATE_TOL = 2e-3            # prefill with kernels vs plain, relative
+MARGIN = 1e-3               # plain top-2 logit margin below which greedy
+                            # tokens may rightly differ
 
 
 class SmokeFailure(Exception):
@@ -267,6 +299,324 @@ def profile_phase() -> None:
                "device_us": e.device_time_total} for e in top])
 
 
+def close_enough(got, want, tol: float):
+    """(max abs error, whether |got - want| <= tol + tol * |want| holds
+    everywhere and both are finite)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (err <= tol + tol * w.abs()).all())
+    return float(err.max().item()) if err.numel() else 0.0, ok
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def visible_pairs(t: int, s: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, right-aligned."""
+    import numpy as np
+    tq = np.arange(t, dtype=np.int64) + (s - t)
+    hi = np.minimum(tq, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(tq - window + 1, 0) if window else np.zeros(t, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
+                d: int, causal: bool, window, dtype: str, seed: int,
+                iters: int, plain_iters: int) -> dict:
+    """Hold the flash attention kernel against its plain version, and
+    time one ``F.scaled_dot_product_attention`` call on the same case."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda().to(tdt)
+    q, k, v = draw((b, hq, t, d)), draw((b, hkv, s, d)), draw((b, hkv, s, d))
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="cuda")
+
+    def plain():
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="ref")
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    err, ok = close_enough(got, want, tol)
+    esize = q.element_size()
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * esize
+    nops = 4.0 * b * hq * d * visible_pairs(t, s, causal, window)
+    bms, by = bound(nbytes, nops, FP32_OPS_PER_S if dtype == "float32"
+                    else BF16_OPS_PER_S)
+    # the yardstick: one PyTorch call on the same case; a boolean mask
+    # (True = attend) where causality is right-aligned or windowed
+    lib_kw = {"enable_gqa": True} if hkv != hq else {}
+    if causal and t == s and not window:
+        lib_kw["is_causal"] = True
+    elif causal or window:
+        tq = torch.arange(t, device=q.device)[:, None] + (s - t)
+        sk = torch.arange(s, device=q.device)[None, :]
+        mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= tq >= sk
+        if window:
+            mask &= tq - sk < window
+        lib_kw["attn_mask"] = mask
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, **lib_kw)
+    lib_err, _ = close_enough(library(), want, tol)
+    lib_ms = cuda_ms(library, iters)
+    row = {"name": "flash_attention", "case": label,
+           "q": [b, hq, t, d], "kv": [b, hkv, s, d], "causal": causal,
+           "window": window, "dtype": dtype, "tol": tol, "ok": ok,
+           "max_abs_err": err, "ms": cuda_ms(kernel, iters),
+           "plain_ms": cuda_ms(plain, plain_iters), "bound_ms": bms,
+           "bound_by": by, "library_ms": lib_ms,
+           "library_max_abs_err": lib_err, "gflop": nops / 1e9,
+           "bytes": nbytes}
+    emit("kernel", **row)
+    check(ok, f"flash_attention kernel != plain version ({label}): max "
+              f"abs err {err}, tol {tol}")
+    return row
+
+
+def ssd_phase(label: str, B: int, T: int, H: int, P: int, G: int, N: int,
+              chunk: int, seed: int, iters: int, plain_iters: int) -> dict:
+    """Hold the SSD scan kernel against its plain version, on inputs made
+    as the Mamba2 block makes them (dt = softplus around 0.05, a from the
+    block's a_log)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda()
+    x, b, c = draw((B, T, H, P)), draw((B, T, G, N)), draw((B, T, G, N))
+    dt = F.softplus(draw((B, T, H), 0.5) + math.log(math.expm1(0.05)))
+    a = -torch.linspace(1.0, 8.0, H, device="cuda")
+
+    def kernel():
+        return ops.ssd(x, dt, a, b, c, chunk=chunk, impl="cuda")
+
+    def plain():
+        return ops.ssd(x, dt, a, b, c, chunk=chunk, impl="ref")
+    (y, h), (y0, h0) = kernel(), plain()
+    torch.cuda.synchronize()
+    err_y, ok_y = close_enough(y, y0, 2e-4)
+    err_h, ok_h = close_enough(h, h0, 2e-4)
+    L = min(chunk, T)
+    nc = T // L
+    # causal half of scores (c.b) and of scores @ x, plus c @ h and the
+    # state update, per (batch, head, chunk)
+    nops = float(B * H * nc) * (L * (L + 1) / 2 * 2 * (N + P)
+                                + 4.0 * L * N * P)
+    nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b.numel()
+                  + c.numel() + h.numel())
+    bms, by = bound(nbytes, nops, FP32_OPS_PER_S)
+    row = {"name": "ssd_scan", "case": label, "x": [B, T, H, P],
+           "bc": [B, T, G, N], "chunk": L, "blocks": B * H, "tol": 2e-4,
+           "ok": ok_y and ok_h, "max_abs_err": max(err_y, err_h),
+           "max_abs_err_y": err_y, "max_abs_err_h": err_h,
+           "ms": cuda_ms(kernel, iters),
+           "plain_ms": cuda_ms(plain, plain_iters), "bound_ms": bms,
+           "bound_by": by, "library_ms": None, "gflop": nops / 1e9,
+           "bytes": nbytes}
+    emit("kernel", **row)
+    check(ok_y and ok_h, f"ssd_scan kernel != plain version ({label}): "
+                         f"max abs err y {err_y}, h {err_h}")
+    return row
+
+
+def tree_rel(got, want) -> float:
+    """Largest leaf-wise max |got - want| / max |want| over two trees."""
+    from repro_torch.models.decoding import tree_map
+    worst = []
+    tree_map(lambda g, w: worst.append(float(
+        (g.float() - w.float()).abs().max()
+        / max(float(w.float().abs().max()), 1e-30))), got, want)
+    return max(worst)
+
+
+def serve_phase(cfg, dev) -> dict:
+    """``cfg`` (zamba2-1.2b at full width) behind the Jet-admitted engine
+    on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.datapath import QoS
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.decoding import tree_map
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+    n_attn = layer_kinds(cfg).count("mamba_attn")    # 6 at 38 layers
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    ecfg = EngineConfig(max_lanes=4, max_len=1280, eos_token=-1)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    # every prompt's prefill: kernels against the plain versions
+    prefill_dev = []
+    for pr in prompts:
+        tok = torch.from_numpy(pr.astype(np.int64)).to(dev)[None]
+        lk, sk, _ = api.prefill(params, cfg, tok, max_len=ecfg.max_len)
+        lr, sr, _ = api.prefill(params, cfg, tok, max_len=ecfg.max_len,
+                                impl="ref")
+        prefill_dev.append({"prompt": len(pr),
+                            "logits": tree_rel(lk, lr),
+                            "state": tree_rel(sk, sr)})
+        del lk, sk, lr, sr
+    torch.cuda.empty_cache()
+
+    def requests():
+        return [Request(i, pr, SERVE_NEW,
+                        QoS.HIGH if i % 4 == 0 else QoS.NORMAL)
+                for i, pr in enumerate(prompts)]
+
+    # warm-up: one short request (CUDA context, cuBLAS handles)
+    warm = ServingEngine(cfg, ecfg, params, device=dev)
+    warm.submit(Request(99, prompts[0][:64], 2))
+    warm.run_until_done(max_ticks=10)
+    del warm
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng = ServingEngine(cfg, ecfg, params, device=dev)
+    for r in requests():
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run_until_done(max_ticks=200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    margins = {}
+
+    def record(req_ids, logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        for rid, m in zip(req_ids, (top[:, 0] - top[:, 1]).tolist()):
+            margins.setdefault(rid, []).append(m)
+    plain = ServingEngine(cfg, ecfg, params, device=dev, impl="ref",
+                          on_logits=record)
+    for r in requests():
+        plain.submit(r)
+    plain.run_until_done(max_ticks=200)
+
+    served = len(eng.done)
+    n_tok = sum(len(r.generated) for r in eng.done.values())
+    diverged, excused = [], True
+    for rid, r in eng.done.items():
+        want = plain.done[rid].generated
+        k = next((i for i, (a, b) in enumerate(zip(r.generated, want))
+                  if a != b), None)
+        if k is not None:
+            diverged.append(rid)
+            excused &= min(margins[rid][:k + 1]) < MARGIN
+    dec = eng.timings["decode_s"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(sizes), "dtype": "float32", "init_s": init_s,
+           "requests": len(prompts), "served": served,
+           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "prefill_ms": [x * 1e3 for x in eng.timings["prefill_s"]],
+           "decode_steps": len(dec),
+           "decode_ms_mean": float(np.mean(dec)) * 1e3,
+           "decode_ms_median": float(np.median(dec)) * 1e3,
+           "launches": launches,
+           "want_launches": {"flash_attention": n_attn * len(prompts),
+                             "ssd_scan": cfg.num_layers * len(prompts)},
+           "prefill_vs_plain": prefill_dev,
+           "tokens_equal_plain": not diverged, "diverged": diverged,
+           "min_plain_margin": min(min(m) for m in margins.values()),
+           "peak_mem_gb": peak_gb, "jet": eng.jet.stats()}
+    emit("serve", **out)
+    check(served == len(prompts), f"served {served}/{len(prompts)}")
+    check(all(len(r.generated) == SERVE_NEW for r in eng.done.values()),
+          "a request did not get its 16 tokens")
+    check(launches == out["want_launches"],
+          f"launches {launches}, want {out['want_launches']}")
+    for row in prefill_dev:
+        check(row["logits"] <= STATE_TOL and row["state"] <= STATE_TOL,
+              f"prefill with kernels deviates from the plain one: {row}")
+    check(excused, f"tokens of requests {diverged} differ from the plain "
+                   f"run after a confident step")
+    return out
+
+
+def profile_serve(cfg, dev) -> None:
+    """One 1024-token prefill and 8 four-lane decode steps under the
+    profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    tok = torch.from_numpy(np.random.default_rng(8).integers(
+        2, cfg.vocab_size, size=(1, 1024))).to(dev)
+    state = api.init_decode_state(cfg, 4, 1280, device=dev)
+    lanes_tok = torch.full((4,), 5, dtype=torch.int32, device=dev)
+    lengths = torch.full((4,), 1024, dtype=torch.int32, device=dev)
+    api.prefill(params, cfg, tok, max_len=1280)      # warm
+    api.decode_step(params, cfg, state, lanes_tok, lengths)
+    torch.cuda.synchronize()
+    out = {}
+    for name, steps in (("prefill", 1), ("decode", 8)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                if name == "prefill":
+                    api.prefill(params, cfg, tok, max_len=1280)
+                else:
+                    api.decode_step(params, cfg, state, lanes_tok, lengths)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in rows)
+        own = {k: [e for e in rows if f"{k}_kernel" in e.key]
+               for k in ("flash", "ssd")}
+        top = sorted(rows, key=lambda e: -e.device_time_total)[:6]
+        out[name] = {
+            "steps": steps, "wall_ms": wall * 1e3,
+            "kernels_per_step": sum(e.count for e in rows) / steps,
+            "device_busy_us_per_step": busy / steps,
+            "device_busy_share": busy * 1e-6 / wall if wall else None,
+            "own_kernels": {k: {
+                "count": sum(e.count for e in es),
+                "device_us_per_launch": sum(e.device_time_total for e in es)
+                / max(1, sum(e.count for e in es))}
+                for k, es in own.items()},
+            "top": [{"kernel": e.key[:80], "count": e.count,
+                     "device_us": e.device_time_total} for e in top]}
+    emit("profile_serve", **out)
+
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -295,18 +645,37 @@ def run() -> int:
                 ("priority_admit", (48, 3, 2), 2)):
             rows[name] = kernel_phase(name, main_shape, seed, iters=2000)
             kernel_phase(name, LARGE, seed + 10, iters=20)
+        # serve path's shapes first: those rows go into the kernels line
+        rows["flash_attention"] = flash_phase(
+            "serve path", 1, 32, 32, 1024, 1024, 64, True, None, "float32",
+            3, iters=50, plain_iters=5)
+        flash_phase("large", 4, 32, 32, 4096, 4096, 64, True, None,
+                    "float32", 4, iters=5, plain_iters=2)
+        flash_phase("gqa window bf16", 1, 32, 8, 1024, 1024, 80, True, 256,
+                    "bfloat16", 5, iters=20, plain_iters=3)
+        flash_phase("non-causal T<S", 2, 8, 8, 200, 1000, 64, False, None,
+                    "float32", 6, iters=20, plain_iters=3)
+        rows["ssd_scan"] = ssd_phase("serve path", 1, 1024, 64, 64, 1, 64,
+                                     256, 7, iters=20, plain_iters=5)
+        ssd_phase("large", 4, 4096, 64, 64, 1, 64, 256, 8, iters=3,
+                  plain_iters=2)
         main = main_path()
         profile_phase()
+        from repro_torch.configs import get_arch
+        zamba2 = get_arch("zamba2-1.2b")
+        serve = serve_phase(zamba2, torch.device("cuda"))
+        profile_serve(zamba2, torch.device("cuda"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(card, flush=True)
+    launches = {**main["launches"], **serve["launches"]}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": main["launches"][name],
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for name, r in rows.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
-"""Device and precision resolution for the port's entry points.
+"""Device, precision and kernel-dispatch resolution for the port.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means CUDA, and a missing CUDA runtime is an error, never
-a silent fall back to the CPU.  On CUDA the engine computes in float32
-(as the JAX reference does); on the CPU float32 and float64 are both
-allowed, float64 being the oracle mode.
+a silent fall back to the CPU.  Every path that resolves a device also
+keeps float32 products in full float32 (:func:`full_fp32_matmul`).  On
+CUDA the engines compute in float32 (as the JAX reference does); on the
+CPU float32 and float64 are both allowed, float64 being the oracle mode.
+
+Every kernel wrapper dispatches through :func:`resolve_impl` and counts
+its launches in a :class:`LaunchCounts`.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional, Union
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+IMPLS = ("auto", "cuda", "ref")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -23,6 +28,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                            "the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    full_fp32_matmul()
     return dev
 
 
@@ -39,11 +45,38 @@ def resolve_dtype(dev: torch.device,
 
 def full_fp32_matmul() -> None:
     """Keep float32 products in full float32 on the card.  The fabric tick
-    scatters class and PFC state through one-hot ``matmul``s; TF32 would
-    round their operands to 10 mantissa bits and break the float32
-    parity with the reference."""
+    scatters class and PFC state through one-hot ``matmul``s and the
+    model's projections are ``matmul``s; TF32 would round their operands
+    to 10 mantissa bits and break the float32 parity with the
+    reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("could not disable TF32 matmuls")
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """The dispatch of every kernel wrapper: ``auto`` -> ``cuda`` for a
+    CUDA tensor, ``ref`` (the plain version) for a CPU one; ``cuda``
+    demands a CUDA tensor; ``ref`` forces the plain version on any device.
+    Nothing falls back: a build or launch failure propagates."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} ({' | '.join(IMPLS)})")
+    if impl == "ref":
+        return "ref"
+    if device.type == "cuda":
+        return "cuda"
+    if impl == "cuda":
+        raise ValueError("impl='cuda' needs CUDA tensors; CPU tensors run "
+                         "the plain version (impl='auto')")
+    return "ref"
+
+
+class LaunchCounts(dict):
+    """Launches per kernel name: a wrapper adds one where it launches its
+    kernel, and nowhere else."""
+
+    def reset(self) -> None:
+        for k in self:
+            self[k] = 0

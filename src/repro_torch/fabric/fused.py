@@ -14,40 +14,25 @@ implementations:
   one launch for the whole grid, one thread per (grid point, column),
   the class loop in registers.  It is bitwise equal to the plain version.
 
-Dispatch (``impl="auto"``): a CUDA tensor launches the kernel, a CPU
-tensor runs the plain version.  ``impl="cuda"`` on a CPU tensor raises.
-Nothing falls back: a build or launch failure propagates.  Each kernel
-launch adds one to :data:`LAUNCHES` under the kernel's name.
+Dispatch (``_device.resolve_impl``, shared with the model kernels):
+``impl="auto"`` launches the kernel on a CUDA tensor and runs the plain
+version on a CPU one; ``impl="cuda"`` on a CPU tensor raises; ``"ref"``
+forces the plain version.  Nothing falls back: a build or launch failure
+propagates.  Each kernel launch adds one to :data:`LAUNCHES` under the
+kernel's name.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
 from .._build import library
+from .._device import LaunchCounts, resolve_impl
 
 _SOURCE = "fused_waterfill"
-LAUNCHES: Dict[str, int] = {"priority_grants": 0, "priority_admit": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def resolve_impl(impl: str, device: torch.device) -> str:
-    """``auto`` -> ``cuda`` for a CUDA device, ``ref`` for the CPU;
-    ``cuda`` demands a CUDA device."""
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r} (auto | cuda)")
-    if device.type == "cuda":
-        return "cuda"
-    if impl == "cuda":
-        raise ValueError("impl='cuda' needs CUDA tensors; CPU tensors run "
-                         "the plain version (impl='auto')")
-    return "ref"
+LAUNCHES = LaunchCounts(priority_grants=0, priority_admit=0)
+reset_launches = LAUNCHES.reset
 
 
 # --------------------------------------------------------------------------- #

@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._device import full_fp32_matmul, resolve_device, resolve_dtype
+from .._device import resolve_device, resolve_dtype
 from ..core.datapath import N_QOS, hold_us_baseline, hold_us_jet
 from ..core.dcqcn import DcqcnConfig
 from . import fused
@@ -941,7 +941,6 @@ def run_packed(fsp: FabricSweepParams, device=None,
     """Advance a packed grid (see :func:`run_fabric_sweep`)."""
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
-    full_fp32_matmul()
     fused.resolve_impl(impl, dev)            # reject a bad impl up front
     np_dt = np.float32 if dt == torch.float32 else np.float64
     p = {k: _to_device(v, dt, dev) for k, v in _np_params(fsp, np_dt).items()}

@@ -1,0 +1,54 @@
+"""Dispatch of the model kernels, the counterpart of ``repro.kernels.ops``.
+
+``impl``:
+
+* ``"auto"`` — a CUDA tensor launches the hand-written kernel, a CPU
+  tensor runs the plain version (the only reason the plain version runs);
+* ``"cuda"`` — the kernel; a CPU tensor raises;
+* ``"ref"`` — the plain version on any device.  Only the tests and the
+  chip smoke test's comparisons ask for it.
+
+Nothing falls back: a build or launch failure propagates (the policy is
+``_device.resolve_impl``, shared with the fabric's water-fills).  Each
+kernel launch adds one to :data:`LAUNCHES` under the kernel's name.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .._device import LaunchCounts, resolve_impl
+from . import ref
+from .jet_flash_attention import flash_attention as _flash_cuda
+from .mamba2_ssd import ssd_scan as _ssd_cuda
+
+LAUNCHES = LaunchCounts(flash_attention=0, ssd_scan=0)
+reset_launches = LAUNCHES.reset
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """q:[B,Hq,T,D] k/v:[B,Hkv,S,D] -> [B,Hq,T,D]."""
+    if resolve_impl(impl, q.device) == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = _flash_cuda(q, k, v, causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
+        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan -> (y [B,T,H,P], h [B,H,N,P] float32).  The chunk
+    is ``min(chunk, T)``, and T must divide by it (ValueError)."""
+    chunk = min(chunk, x.shape[1])
+    if chunk < 1 or x.shape[1] % chunk:
+        raise ValueError(f"sequence length {x.shape[1]} must divide by the "
+                         f"chunk {chunk} (pad the sequence)")
+    if resolve_impl(impl, x.device) == "ref":
+        return ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
+    out = _ssd_cuda(x, dt, a, b, c, chunk)
+    LAUNCHES["ssd_scan"] += 1
+    return out

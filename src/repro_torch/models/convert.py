@@ -1,0 +1,68 @@
+"""Carry the reference's parameters across.
+
+``params_from_jax`` takes the tree the reference's ``init_params`` builds
+(dicts and tuples of arrays, as numpy) and returns the same tree as torch
+tensors: the port keeps the reference's layout (pattern tuple with leaves
+stacked ``[n_units, ...]``, remainder tuple, ``shared_attn``,
+``final_norm``, ``unembed``), so the carry is a plain mapping, and both
+packages then compute the same function.  It reads arrays through
+``numpy.asarray`` and imports nothing of the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..configs.base import ArchConfig
+from .decoding import tree_map
+from .transformer import segments
+
+
+def tree_from_numpy(tree: Any, device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None) -> Any:
+    """Dicts, tuples and lists of arrays -> the same tree of tensors on
+    ``device`` (CUDA unless the caller asks for the CPU; a copy; floating
+    leaves cast to ``dtype`` when it is given)."""
+    return _to_tensors(tree, resolve_device(device), dtype)
+
+
+def _to_tensors(tree: Any, device: torch.device,
+                dtype: Optional[torch.dtype]) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_tensors(v, device, dtype) for v in tree)
+    t = torch.from_numpy(np.array(tree, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree: Any, cfg: ArchConfig, device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """The reference's parameter tree (numpy leaves) -> the port's, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    pattern, n_units, rem = segments(cfg)
+    want = {"embed", "pattern", "remainder", "final_norm"}
+    if "mamba_attn" in pattern + rem:
+        want.add("shared_attn")
+    if not cfg.tie_embeddings:
+        want.add("unembed")
+    if set(tree) != want:
+        raise ValueError(f"parameter tree has {sorted(tree)}, the layout of "
+                         f"{cfg.name} wants {sorted(want)}")
+    if len(tree["pattern"]) != len(pattern) or \
+            len(tree["remainder"]) != len(rem):
+        raise ValueError(f"{len(tree['pattern'])} pattern / "
+                         f"{len(tree['remainder'])} remainder layers, "
+                         f"{cfg.name} has {len(pattern)} / {len(rem)}")
+    for pos, layer in enumerate(tree["pattern"]):
+        lead = set()
+        tree_map(lambda leaf: lead.add(np.shape(leaf)[:1]), layer)
+        if lead != {(n_units,)}:
+            raise ValueError(f"pattern position {pos} is not stacked over "
+                             f"{n_units} units")
+    return tree_from_numpy(tree, device, dtype)

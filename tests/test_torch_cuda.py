@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card (``cuda`` marker).
+"""The port's CUDA kernels on the card (``cuda`` marker): the water-fills
+bit for bit, flash attention and the SSD scan within the tolerances of
+``tests/test_kernels.py``, each against its plain version.
 
 Needs an NVIDIA card and ``nvcc``; every test skips without one.  The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -10,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, tiny_config
 from repro_torch.fabric import fused
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.vector import run_fabric_sweep
+from repro_torch.kernels import ops
+from repro_torch.models import api
 
 torch.set_num_threads(1)
 
@@ -84,3 +89,99 @@ def test_engine_runs_through_the_kernels(card):
         assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
         m = np.isfinite(b)
         assert np.allclose(a[m], b[m], rtol=5e-4, atol=0.0), k
+
+
+# --------------------------------------------------------------------------- #
+# flash attention and the SSD scan
+# --------------------------------------------------------------------------- #
+# (b, hq, hkv, t, s, d, causal, window, dtype): the serve path's causal
+# MHA, GQA + window in bfloat16 at danube's head dim 80, non-causal T < S,
+# causal T < S, ragged tiles, the widest head
+FLASH = [(1, 32, 32, 1024, 1024, 64, True, None, torch.float32),
+         (1, 32, 8, 300, 300, 80, True, 64, torch.bfloat16),
+         (2, 8, 8, 100, 333, 64, False, None, torch.float32),
+         (2, 8, 2, 37, 150, 32, True, None, torch.float32),
+         (1, 4, 1, 65, 65, 16, True, 3, torch.float32),
+         (1, 2, 2, 130, 130, 128, True, None, torch.bfloat16)]
+
+
+def _close(got, want, tol):
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol + tol * want.float().abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window,dtype", FLASH)
+def test_flash_kernel_matches_plain(card, b, hq, hkv, t, s, d, causal,
+                                    window, dtype):
+    g = torch.Generator(device=card).manual_seed(t + s)
+    q = torch.randn((b, hq, t, d), generator=g, device=card).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=g, device=card).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=g, device=card).to(dtype)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                               impl="ref")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    _close(got, want, 2e-4 if dtype == torch.float32 else 5e-2)
+
+
+# (B, T, H, P, G, N, chunk): the serve path's shape, G < H with several
+# chunks, one short chunk, bfloat16
+SSD = [(1, 1024, 64, 64, 1, 64, 256, torch.float32),
+       (2, 96, 8, 32, 2, 16, 32, torch.float32),
+       (1, 20, 4, 16, 1, 8, 256, torch.float32),
+       (1, 128, 8, 64, 1, 64, 64, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,dtype", SSD)
+def test_ssd_kernel_matches_plain(card, B, T, H, P, G, N, chunk, dtype):
+    g = torch.Generator(device=card).manual_seed(T)
+    x = torch.randn((B, T, H, P), generator=g, device=card).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=g, device=card) * 0.5 - 3.0)
+    a = -torch.linspace(1.0, 8.0, H, device=card)
+    b = torch.randn((B, T, G, N), generator=g, device=card).to(dtype)
+    c = torch.randn((B, T, G, N), generator=g, device=card).to(dtype)
+    dt = dt.to(dtype)
+    ops.reset_launches()
+    y, h = ops.ssd(x, dt, a, b, c, chunk=chunk)
+    y0, h0 = ops.ssd(x, dt, a, b, c, chunk=chunk, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    _close(y, y0, tol)
+    _close(h, h0, tol)
+
+
+def test_model_kernel_wrappers_reject_what_they_do_not_take(card):
+    q = torch.zeros((1, 4, 8, 16), device=card)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 2, 8, 160), device=card)
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
+                            q.transpose(2, 3))
+    x = torch.zeros((1, 512, 4, 128), device=card)
+    bc = torch.zeros((1, 512, 1, 128), device=card)
+    dt = torch.zeros((1, 512, 4), device=card)
+    a = torch.zeros(4, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ssd(x, dt, a, bc, bc, chunk=512)
+
+
+def test_tiny_zamba2_prefill_runs_through_the_kernels(card):
+    cfg = tiny_config(get_arch("zamba2-1.2b"))
+    params = api.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                             device=card)
+    tok = torch.randint(2, cfg.vocab_size, (2, 64), device=card)
+    ops.reset_launches()
+    lk, sk, _ = api.prefill(params, cfg, tok, max_len=80)
+    assert ops.LAUNCHES == {"flash_attention": 1, "ssd_scan": 7}
+    lr, sr, _ = api.prefill(params, cfg, tok, max_len=80, impl="ref")
+    assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3

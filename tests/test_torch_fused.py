@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 from repro.fabric import fused as ref_fused
 from repro_torch.fabric import fused
+from repro_torch.kernels import ops
 
 torch.set_num_threads(1)
 
@@ -108,7 +109,11 @@ def test_cpu_tensors_never_launch_and_cuda_impl_raises():
     with pytest.raises(ValueError, match="CUDA"):
         fused.priority_admit(_t(demand), _t(budget), impl="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
-        fused.priority_admit(_t(demand), _t(budget), impl="ref")
+        fused.priority_admit(_t(demand), _t(budget), impl="pallas")
+    assert torch.equal(
+        fused.priority_admit(_t(demand), _t(budget), impl="ref"),
+        fused.priority_admit_ref(_t(demand), _t(budget)))
+    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0}
 
 
 def test_resolve_impl():
@@ -116,6 +121,8 @@ def test_resolve_impl():
     assert fused.resolve_impl("auto", cpu) == "ref"
     assert fused.resolve_impl("auto", gpu) == "cuda"
     assert fused.resolve_impl("cuda", gpu) == "cuda"
+    assert fused.resolve_impl("ref", gpu) == "ref"
+    assert fused.resolve_impl is ops.resolve_impl     # one dispatch policy
     with pytest.raises(ValueError):
         fused.resolve_impl("cuda", cpu)
     with pytest.raises(ValueError):
