@@ -45,6 +45,33 @@ Each phase prints one JSON line:
 6. ``profile_serve``: one 1024-token prefill and 8 four-lane decode steps
    under ``torch.profiler``: kernels per decode step, device busy shares,
    and the two kernels' device time per launch.
+7. ``staged``: zamba2's shared MLP up-projection at a 1024-token prefill
+   through ``ops.staged_matmul`` (one launch), within 1e-4 of the largest
+   magnitude of ``torch.matmul``'s product in full float32.
+8. ``paged``: the paged KV path at zamba2-1.2b's full width.  The six
+   serve prompts' KV of one shared-attention layer (from prefills through
+   the kernels) is appended round-robin into one ``PagedKV`` (page 16,
+   160 pages, 80 a sequence, float32), so no page table is contiguous;
+   ``ops.decode_attention`` on a seeded q must match the dense ring
+   decode (``ref.decode_attention_naive``, what the model's decode path
+   runs) within 2e-4, the tier ``tests/test_serving.py`` and
+   ``tests/test_kernels.py`` hold the paged kernel to; the two halves of
+   every table, merged through their lse, must match the whole; releasing
+   a sequence restores its pages, a new sequence reuses them and decodes
+   right; a small pool runs out as the reference's does (``ok`` False,
+   the token written into page 0); and the kernel launches once per
+   decode call.
+
+The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
+attention, a length-0 row that must give o == 0, danube-1.8b,
+starcoder2-15b and llama4-scout widths; o within 2e-4 in float32 and
+1e-2 in bfloat16, lse within 2e-4; no library call does the same) and the
+staged matmul (zamba2's MLP up-projection in float32 and bfloat16, a
+ragged shape, ``benchmarks/bench_kernels.py``'s FFN tile; within 1e-4 in
+float32 and 2e-2 in bfloat16, the tolerances of ``tests/test_kernels.py``;
+one ``torch.matmul`` as the yardstick) against their plain versions.
+Inputs smaller than the L2 cache are timed over copies that the calls
+cycle through.
 
 Then the card line as ``nvidia-smi`` prints it, the ``kernels`` summary
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -70,17 +97,27 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
 SOURCES = {"priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
            "priority_admit": "src/repro_torch/csrc/fused_waterfill.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+           "decode_attention_paged":
+               "src/repro_torch/csrc/decode_attention.cu",
+           "staged_matmul": "src/repro_torch/csrc/staged_matmul.cu"}
 REPLACES = {"priority_grants": "src/repro/fabric/fused.py:99",
             "priority_admit": "src/repro/fabric/fused.py:142",
             "flash_attention": "src/repro/kernels/jet_flash_attention.py:77",
-            "ssd_scan": "src/repro/kernels/mamba2_ssd.py:63"}
+            "ssd_scan": "src/repro/kernels/mamba2_ssd.py:63",
+            "decode_attention_paged":
+                "src/repro/kernels/jet_decode_attention.py:73",
+            "staged_matmul": "src/repro/kernels/jet_staged_matmul.py:53"}
 LARGE = (4096, 3, 4096)
 SERVE_PROMPTS = [64, 128, 256, 512, 1024, 256]
 SERVE_NEW = 16
 STATE_TOL = 2e-3            # prefill with kernels vs plain, relative
 MARGIN = 1e-3               # plain top-2 logit margin below which greedy
                             # tokens may rightly differ
+PAGED_TOL = 2e-4            # paged decode vs the dense ring decode
+                            # (tests/test_serving.py, tests/test_kernels.py)
+L2_BYTES = 50e6             # H100 L2: smaller inputs are cycled through
+                            # copies so that a timed call reads cold data
 
 
 class SmokeFailure(Exception):
@@ -310,6 +347,21 @@ def close_enough(got, want, tol: float):
     return float(err.max().item()) if err.numel() else 0.0, ok
 
 
+def close_to_scale(got, want, tol: float):
+    """(max abs error, whether it is <= tol * max |want| and got is
+    finite): the check of a matrix product.  tests/test_kernels.py's
+    tolerances (1e-4 float32, 2e-2 bfloat16) taken relative to the
+    product's largest magnitude, since two float32 sums of K products in
+    different orders differ by ~sqrt(K) roundings of the partial sums,
+    which an element whose sum cancels cannot absorb relative to
+    itself."""
+    import torch
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max().item())
+    scale = float(w.abs().max().item())
+    return err, bool(torch.isfinite(g).all()) and err <= tol * scale
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, \
@@ -441,6 +493,337 @@ def ssd_phase(label: str, B: int, T: int, H: int, P: int, G: int, N: int,
     return row
 
 
+def cycled(fn, sets):
+    """``fn`` over a ring of input sets, the next set at each call, so that
+    inputs smaller than the L2 cache are read cold as a decode step's
+    would be."""
+    at = [0]
+
+    def call():
+        i = at[0]
+        at[0] = (i + 1) % len(sets)
+        return fn(*sets[i])
+    return call
+
+
+def paged_inputs(b: int, hq: int, hkv: int, d: int, page: int, lengths,
+                 dtype, seed: int, hole: bool):
+    """Seeded q and pages on the card and a shuffled page table: each
+    sequence's pages come from a permutation of the pool, -1 past its
+    length, and with ``hole`` one -1 inside the longest sequence (which
+    reads page 0, in the kernel as in the plain version)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    need = -(-np.asarray(lengths, np.int64) // page)
+    maxp = int(max(need.max(), 1))
+    n_pool = int(need.sum()) + 8
+    perm = rng.permutation(n_pool)
+    table = np.full((b, maxp), -1, np.int32)
+    at = 0
+    for i in range(b):
+        table[i, :need[i]] = perm[at:at + need[i]]
+        at += need[i]
+    if hole:
+        i = int(np.argmax(need))
+        table[i, need[i] // 2] = -1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn((n_pool, page, hkv, d), generator=g, device="cuda",
+                     dtype=dtype)
+    vp = torch.randn((n_pool, page, hkv, d), generator=g, device="cuda",
+                     dtype=dtype)
+    q = torch.randn((b, hq, d), generator=g, device="cuda", dtype=dtype)
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def decode_phase(label: str, b: int, hq: int, hkv: int, d: int, page: int,
+                 lengths, dtype: str, seed: int, iters: int,
+                 plain_iters: int, hole: bool = False) -> dict:
+    """Hold the paged decode kernel against its plain version (o and
+    lse).  A length-0 row must give o == 0 from the kernel (the plain
+    version gives the mean of v there, as the reference's does)."""
+    import torch
+    from repro_torch.kernels import ops
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    q, kp, vp, table, lens = paged_inputs(b, hq, hkv, d, page, lengths, tdt,
+                                          seed, hole)
+
+    def kernel(k_pages, v_pages):
+        return ops.decode_attention(q, k_pages, v_pages, table, lens,
+                                    impl="cuda")
+
+    def plain(k_pages, v_pages):
+        return ops.decode_attention(q, k_pages, v_pages, table, lens,
+                                    impl="ref")
+    (o, lse), (o0, lse0) = kernel(kp, vp), plain(kp, vp)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    live = lens > 0
+    err_o, ok_o = close_enough(o[live], o0[live], tol)
+    err_l, ok_l = close_enough(lse, lse0, 2e-4)
+    zero_ok = bool((o[~live] == 0).all())
+    maxp = table.shape[1]
+    pos = sum(min(n, maxp * page) for n in lengths)
+    esize = kp.element_size()
+    # q and o, the K and V rows of every position read, their table
+    # entries, the lengths, and lse
+    nbytes = (2 * q.numel() * q.element_size() + 2 * pos * hkv * d * esize
+              + 4 * sum(-(-n // page) for n in lengths) + 4 * b + 4 * b * hq)
+    nops = 4.0 * hq * d * pos
+    bms, by = bound(nbytes, nops, FP32_OPS_PER_S)
+    copies = max(1, min(8, math.ceil(2 * L2_BYTES
+                                     / (2 * kp.numel() * esize))))
+    sets = [(kp, vp)] + [(kp.clone(), vp.clone())
+                         for _ in range(copies - 1)]
+    row = {"name": "decode_attention_paged", "case": label,
+           "q": [b, hq, d], "pages": list(kp.shape), "page_table": [b, maxp],
+           "lengths": list(lengths), "dtype": dtype, "tol": tol,
+           "tol_lse": 2e-4, "ok": ok_o and ok_l and zero_ok,
+           "max_abs_err": max(err_o, err_l), "max_abs_err_o": err_o,
+           "max_abs_err_lse": err_l, "zero_rows": int((~live).sum()),
+           "zero_rows_o_is_0": zero_ok, "blocks": b * hkv,
+           "ms": cuda_ms(cycled(kernel, sets), iters),
+           "plain_ms": cuda_ms(cycled(plain, sets), plain_iters),
+           "timed_copies": copies, "bound_ms": bms, "bound_by": by,
+           "library_ms": None,
+           "library": "none: no single PyTorch call does the page "
+                      "gather, the length mask and the lse",
+           "gflop": nops / 1e9, "bytes": nbytes}
+    del sets
+    torch.cuda.empty_cache()
+    emit("kernel", **row)
+    check(ok_o and ok_l, f"decode_attention_paged kernel != plain version "
+                         f"({label}): max abs err o {err_o}, lse {err_l}")
+    check(zero_ok, f"decode_attention_paged: a length-0 row gave o != 0 "
+                   f"({label})")
+    return row
+
+
+def matmul_phase(label: str, m: int, k: int, n: int, dtype: str, seed: int,
+                 iters: int, plain_iters: int) -> dict:
+    """Hold the staged matmul kernel against its plain version, and time
+    one ``torch.matmul`` in the same type (float32 at full precision) as a
+    yardstick."""
+    import torch
+    from repro_torch._device import resolve_device
+    from repro_torch.kernels import ops
+    resolve_device("cuda")              # float32 products stay float32
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device="cuda").to(tdt)
+    b = torch.randn((k, n), generator=g, device="cuda").to(tdt)
+
+    def kernel():
+        return ops.staged_matmul(a, b, impl="cuda")
+
+    def plain():
+        return ops.staged_matmul(a, b, impl="ref")
+
+    def library():
+        return torch.matmul(a, b)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    err, ok = close_to_scale(got, want, tol)
+    lib_err, _ = close_to_scale(library(), want, tol)
+    nbytes = (m * k + k * n + m * n) * a.element_size()
+    nops = 2.0 * m * n * k
+    bms, by = bound(nbytes, nops, FP32_OPS_PER_S if dtype == "float32"
+                    else BF16_OPS_PER_S)
+    ms = cuda_ms(kernel, iters)
+    row = {"name": "staged_matmul", "case": label, "a": [m, k],
+           "b": [k, n], "dtype": dtype, "tol": tol, "ok": ok,
+           "max_abs_err": err, "ms": ms,
+           "plain_ms": cuda_ms(plain, plain_iters), "bound_ms": bms,
+           "bound_by": by, "library_ms": cuda_ms(library, iters),
+           "library": "torch.matmul", "library_max_abs_err": lib_err,
+           "tflops": nops / ms * 1e-9, "gflop": nops / 1e9,
+           "bytes": nbytes}
+    emit("kernel", **row)
+    check(ok, f"staged_matmul kernel != plain version ({label}): max abs "
+              f"err {err}, tol {tol}")
+    return row
+
+
+def layer_kv(params, cfg, tokens, max_len: int):
+    """Prefill ``tokens`` (one sequence) through the kernels and return
+    the first shared-attention layer's dense ring cache (k, v), each
+    [max_len, Hkv, hd]."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    dev = params["embed"].device
+    tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)[None]
+    _, state, _ = api.prefill(params, cfg, tok, max_len=max_len)
+    k, v = next(st["kv"] for st in state["pattern"] if "kv" in st)
+    return k[0, 0], v[0, 0]             # unit 0, sequence 0
+
+
+def staged_path(params, cfg, dev) -> dict:
+    """zamba2's shared MLP up-projection at a 1024-token prefill (x
+    [1024, d_model] @ w_in [d_model, d_ff]) through ``ops.staged_matmul``:
+    one launch, and the product of ``torch.matmul`` in full float32."""
+    import torch
+    from repro_torch.kernels import ops
+    w = params["shared_attn"]["ffn"]["w_in"]
+    x = torch.randn((1024, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(12))
+    ops.reset_launches()
+    y = ops.staged_matmul(x, w)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    err, ok = close_to_scale(y, torch.matmul(x, w), 1e-4)
+    out = {"x": list(x.shape), "w_in": list(w.shape), "launches": launches,
+           "max_abs_err_vs_torch_matmul": err, "tol": 1e-4, "ok": ok}
+    emit("staged", **out)
+    check(launches == {"flash_attention": 0, "ssd_scan": 0,
+                       "decode_attention_paged": 0, "staged_matmul": 1},
+          f"staged path launches {launches}")
+    check(ok, f"staged path deviates from torch.matmul by {err}")
+    return out
+
+
+def paged_phase(cfg, dev):
+    """The paged KV path at zamba2-1.2b's full width: the six serve
+    prompts' shared-attention KV, written round-robin into one
+    ``PagedKV``, decoded through ``ops.decode_attention`` and held to the
+    dense ring decode of the model's decode path; then the lse merge,
+    release and reuse, and the escape path.  Returns the ``paged`` and
+    ``staged`` phase rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import api
+    from repro_torch.serving import PagedKV, PagedKVConfig
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    staged = staged_path(params, cfg, dev)
+    max_len, page, maxp, reuse = 1280, 16, 80, 512
+    rng = np.random.default_rng(7)     # the serve phase's prompts
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+    caches = [layer_kv(params, cfg, p, max_len) for p in prompts]
+    new_k, new_v = layer_kv(params, cfg, np.random.default_rng(9).integers(
+        2, cfg.vocab_size, size=reuse), max_len)
+    del params
+    torch.cuda.empty_cache()
+    kd = torch.stack([c[0] for c in caches])     # [6, max_len, Hkv, hd]
+    vd = torch.stack([c[1] for c in caches])
+    del caches
+    lengths = torch.tensor(SERVE_PROMPTS, dtype=torch.int32, device=dev)
+    hkv, hd = cfg.num_kv_heads, cfg.hd
+    q = torch.randn((len(SERVE_PROMPTS), cfg.num_heads, hd), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(10))
+
+    ops.reset_launches()
+    calls = 0
+    store = PagedKV.create(PagedKVConfig(
+        num_pages=160, page_size=page, num_kv_heads=hkv, head_dim=hd,
+        max_pages_per_seq=maxp, dtype=torch.float32), len(SERVE_PROMPTS),
+        device=dev)
+
+    def decode(table, lens):
+        nonlocal calls
+        calls += 1
+        return ops.decode_attention(q, store.k_pages, store.v_pages, table,
+                                    lens)
+    # 1-2: every prompt's tokens, round-robin across the sequences
+    t0 = time.perf_counter()
+    oks = [store.append(b, kd[b, pos], vd[b, pos])
+           for pos in range(max(SERVE_PROMPTS))
+           for b, n in enumerate(SERVE_PROMPTS) if pos < n]
+    appends_ok = bool(torch.stack(oks).all())
+    append_s = time.perf_counter() - t0
+    table = store.page_table.cpu().numpy()
+    contiguous = [bool(np.all(np.diff(r[r >= 0]) == 1)) for r in table]
+    # 3: the paged decode against the dense ring decode
+    o, lse = decode(store.page_table, store.lengths)
+    o_d, lse_d = ref.decode_attention_naive(q, kd, vd, lengths)
+    err_o, ok_o = close_enough(o, o_d, PAGED_TOL)
+    err_l, ok_l = close_enough(lse, lse_d, PAGED_TOL)
+    # 4: each half of every table, merged through lse
+    half = maxp // 2
+    parts = [decode(store.page_table[:, :half].contiguous(),
+                    torch.clamp(store.lengths, max=half * page)),
+             decode(store.page_table[:, half:].contiguous(),
+                    torch.clamp(store.lengths - half * page, min=0))]
+    merged = ref.combine_partial_attention(
+        torch.stack([parts[0][0], parts[1][0]]),
+        torch.stack([parts[0][1], parts[1][1]]))
+    err_split, ok_split = close_enough(merged, o, PAGED_TOL)
+    # 5: release the 1024-token sequence, reuse its pages
+    avail0 = int(store.pool.available())
+    freed = {int(p) for p in table[4] if p >= 0}
+    store.release(4)
+    avail1 = int(store.pool.available())
+    oks = [store.append(4, new_k[pos], new_v[pos]) for pos in range(reuse)]
+    reuse_ok = bool(torch.stack(oks).all())
+    reused = {int(p) for p in store.page_table[4].cpu().numpy() if p >= 0}
+    kd[4].zero_()
+    vd[4].zero_()
+    kd[4, :reuse], vd[4, :reuse] = new_k[:reuse], new_v[:reuse]
+    lengths[4] = reuse
+    o2, lse2 = decode(store.page_table, store.lengths)
+    o2_d, lse2_d = ref.decode_attention_naive(q, kd, vd, lengths)
+    err_o2, ok_o2 = close_enough(o2, o2_d, PAGED_TOL)
+    err_l2, ok_l2 = close_enough(lse2, lse2_d, PAGED_TOL)
+    # 6: a small pool runs out: the 33rd token needs a third page
+    small = PagedKV.create(PagedKVConfig(
+        num_pages=2, page_size=page, num_kv_heads=hkv, head_dim=hd,
+        max_pages_per_seq=4, dtype=torch.float32), 1, device=dev)
+    small_ok = [bool(small.append(0, kd[0, pos], vd[0, pos]))
+                for pos in range(2 * page + 1)]
+    escape = {"ok": small_ok[-1], "earlier_ok": all(small_ok[:-1]),
+              "table": small.page_table[0].tolist(),
+              "length": int(small.lengths[0]),
+              "available": int(small.pool.available()),
+              # the reference writes the token into page 0, offset 0
+              "escape_write_in_page0": bool(torch.equal(
+                  small.k_pages[0, 0], kd[0, 2 * page]))}
+    torch.cuda.synchronize()
+    # 7: the kernel ran once per decode call and nothing else launched
+    launches = dict(ops.LAUNCHES)
+    out = {"arch": cfg.name, "kv_heads": hkv, "head_dim": hd,
+           "q_heads": cfg.num_heads, "page": page, "num_pages": 160,
+           "max_pages_per_seq": maxp, "lengths": SERVE_PROMPTS,
+           "appends": sum(SERVE_PROMPTS),
+           "append_s": append_s, "appends_ok": appends_ok,
+           "tables_contiguous": contiguous, "tol": PAGED_TOL,
+           "max_abs_err_o_vs_dense": err_o, "max_abs_err_lse_vs_dense": err_l,
+           "max_abs_err_split_merge": err_split,
+           "available_before_release": avail0,
+           "available_after_release": avail1, "freed_pages": len(freed),
+           "reuse_tokens": reuse, "reused_pages": len(reused),
+           "reused_within_freed": reused <= freed, "reuse_ok": reuse_ok,
+           "max_abs_err_o_after_reuse": err_o2,
+           "max_abs_err_lse_after_reuse": err_l2, "escape": escape,
+           "decode_calls": calls, "launches": launches}
+    emit("paged", **out)
+    check(appends_ok, "an append into the 160-page pool failed")
+    check(not any(contiguous), f"page tables are contiguous: {contiguous}")
+    check(ok_o and ok_l, f"paged decode deviates from the dense ring "
+                         f"decode: o {err_o}, lse {err_l} > {PAGED_TOL}")
+    check(ok_split, f"the merged halves deviate from the full decode by "
+                    f"{err_split}")
+    check(avail1 == avail0 + len(freed),
+          f"release restored {avail1 - avail0} pages, want {len(freed)}")
+    check(reuse_ok and reused <= freed and len(reused) == -(-reuse // page),
+          f"the new sequence's pages {sorted(reused)} are not the freed "
+          f"ones")
+    check(ok_o2 and ok_l2, f"decode after reuse deviates: o {err_o2}, lse "
+                           f"{err_l2}")
+    check(escape == {"ok": False, "earlier_ok": True,
+                     "table": [0, 1, -1, -1], "length": 2 * page + 1,
+                     "available": 0, "escape_write_in_page0": True},
+          f"the escape path differs from the reference's: {escape}")
+    check(launches == {"flash_attention": 0, "ssd_scan": 0,
+                       "decode_attention_paged": calls,
+                       "staged_matmul": 0},
+          f"paged path launches {launches}, want {calls} decode launches")
+    return out, staged
+
+
 def tree_rel(got, want) -> float:
     """Largest leaf-wise max |got - want| / max |want| over two trees."""
     from repro_torch.models.decoding import tree_map
@@ -546,7 +929,9 @@ def serve_phase(cfg, dev) -> dict:
            "decode_ms_median": float(np.median(dec)) * 1e3,
            "launches": launches,
            "want_launches": {"flash_attention": n_attn * len(prompts),
-                             "ssd_scan": cfg.num_layers * len(prompts)},
+                             "ssd_scan": cfg.num_layers * len(prompts),
+                             "decode_attention_paged": 0,
+                             "staged_matmul": 0},
            "prefill_vs_plain": prefill_dev,
            "tokens_equal_plain": not diverged, "diverged": diverged,
            "min_plain_margin": min(min(m) for m in margins.values()),
@@ -659,17 +1044,48 @@ def run() -> int:
                                      256, 7, iters=20, plain_iters=5)
         ssd_phase("large", 4, 4096, 64, 64, 1, 64, 256, 8, iters=3,
                   plain_iters=2)
+        rows["decode_attention_paged"] = decode_phase(
+            "zamba2 shared attention", 6, 32, 32, 64, 16, SERVE_PROMPTS,
+            "float32", 20, iters=200, plain_iters=20)
+        decode_phase("length 0", 3, 32, 32, 64, 16, [0, 16, 100], "float32",
+                     21, iters=200, plain_iters=20)
+        decode_phase("danube-1.8b", 4, 32, 8, 80, 32, [4096, 1, 777, 3000],
+                     "float32", 22, iters=100, plain_iters=10)
+        decode_phase("starcoder2-15b", 8, 48, 4, 128, 16,
+                     [1, 17, 300, 1000, 2048, 4097, 6000, 8192], "bfloat16",
+                     23, iters=100, plain_iters=10, hole=True)
+        decode_phase("llama4-scout", 32, 40, 8, 128, 16, [32768] * 32,
+                     "bfloat16", 24, iters=10, plain_iters=2)
+        rows["staged_matmul"] = matmul_phase(
+            "zamba2 MLP up-projection", 1024, 2048, 8192, "float32", 25,
+            iters=10, plain_iters=10)
+        matmul_phase("zamba2 MLP up-projection bf16", 1024, 2048, 8192,
+                     "bfloat16", 26, iters=20, plain_iters=10)
+        matmul_phase("ragged", 1000, 2050, 1000, "float32", 27, iters=10,
+                     plain_iters=10)
+        matmul_phase("bench_kernels FFN tile", 4096, 5120, 8192, "bfloat16",
+                     28, iters=10, plain_iters=5)
         main = main_path()
         profile_phase()
         from repro_torch.configs import get_arch
         zamba2 = get_arch("zamba2-1.2b")
         serve = serve_phase(zamba2, torch.device("cuda"))
         profile_serve(zamba2, torch.device("cuda"))
+        paged, staged = paged_phase(zamba2, torch.device("cuda"))
+        # each kernel's launches on the path that runs it
+        launches = {**main["launches"],
+                    "flash_attention": serve["launches"]["flash_attention"],
+                    "ssd_scan": serve["launches"]["ssd_scan"],
+                    "decode_attention_paged":
+                        paged["launches"]["decode_attention_paged"],
+                    "staged_matmul": staged["launches"]["staged_matmul"]}
+        check(sorted(launches) == sorted(rows) == sorted(SOURCES)
+              and all(n > 0 for n in launches.values()),
+              f"a kernel was launched on no path: {launches}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(card, flush=True)
-    launches = {**main["launches"], **serve["launches"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -5,14 +5,18 @@ in arrival order (monotonic timestamps -> O(1) straggler head check, paper
 §4.3), and supports the escape controller's *replace* action (swap a
 straggler slot for a DRAM-backed one so the recyclable size is constant).
 
-The reference's device-side ``DevicePool`` (the paged KV cache's free
-bitmap) is not ported yet.
+:class:`DevicePool` is the device-side pool behind the paged KV cache
+(``serving.kv_cache``): a free bitmap over the cache's pages.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Deque, Dict, List, Optional, Set
+from typing import Deque, Dict, List, Optional, Set, Tuple
+
+import torch
+
+from .._device import DeviceLike, resolve_device
 
 SLOT_BYTES_DEFAULT = 4 * 1024  # paper: slab granularity 4 KB
 
@@ -166,3 +170,76 @@ class SlabPool:
         if n:
             self.free(app_id, ids)
         return n * self.slot_bytes
+
+
+# --------------------------------------------------------------------------- #
+# Device-side pool (paged KV cache backing)
+# --------------------------------------------------------------------------- #
+class DevicePool:
+    """Slab pool on the device: a free bitmap over ``num_slots`` pages.
+
+    The reference's pool is functional (each call returns a new pool);
+    this one updates ``free`` in place, as PyTorch code does, with the
+    same semantics: :meth:`alloc` hands out the lowest free slots in
+    ascending order, ``-1`` where too few are free, and :meth:`release`
+    ignores entries ``< 0``.  Neither call reads anything back to the
+    host: the slots are ranked by a cumulative sum on the device, so a
+    caller that does not look at ``ok`` never waits for the card.
+    """
+
+    def __init__(self, free: torch.Tensor):
+        self.free = free  # bool[num_slots]
+
+    @classmethod
+    def create(cls, num_slots: int,
+               device: DeviceLike = None) -> "DevicePool":
+        """All ``num_slots`` slots free, on ``device`` (CUDA unless the
+        caller asks for the CPU)."""
+        return cls(torch.ones((num_slots,), dtype=torch.bool,
+                              device=resolve_device(device)))
+
+    @property
+    def num_slots(self) -> int:
+        return self.free.shape[0]
+
+    def available(self) -> torch.Tensor:
+        return self.free.sum()
+
+    def find(self, n: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+        """The slots :meth:`alloc` would take, without taking them:
+        (idx int64[n], ok, taken bool[num_slots])."""
+        rank = torch.cumsum(self.free, 0) - 1            # among free slots
+        sel = self.free & (rank < n)
+        idx = torch.full((n + 1,), -1, dtype=torch.int64,
+                         device=self.free.device)
+        slots = torch.arange(self.num_slots, device=self.free.device)
+        # unselected slots land in the spare entry n, which is dropped
+        idx.scatter_(0, torch.where(sel, rank, n), slots)
+        idx = idx[:n]
+        ok = (idx >= 0).all()
+        # The reference scatters its "taken" mask with the -1 entries
+        # redirected to slot 0, and XLA applies duplicate updates in order,
+        # so after a short allocation slot 0 stays free even if it was
+        # handed out.  Kept for parity (ROADMAP Queue 3).
+        taken = sel.clone()
+        taken[0] &= ok
+        return idx, ok, taken
+
+    def alloc(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Allocate ``n`` slots: (idx int64[n], ok).  When fewer than ``n``
+        are free, ``ok`` is False, the missing entries of ``idx`` are -1
+        (callers route those to the escape path) and the slots that were
+        found are taken all the same."""
+        idx, ok, taken = self.find(n)
+        self.free &= ~taken
+        return idx, ok
+
+    def release(self, idx: torch.Tensor) -> None:
+        """Free the slots listed in ``idx`` (entries < 0 are ignored)."""
+        idx = idx.reshape(-1).long()
+        valid = idx >= 0
+        hits = torch.zeros(self.num_slots, dtype=torch.int32,
+                           device=self.free.device)
+        hits.index_add_(0, torch.where(valid, idx, 0), valid.int())
+        self.free |= hits > 0

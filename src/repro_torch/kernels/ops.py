@@ -20,11 +20,31 @@ import torch
 
 from .._device import LaunchCounts, resolve_impl
 from . import ref
+from .jet_decode_attention import decode_attention_paged as _decode_cuda
 from .jet_flash_attention import flash_attention as _flash_cuda
+from .jet_staged_matmul import staged_matmul as _matmul_cuda
 from .mamba2_ssd import ssd_scan as _ssd_cuda
 
-LAUNCHES = LaunchCounts(flash_attention=0, ssd_scan=0)
+LAUNCHES = LaunchCounts(flash_attention=0, ssd_scan=0,
+                        decode_attention_paged=0, staged_matmul=0)
 reset_launches = LAUNCHES.reset
+
+
+def staged_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
+                  out_dtype: Optional[torch.dtype] = None,
+                  **kw) -> torch.Tensor:
+    """a:[M,K] @ b:[K,N] -> [M,N] in ``out_dtype`` (default: a's type),
+    float32 accumulation.  The reference's ``block_m/n/k`` (its VMEM
+    staging tiles) have no meaning for the CUDA kernel, whose tiles are
+    fixed (``jet_staged_matmul.TILES``): they raise ``TypeError``."""
+    if kw:
+        raise TypeError(f"staged_matmul takes no {sorted(kw)}: the CUDA "
+                        f"kernel's tiles are fixed (jet_staged_matmul.TILES)")
+    if resolve_impl(impl, a.device) == "ref":
+        return ref.matmul_naive(a, b, out_dtype)
+    out = _matmul_cuda(a, b, out_dtype)
+    LAUNCHES["staged_matmul"] += 1
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,6 +55,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     out = _flash_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, *, impl: str = "auto"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token decode over a paged KV cache: q:[B,Hq,D];
+    k/v_pages:[P,page,Hkv,D]; page_table:[B,maxp] int32 (-1 holes);
+    lengths:[B] int32 -> (o:[B,Hq,D], lse:[B,Hq] float32)."""
+    if resolve_impl(impl, q.device) == "ref":
+        return ref.decode_attention_paged_ref(q, k_pages, v_pages,
+                                              page_table, lengths)
+    out = _decode_cuda(q, k_pages, v_pages, page_table, lengths)
+    LAUNCHES["decode_attention_paged"] += 1
     return out
 
 

@@ -9,9 +9,11 @@ Two tiers, as in the reference:
   runs them, and the card runs them only when asked (``impl="ref"``) to
   hold a kernel against them.
 
-``decode_attention_naive`` is what one-token decode runs on every device;
-it has no kernel of its own (the reference's paged decode kernel is on no
-model path yet).
+``decode_attention_naive`` is what one-token decode runs on every device,
+over the dense ring cache, as in the reference.  ``decode_attention_paged_ref``
+(the plain version of ``csrc/decode_attention.cu``) gathers a paged cache
+and defers to it; ``matmul_naive`` is the plain version of
+``csrc/staged_matmul.cu``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,16 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------- #
+# matmul
+# --------------------------------------------------------------------------- #
+def matmul_naive(a: torch.Tensor, b: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """a:[M,K] @ b:[K,N] with float32 products and sums, cast to
+    ``out_dtype`` (default: a's type)."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -125,6 +137,35 @@ def decode_attention_naive(q: torch.Tensor, k: torch.Tensor,
         / torch.clamp(l[..., None], min=1e-30)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return o.reshape(b, hq, d).to(q.dtype), lse.reshape(b, hq)
+
+
+def decode_attention_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               page_table: torch.Tensor,
+                               lengths: torch.Tensor):
+    """Paged oracle. k_pages:[P,page,Hkv,D], page_table:[B,maxp] (-1 =
+    hole).  Gathers each sequence's pages into a contiguous view (holes
+    read page 0, and entries past the pool its last page, as the
+    reference's gather clamps) and defers to
+    :func:`decode_attention_naive`.  A
+    length-0 row gives the mean of v over its gathered pages here, and 0
+    from the kernel; both give the same lse."""
+    b, maxp = page_table.shape
+    page = k_pages.shape[1]
+    safe = torch.clamp(page_table, 0, k_pages.shape[0] - 1).long()
+    kc = k_pages[safe].reshape(b, maxp * page, *k_pages.shape[2:])
+    vc = v_pages[safe].reshape(b, maxp * page, *v_pages.shape[2:])
+    return decode_attention_naive(q, kc, vc, lengths)
+
+
+def combine_partial_attention(o_parts: torch.Tensor,
+                              lse_parts: torch.Tensor) -> torch.Tensor:
+    """Merge per-shard partial attention: o_parts:[S,B,H,D],
+    lse_parts:[S,B,H] -> o:[B,H,D], a softmax over the shards' lse."""
+    m = lse_parts.amax(dim=0, keepdim=True)
+    w = torch.exp(lse_parts - m)
+    w = w / torch.clamp(w.sum(dim=0, keepdim=True), min=1e-30)
+    return (o_parts * w[..., None]).sum(dim=0)
 
 
 # --------------------------------------------------------------------------- #

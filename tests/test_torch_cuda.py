@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
-bit for bit, flash attention and the SSD scan within the tolerances of
-``tests/test_kernels.py``, each against its plain version.
+bit for bit; flash attention, the SSD scan, the paged decode attention and
+the staged matmul within the tolerances of ``tests/test_kernels.py``; each
+against its plain version.
 
 Needs an NVIDIA card and ``nvcc``; every test skips without one.  The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -182,6 +183,125 @@ def test_tiny_zamba2_prefill_runs_through_the_kernels(card):
     tok = torch.randint(2, cfg.vocab_size, (2, 64), device=card)
     ops.reset_launches()
     lk, sk, _ = api.prefill(params, cfg, tok, max_len=80)
-    assert ops.LAUNCHES == {"flash_attention": 1, "ssd_scan": 7}
+    assert ops.LAUNCHES == {"flash_attention": 1, "ssd_scan": 7,
+                            "decode_attention_paged": 0, "staged_matmul": 0}
     lr, sr, _ = api.prefill(params, cfg, tok, max_len=80, impl="ref")
     assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3
+
+
+# --------------------------------------------------------------------------- #
+# paged decode attention and the staged matmul
+# --------------------------------------------------------------------------- #
+def _paged(card, b, hq, hkv, d, page, lengths, q_dtype, kv_dtype, seed):
+    """Seeded pages and a shuffled page table with -1 past each length."""
+    rng = np.random.default_rng(seed)
+    need = [-(-n // page) for n in lengths]
+    maxp, n_pool = max(max(need), 1), sum(need) + 3
+    perm = rng.permutation(n_pool)
+    table = np.full((b, maxp), -1, np.int32)
+    at = 0
+    for i, k in enumerate(need):
+        table[i, :k] = perm[at:at + k]
+        at += k
+    g = torch.Generator(device=card).manual_seed(seed)
+    kp = torch.randn((n_pool, page, hkv, d), generator=g, device=card)
+    vp = torch.randn((n_pool, page, hkv, d), generator=g, device=card)
+    q = torch.randn((b, hq, d), generator=g, device=card)
+    return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype),
+            torch.from_numpy(table).to(card),
+            torch.tensor(lengths, dtype=torch.int32, device=card))
+
+
+# (b, hq, hkv, d, page, lengths, q dtype, page dtype): zamba2's shared
+# attention, danube's group of 4 at head dim 80, starcoder2's group of 12
+# in bfloat16, a page longer than the 64-position tile, mixed types
+PAGED = [(6, 32, 32, 64, 16, [64, 128, 256, 512, 1024, 256],
+          torch.float32, torch.float32),
+         (4, 32, 8, 80, 32, [4096, 1, 777, 3000], torch.float32,
+          torch.float32),
+         (8, 48, 4, 128, 16, [1, 17, 300, 1000, 2048, 4097, 6000, 8192],
+          torch.bfloat16, torch.bfloat16),
+         (3, 8, 1, 32, 100, [250, 99, 101], torch.float32, torch.float32),
+         (2, 16, 2, 64, 8, [37, 64], torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,page,lengths,q_dtype,kv_dtype", PAGED)
+def test_paged_decode_kernel_matches_plain(card, b, hq, hkv, d, page,
+                                           lengths, q_dtype, kv_dtype):
+    q, kp, vp, table, lens = _paged(card, b, hq, hkv, d, page, lengths,
+                                    q_dtype, kv_dtype, b * 100 + page)
+    ops.reset_launches()
+    o, lse = ops.decode_attention(q, kp, vp, table, lens)
+    o0, lse0 = ops.decode_attention(q, kp, vp, table, lens, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention_paged"] == 1
+    assert o.dtype == q_dtype and lse.dtype == torch.float32
+    _close(o, o0, 2e-4 if q_dtype == torch.float32 else 1e-2)
+    _close(lse, lse0, 2e-4)
+
+
+def test_paged_decode_length_zero_row_gives_zero(card):
+    q, kp, vp, table, lens = _paged(card, 3, 8, 2, 64, 16, [0, 16, 100],
+                                    torch.float32, torch.float32, 5)
+    o, lse = ops.decode_attention(q, kp, vp, table, lens)
+    o0, lse0 = ops.decode_attention(q, kp, vp, table, lens, impl="ref")
+    torch.cuda.synchronize()
+    assert bool((o[0] == 0).all())            # the reference kernel's value
+    _close(o[1:], o0[1:], 2e-4)
+    _close(lse, lse0, 2e-4)
+
+
+def _close_to_scale(got, want, tol):
+    """max |got - want| <= tol * max |want|: two float32 sums of K
+    products in different orders differ by ~sqrt(K) roundings of the
+    partial sums, which an element whose sum cancels cannot absorb
+    relative to itself."""
+    assert torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()), err
+
+
+# (m, k, n, dtype): zamba2's MLP up-projection at a short prefill, ragged
+# edges on every axis (scalar loads), a single row, bfloat16 ragged
+MATMUL = [(256, 2048, 8192, torch.float32), (1000, 2050, 1000, torch.float32),
+          (1, 7, 3, torch.float32), (256, 2048, 8192, torch.bfloat16),
+          (100, 130, 70, torch.bfloat16), (17, 65, 33, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("m,k,n,dtype", MATMUL)
+def test_staged_matmul_kernel_matches_plain(card, m, k, n, dtype):
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g, device=card).to(dtype)
+    b = torch.randn((k, n), generator=g, device=card).to(dtype)
+    ops.reset_launches()
+    got = ops.staged_matmul(a, b)
+    want = ops.staged_matmul(a, b, impl="ref")
+    f32 = ops.staged_matmul(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["staged_matmul"] == 2
+    assert got.dtype == dtype and f32.dtype == torch.float32
+    _close_to_scale(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    _close_to_scale(f32, a.float() @ b.float(), 1e-4)
+
+
+def test_paged_and_matmul_wrappers_reject_what_they_do_not_take(card):
+    q, kp, vp, table, lens = _paged(card, 2, 4, 2, 64, 16, [5, 40],
+                                    torch.float32, torch.float32, 6)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q.half(), kp, vp, table, lens)
+    with pytest.raises(TypeError):
+        ops.decode_attention(q, kp, vp, table.long(), lens)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[..., :6].contiguous(), kp[..., :6].contiguous(),
+                             vp[..., :6].contiguous(), table, lens)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.decode_attention(q[:, :3].contiguous(), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, kp, vp, table.t().contiguous().t(), lens)
+    a = torch.zeros((8, 16), device=card)
+    with pytest.raises(TypeError):
+        ops.staged_matmul(a, a.T.contiguous().bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.staged_matmul(a.T, a)
+    with pytest.raises(TypeError, match="block_n"):
+        ops.staged_matmul(a, a.T.contiguous(), block_n=128)
