@@ -10,7 +10,8 @@ Each phase prints one JSON line:
 1. ``card``: the card's name and power limit (``nvidia-smi``), the
    PyTorch/CUDA versions, and the CUDA kernels' build from the sources
    in the checkout (one ``nvcc`` per source, all started together;
-   seconds, ptxas register report).
+   seconds, ptxas register report); the wgmma matmul kernel must show no
+   register spill.
 2. ``kernel``: each CUDA kernel on seeded inputs at the shapes its main
    path gives it and at large ones, held against its plain PyTorch
    version on the card (the water-fills bit for bit; flash attention and
@@ -46,8 +47,11 @@ Each phase prints one JSON line:
    under ``torch.profiler``: kernels per decode step, device busy shares,
    and the two kernels' device time per launch.
 7. ``staged``: zamba2's shared MLP up-projection at a 1024-token prefill
-   through ``ops.staged_matmul`` (one launch), within 1e-4 of the largest
-   magnitude of ``torch.matmul``'s product in full float32.
+   through ``ops.staged_matmul``, in float32 (the ``simt_f32`` kernel,
+   within 1e-4 of the largest magnitude of ``torch.matmul``'s product in
+   full float32) and in bfloat16 (the wgmma kernel in 128 x 256 tiles,
+   ``wgmma_bf16_n256``, within 2e-2 of the float32 product of the same
+   operands): two launches, one of each variant.
 8. ``paged``: the paged KV path at zamba2-1.2b's full width.  The six
    serve prompts' KV of one shared-attention layer (from prefills through
    the kernels) is appended round-robin into one ``PagedKV`` (page 16,
@@ -66,12 +70,24 @@ The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
 attention, a length-0 row that must give o == 0, danube-1.8b,
 starcoder2-15b and llama4-scout widths; o within 2e-4 in float32 and
 1e-2 in bfloat16, lse within 2e-4; no library call does the same) and the
-staged matmul (zamba2's MLP up-projection in float32 and bfloat16, a
-ragged shape, ``benchmarks/bench_kernels.py``'s FFN tile; within 1e-4 in
-float32 and 2e-2 in bfloat16, the tolerances of ``tests/test_kernels.py``;
-one ``torch.matmul`` as the yardstick) against their plain versions.
-Inputs smaller than the L2 cache are timed over copies that the calls
+staged matmul (zamba2's MLP up-projection in float32 and bfloat16,
+ragged shapes in float32 and in bfloat16 with K and N multiples of 8
+(wgmma in 128 x 128 tiles) and not (mma.sync), small-integer bfloat16
+operands in both wgmma tile widths whose product must equal the plain
+version's bit for bit, and
+``benchmarks/bench_kernels.py``'s FFN tile; within 1e-4 in float32 and
+2e-2 in bfloat16, the tolerances of ``tests/test_kernels.py``; each row
+names the kernel variant that ran, its stages and shared memory, and
+must have run the variant its shape selects; one ``torch.matmul`` as the
+yardstick) against their plain versions.  The ``kernels`` line lists the
+staged matmul twice: its float32 kernel and its bfloat16 wgmma kernel,
+each at zamba2's up-projection with its launches in the ``staged``
+phase.  Inputs smaller than the L2 cache are timed over copies that the calls
 cycle through.
+
+A ``wgmma_widths`` line records both tile widths of the wgmma kernel,
+timed in turns on the same inputs, at shapes on either side of the rule
+that picks between them.
 
 Then the card line as ``nvidia-smi`` prints it, the ``kernels`` summary
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -100,14 +116,18 @@ SOURCES = {"priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
            "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
            "decode_attention_paged":
                "src/repro_torch/csrc/decode_attention.cu",
-           "staged_matmul": "src/repro_torch/csrc/staged_matmul.cu"}
+           "staged_matmul": "src/repro_torch/csrc/staged_matmul.cu",
+           "staged_matmul_wgmma_bf16":
+               "src/repro_torch/csrc/staged_matmul.cu"}
 REPLACES = {"priority_grants": "src/repro/fabric/fused.py:99",
             "priority_admit": "src/repro/fabric/fused.py:142",
             "flash_attention": "src/repro/kernels/jet_flash_attention.py:77",
             "ssd_scan": "src/repro/kernels/mamba2_ssd.py:63",
             "decode_attention_paged":
                 "src/repro/kernels/jet_decode_attention.py:73",
-            "staged_matmul": "src/repro/kernels/jet_staged_matmul.py:53"}
+            "staged_matmul": "src/repro/kernels/jet_staged_matmul.py:53",
+            "staged_matmul_wgmma_bf16":
+                "src/repro/kernels/jet_staged_matmul.py:53"}
 LARGE = (4096, 3, 4096)
 SERVE_PROMPTS = [64, 128, 256, 512, 1024, 256]
 SERVE_NEW = 16
@@ -140,6 +160,24 @@ def card_line() -> str:
                          capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_spills(log, kernel: str):
+    """Spill stores + loads (bytes) that ``-Xptxas -v`` reports for each
+    instantiation of ``kernel``; None when this run did not build it (the
+    library was already built)."""
+    import re
+    if not log:
+        return None
+    out, current = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            current = kernel in ln
+        elif current and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            out.append(int(st) + int(ld))
+            current = False
+    return out
 
 
 def incast_grid(sim_time_s: float):
@@ -601,18 +639,28 @@ def decode_phase(label: str, b: int, hq: int, hkv: int, d: int, page: int,
 
 
 def matmul_phase(label: str, m: int, k: int, n: int, dtype: str, seed: int,
-                 iters: int, plain_iters: int) -> dict:
+                 iters: int, plain_iters: int, expect: str,
+                 integer: bool = False) -> dict:
     """Hold the staged matmul kernel against its plain version, and time
     one ``torch.matmul`` in the same type (float32 at full precision) as a
-    yardstick."""
+    yardstick.  ``expect`` is the kernel variant the shape must select
+    (``jet_staged_matmul.VARIANT_LAUNCHES`` shows which one ran).  With
+    ``integer`` the operands are small integers (|x| <= 4), whose float32
+    sums are exact: the kernel must then equal the plain version bit for
+    bit, in both output types."""
     import torch
     from repro_torch._device import resolve_device
+    from repro_torch.kernels import jet_staged_matmul as jsm
     from repro_torch.kernels import ops
     resolve_device("cuda")              # float32 products stay float32
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    a = torch.randn((m, k), generator=g, device="cuda").to(tdt)
-    b = torch.randn((k, n), generator=g, device="cuda").to(tdt)
+    if integer:
+        a = torch.randint(-4, 5, (m, k), generator=g, device="cuda").to(tdt)
+        b = torch.randint(-4, 5, (k, n), generator=g, device="cuda").to(tdt)
+    else:
+        a = torch.randn((m, k), generator=g, device="cuda").to(tdt)
+        b = torch.randn((k, n), generator=g, device="cuda").to(tdt)
 
     def kernel():
         return ops.staged_matmul(a, b, impl="cuda")
@@ -622,28 +670,88 @@ def matmul_phase(label: str, m: int, k: int, n: int, dtype: str, seed: int,
 
     def library():
         return torch.matmul(a, b)
+    jsm.VARIANT_LAUNCHES.reset()
     got, want = kernel(), plain()
     torch.cuda.synchronize()
+    ran = [v for v, c in jsm.VARIANT_LAUNCHES.items() if c]
     tol = 1e-4 if dtype == "float32" else 2e-2
     err, ok = close_to_scale(got, want, tol)
+    exact = None
+    if integer:
+        f32 = ops.staged_matmul(a, b, impl="cuda", out_dtype=torch.float32)
+        exact = bool(torch.equal(got, want)) and bool(torch.equal(
+            f32, ops.staged_matmul(a, b, impl="ref",
+                                   out_dtype=torch.float32)))
     lib_err, _ = close_to_scale(library(), want, tol)
     nbytes = (m * k + k * n + m * n) * a.element_size()
     nops = 2.0 * m * n * k
     bms, by = bound(nbytes, nops, FP32_OPS_PER_S if dtype == "float32"
                     else BF16_OPS_PER_S)
+    enc0 = jsm.encode_stats()
     ms = cuda_ms(kernel, iters)
+    enc1 = jsm.encode_stats()
     row = {"name": "staged_matmul", "case": label, "a": [m, k],
-           "b": [k, n], "dtype": dtype, "tol": tol, "ok": ok,
-           "max_abs_err": err, "ms": ms,
+           "b": [k, n], "dtype": dtype, "variant": ran,
+           "tile": jsm.TILES[expect], "stages": jsm.STAGES[expect],
+           "smem_bytes": jsm.smem_bytes(expect), "tol": tol, "ok": ok,
+           "max_abs_err": err, "bitwise_equal": exact, "ms": ms,
            "plain_ms": cuda_ms(plain, plain_iters), "bound_ms": bms,
            "bound_by": by, "library_ms": cuda_ms(library, iters),
            "library": "torch.matmul", "library_max_abs_err": lib_err,
            "tflops": nops / ms * 1e-9, "gflop": nops / 1e9,
-           "bytes": nbytes}
+           "bytes": nbytes,
+           # host microseconds a launch spends encoding TMA tensor maps
+           "encode_us_per_call": (enc1[0] - enc0[0]) / (enc1[1] - enc0[1])
+           if enc1[1] > enc0[1] else None}
+    if expect.startswith("wgmma"):
+        # what the kernel asks for, against the wrapper's documented plan
+        row["kernel_smem_bytes"] = jsm._lib().staged_matmul_wgmma_smem_bytes(
+            jsm.TILES[expect][1])
     emit("kernel", **row)
+    check(ran == [expect], f"staged_matmul ({label}) ran {ran}, want "
+                           f"{expect}")
+    check(row.get("kernel_smem_bytes", row["smem_bytes"]) ==
+          row["smem_bytes"], f"staged_matmul ({label}): the kernel asks for "
+                             f"{row.get('kernel_smem_bytes')} bytes of shared "
+                             f"memory, smem_bytes says {row['smem_bytes']}")
     check(ok, f"staged_matmul kernel != plain version ({label}): max abs "
               f"err {err}, tol {tol}")
+    check(exact is not False, f"staged_matmul ({label}): small-integer "
+                              f"product not bitwise equal to the plain "
+                              f"version")
     return row
+
+
+def wgmma_widths_phase(iters: int) -> dict:
+    """Both tile widths of the wgmma kernel on the same inputs, in turns
+    (128, 256, 256, 128), at shapes on either side of the width rule
+    (``jet_staged_matmul.variant``): the record behind that rule.  Direct
+    calls of the library entry, so these launches count nowhere."""
+    import torch
+    from repro_torch.kernels import jet_staged_matmul as jsm
+    lib = jsm._lib()
+    rows = []
+    for m, k, n in ((1024, 2048, 8192), (4096, 5120, 8192), (256, 2048, 8192),
+                    (1000, 2056, 1000)):
+        g = torch.Generator(device="cuda").manual_seed(m + n)
+        a = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+        b = torch.randn((k, n), generator=g, device="cuda").bfloat16()
+        c = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(bn):
+            err = lib.staged_matmul_wgmma_fwd(a.data_ptr(), b.data_ptr(),
+                                              c.data_ptr(), m, n, k, bn, 1,
+                                              stream)
+            check(err == 0, f"wgmma launch (bn {bn}) failed: {err}")
+        t = {bn: [] for bn in (128, 256)}
+        for bn in (128, 256, 256, 128):
+            t[bn].append(cuda_ms(lambda: call(bn), iters))
+        rows.append({"shape": [m, k, n], "ms_128": t[128], "ms_256": t[256],
+                     "chosen": jsm.variant(torch.bfloat16, m, n, k)})
+    out = {"rows": rows}
+    emit("wgmma_widths", **out)
+    return out
 
 
 def layer_kv(params, cfg, tokens, max_len: int):
@@ -662,25 +770,42 @@ def layer_kv(params, cfg, tokens, max_len: int):
 
 def staged_path(params, cfg, dev) -> dict:
     """zamba2's shared MLP up-projection at a 1024-token prefill (x
-    [1024, d_model] @ w_in [d_model, d_ff]) through ``ops.staged_matmul``:
-    one launch, and the product of ``torch.matmul`` in full float32."""
+    [1024, d_model] @ w_in [d_model, d_ff]) through ``ops.staged_matmul``,
+    in float32 and in bfloat16: one launch each, the float32 product within
+    1e-4 of ``torch.matmul``'s in full float32, the bfloat16 one within
+    2e-2 of the float32 product of the same bfloat16 operands (both of the
+    largest magnitude)."""
     import torch
+    from repro_torch.kernels import jet_staged_matmul as jsm
     from repro_torch.kernels import ops
     w = params["shared_attn"]["ffn"]["w_in"]
     x = torch.randn((1024, cfg.d_model), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(12))
+    xb, wb = x.bfloat16(), w.bfloat16()
     ops.reset_launches()
+    jsm.VARIANT_LAUNCHES.reset()
     y = ops.staged_matmul(x, w)
+    yb = ops.staged_matmul(xb, wb)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    variants = dict(jsm.VARIANT_LAUNCHES)
     err, ok = close_to_scale(y, torch.matmul(x, w), 1e-4)
+    err_b, ok_b = close_to_scale(yb, torch.matmul(xb.float(), wb.float()),
+                                 2e-2)
     out = {"x": list(x.shape), "w_in": list(w.shape), "launches": launches,
-           "max_abs_err_vs_torch_matmul": err, "tol": 1e-4, "ok": ok}
+           "variants": variants, "max_abs_err_vs_torch_matmul": err,
+           "tol": 1e-4, "ok": ok, "bf16_max_abs_err_vs_f32_product": err_b,
+           "bf16_tol": 2e-2, "bf16_ok": ok_b}
     emit("staged", **out)
     check(launches == {"flash_attention": 0, "ssd_scan": 0,
-                       "decode_attention_paged": 0, "staged_matmul": 1},
+                       "decode_attention_paged": 0, "staged_matmul": 2},
           f"staged path launches {launches}")
+    check(variants == {"simt_f32": 1, "mma_sync_bf16": 0, "wgmma_bf16": 0,
+                       "wgmma_bf16_n256": 1},
+          f"staged path variants {variants}")
     check(ok, f"staged path deviates from torch.matmul by {err}")
+    check(ok_b, f"staged path (bf16) deviates from the float32 product by "
+                f"{err_b}")
     return out
 
 
@@ -1019,11 +1144,16 @@ def run() -> int:
         card = card_line()
         t0 = time.perf_counter()
         builds = _build.build_all()
+        spills = ptxas_spills(_build.BUILD_LOG.get("staged_matmul"),
+                              "wgmma_gemm_kernel")
         emit("card", nvidia_smi=card, torch=torch.__version__,
              cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
              build_s=time.perf_counter() - t0, builds=builds,
              ptxas=[ln.strip() for log in _build.BUILD_LOG.values()
-                    for ln in log.splitlines() if "registers" in ln])
+                    for ln in log.splitlines() if "registers" in ln],
+             wgmma_spill_bytes=spills)
+        check(spills is None or (len(spills) == 4 and not any(spills)),
+              f"the wgmma kernel spills registers: {spills}")
         rows = {}
         for name, main_shape, seed in (
                 ("priority_grants", (48, 3, 14), 1),
@@ -1058,13 +1188,25 @@ def run() -> int:
                      "bfloat16", 24, iters=10, plain_iters=2)
         rows["staged_matmul"] = matmul_phase(
             "zamba2 MLP up-projection", 1024, 2048, 8192, "float32", 25,
-            iters=10, plain_iters=10)
-        matmul_phase("zamba2 MLP up-projection bf16", 1024, 2048, 8192,
-                     "bfloat16", 26, iters=20, plain_iters=10)
+            iters=10, plain_iters=10, expect="simt_f32")
+        rows["staged_matmul_wgmma_bf16"] = matmul_phase(
+            "zamba2 MLP up-projection bf16", 1024, 2048, 8192, "bfloat16",
+            26, iters=50, plain_iters=10, expect="wgmma_bf16_n256")
         matmul_phase("ragged", 1000, 2050, 1000, "float32", 27, iters=10,
-                     plain_iters=10)
+                     plain_iters=10, expect="simt_f32")
+        matmul_phase("ragged aligned bf16", 1000, 2056, 1000, "bfloat16",
+                     29, iters=50, plain_iters=10, expect="wgmma_bf16")
+        matmul_phase("ragged unaligned bf16", 1000, 2050, 1000, "bfloat16",
+                     30, iters=20, plain_iters=10, expect="mma_sync_bf16")
+        matmul_phase("small integers bf16", 1000, 2056, 1000, "bfloat16",
+                     31, iters=20, plain_iters=5, expect="wgmma_bf16",
+                     integer=True)
+        matmul_phase("small integers bf16, wide tiles", 1024, 2048, 8192,
+                     "bfloat16", 32, iters=20, plain_iters=5,
+                     expect="wgmma_bf16_n256", integer=True)
         matmul_phase("bench_kernels FFN tile", 4096, 5120, 8192, "bfloat16",
-                     28, iters=10, plain_iters=5)
+                     28, iters=20, plain_iters=5, expect="wgmma_bf16_n256")
+        wgmma_widths_phase(iters=20)
         main = main_path()
         profile_phase()
         from repro_torch.configs import get_arch
@@ -1078,7 +1220,10 @@ def run() -> int:
                     "ssd_scan": serve["launches"]["ssd_scan"],
                     "decode_attention_paged":
                         paged["launches"]["decode_attention_paged"],
-                    "staged_matmul": staged["launches"]["staged_matmul"]}
+                    "staged_matmul": staged["variants"]["simt_f32"],
+                    "staged_matmul_wgmma_bf16":
+                        staged["variants"]["wgmma_bf16"]
+                        + staged["variants"]["wgmma_bf16_n256"]}
         check(sorted(launches) == sorted(rows) == sorted(SOURCES)
               and all(n > 0 for n in launches.values()),
               f"a kernel was launched on no path: {launches}")

@@ -34,8 +34,13 @@ def staged_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
                   out_dtype: Optional[torch.dtype] = None,
                   **kw) -> torch.Tensor:
     """a:[M,K] @ b:[K,N] -> [M,N] in ``out_dtype`` (default: a's type),
-    float32 accumulation.  The reference's ``block_m/n/k`` (its VMEM
-    staging tiles) have no meaning for the CUDA kernel, whose tiles are
+    float32 accumulation.  On the card the type and shape pick one of the
+    kernel's variants (``jet_staged_matmul.variant``: float32 on the CUDA
+    cores; bfloat16 through wgmma fed by TMA when K and N are multiples of
+    8, through mma.sync otherwise), counted in
+    ``jet_staged_matmul.VARIANT_LAUNCHES``; :data:`LAUNCHES` counts them
+    all under ``staged_matmul``.  The reference's ``block_m/n/k`` (its VMEM
+    staging tiles) have no meaning for the CUDA kernels, whose tiles are
     fixed (``jet_staged_matmul.TILES``): they raise ``TypeError``."""
     if kw:
         raise TypeError(f"staged_matmul takes no {sorted(kw)}: the CUDA "

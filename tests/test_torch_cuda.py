@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
 bit for bit; flash attention, the SSD scan, the paged decode attention and
-the staged matmul within the tolerances of ``tests/test_kernels.py``; each
-against its plain version.
+the staged matmul within the tolerances of ``tests/test_kernels.py``, and
+the staged matmul's wgmma kernel bit for bit on small-integer operands;
+each against its plain version, each staged matmul shape on the kernel
+variant its type and shape select.
 
 Needs an NVIDIA card and ``nvcc``; every test skips without one.  The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -17,6 +19,8 @@ from repro_torch.configs import get_arch, tiny_config
 from repro_torch.fabric import fused
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.vector import run_fabric_sweep
+from repro_torch._device import full_fp32_matmul
+from repro_torch.kernels import jet_staged_matmul as jsm
 from repro_torch.kernels import ops
 from repro_torch.models import api
 
@@ -262,10 +266,29 @@ def _close_to_scale(got, want, tol):
 
 
 # (m, k, n, dtype): zamba2's MLP up-projection at a short prefill, ragged
-# edges on every axis (scalar loads), a single row, bfloat16 ragged
+# edges on every axis (scalar loads), a single row; bfloat16 with K and N
+# multiples of 8 (the wgmma kernel): M not a multiple of 128, N not a
+# multiple of 128, K not a multiple of 64, K = 8, M = 1, and zamba2's
+# up-projection at a 1024-token prefill (128 x 256 tiles); bfloat16
+# unaligned (the mma.sync kernel)
 MATMUL = [(256, 2048, 8192, torch.float32), (1000, 2050, 1000, torch.float32),
           (1, 7, 3, torch.float32), (256, 2048, 8192, torch.bfloat16),
-          (100, 130, 70, torch.bfloat16), (17, 65, 33, torch.bfloat16)]
+          (100, 130, 70, torch.bfloat16), (17, 65, 33, torch.bfloat16),
+          (200, 2048, 8192, torch.bfloat16), (256, 512, 264, torch.bfloat16),
+          (128, 72, 128, torch.bfloat16), (64, 8, 256, torch.bfloat16),
+          (1, 256, 512, torch.bfloat16), (1024, 2048, 8192, torch.bfloat16)]
+
+
+def _variant(m, k, n, dtype):
+    """The kernel a shape must take: TMA needs 16-byte row strides, so
+    bfloat16 goes to wgmma when K and N are multiples of 8, in 128 x 256
+    tiles when they make a full wave on 132 SMs."""
+    if dtype == torch.float32:
+        return "simt_f32"
+    if k % 8 or n % 8:
+        return "mma_sync_bf16"
+    wide = -(-m // 128) * -(-n // 256)
+    return "wgmma_bf16_n256" if wide >= 132 else "wgmma_bf16"
 
 
 @pytest.mark.parametrize("m,k,n,dtype", MATMUL)
@@ -274,14 +297,44 @@ def test_staged_matmul_kernel_matches_plain(card, m, k, n, dtype):
     a = torch.randn((m, k), generator=g, device=card).to(dtype)
     b = torch.randn((k, n), generator=g, device=card).to(dtype)
     ops.reset_launches()
+    jsm.VARIANT_LAUNCHES.reset()
     got = ops.staged_matmul(a, b)
     want = ops.staged_matmul(a, b, impl="ref")
     f32 = ops.staged_matmul(a, b, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["staged_matmul"] == 2
+    assert jsm.VARIANT_LAUNCHES == {**dict.fromkeys(jsm.VARIANT_LAUNCHES, 0),
+                                    _variant(m, k, n, dtype): 2}
     assert got.dtype == dtype and f32.dtype == torch.float32
     _close_to_scale(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
     _close_to_scale(f32, a.float() @ b.float(), 1e-4)
+
+
+# small-integer operands (|x| <= 4): every float32 sum is exact, so the
+# kernel must equal the plain version bit for bit in both output types.
+# One 128 x 64 x 128 tile (a wrong shared-memory descriptor shows as values
+# in the wrong places), many trips round the stage ring, ragged edges,
+# and 128 x 256 tiles (1024 x 8192 outputs)
+MATMUL_EXACT = [(128, 64, 128), (128, 640, 128), (256, 2048, 512),
+                (200, 2048, 8192), (256, 512, 264), (128, 72, 128),
+                (64, 8, 256), (1, 256, 512), (1000, 2056, 1000),
+                (1024, 640, 8192), (1000, 2056, 8200)]
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_EXACT)
+def test_staged_matmul_wgmma_is_exact_on_small_integers(card, m, k, n):
+    full_fp32_matmul()
+    g = torch.Generator(device=card).manual_seed(m * 3 + k + n)
+    a = torch.randint(-4, 5, (m, k), generator=g, device=card).bfloat16()
+    b = torch.randint(-4, 5, (k, n), generator=g, device=card).bfloat16()
+    jsm.VARIANT_LAUNCHES.reset()
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = ops.staged_matmul(a, b, out_dtype=out_dtype)
+        want = ops.staged_matmul(a, b, out_dtype=out_dtype, impl="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        assert torch.equal(got, want), out_dtype
+    assert jsm.VARIANT_LAUNCHES[_variant(m, k, n, torch.bfloat16)] == 2
 
 
 def test_paged_and_matmul_wrappers_reject_what_they_do_not_take(card):

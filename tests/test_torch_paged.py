@@ -237,9 +237,17 @@ def test_staging_pool_bytes_match_reference(bm, bn, bk, nbytes, nbuf):
 def test_cuda_tile_fits_a_block_where_the_tpu_default_does_not():
     assert staging_pool_bytes(256, 256, 512) == 1310720      # 1.25 MB
     assert staging_pool_bytes(256, 256, 512) > 232448         # 227 KB
-    assert smem_bytes(torch.float32) == 16896
-    assert smem_bytes(torch.bfloat16) == 40960
-    assert all(smem_bytes(dt) <= 48 * 1024 for dt in TILES)
+    assert set(TILES) == {"simt_f32", "mma_sync_bf16", "wgmma_bf16",
+                          "wgmma_bf16_n256"}
+    assert smem_bytes("simt_f32") == 16896
+    assert smem_bytes("mma_sync_bf16") == 40960
+    # the register-staged kernels fit static shared memory; the wgmma ring
+    # is dynamic shared memory above 48 KB by design, within the 227 KB a
+    # block may have
+    assert all(smem_bytes(v) <= 48 * 1024
+               for v in ("simt_f32", "mma_sync_bf16"))
+    assert all(48 * 1024 < smem_bytes(v) <= 232448
+               for v in ("wgmma_bf16", "wgmma_bf16_n256"))
 
 
 # --------------------------------------------------------------------------- #
