@@ -11,18 +11,26 @@ Each phase prints one JSON line:
    PyTorch/CUDA versions, and the CUDA kernels' build from the sources
    in the checkout (one ``nvcc`` per source, all started together;
    seconds, ptxas register report); the wgmma matmul kernel must show no
-   register spill.
+   register spill, and neither may any flash attention instantiation of
+   head dim <= 128 (``flash_build``: registers and spill bytes of each
+   kernel and head-dim tile).
 2. ``kernel``: each CUDA kernel on seeded inputs at the shapes its main
    path gives it and at large ones, held against its plain PyTorch
    version on the card (the water-fills bit for bit; flash attention and
    the SSD scan within 2e-4 abs + rel in float32, the tier of
-   ``tests/test_kernels.py``, and 1e-2 in bfloat16, five times the error
-   measured on the H100 where that file allows 5e-2); per-call time of
-   both from CUDA events, the bound (the larger of bytes over the memory
-   rate and operations over the type's peak) and, for every flash
+   ``tests/test_kernels.py``, and 1e-2 in bfloat16, where that file
+   allows 5e-2; a bfloat16 flash row also within one bfloat16 ulp
+   of its largest output, what the H100 reads); per-call time of both
+   from CUDA events, the bound (the larger of bytes over the memory rate
+   and operations over the peak of the path: the type's, and for the
+   float32 flash split a third of the TF32 peak) and, for every flash
    attention case, the time of one ``F.scaled_dot_product_attention``
    call on the same inputs and mask as a yardstick (the port never calls
-   it).
+   it).  Each flash row names the kernel variant that ran (tensor cores:
+   ``mma_bf16`` or the float32 ``mma_3xtf32``; CUDA cores: ``simt``) and
+   must have run the one its type and head dim select; two rows are at
+   gemma-7b's attention width (16 heads of 256), in bfloat16 and float32,
+   and four at head dims of 20 and 100, on ``simt`` in both types.
 3. ``main_path``: the fabric bench's 48-point, 8-sender incast grid
    (receiver mode x PFC x 12 burst sizes) at full width, depth cut from
    20 ms to 2 ms, through ``run_fabric_sweep`` on the card.  Every launch
@@ -106,6 +114,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 TOL = 5e-4                  # bench_floors.json dev_goodput_vs_numpy
 SIM_TIME_S = 0.002          # depth cut: 20 ms -> 2 ms (2000 ticks)
 BURSTS_MB = [0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0]
@@ -162,21 +171,44 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_spills(log, kernel: str):
-    """Spill stores + loads (bytes) that ``-Xptxas -v`` reports for each
-    instantiation of ``kernel``; None when this run did not build it (the
-    library was already built)."""
+def ptxas_report(log) -> dict:
+    """Registers and spill bytes (stores + loads) that ``-Xptxas -v``
+    reports for each kernel entry, keyed by its mangled name."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            out[name]["spill_bytes"] = int(st) + int(ld)
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+            name = None
+    return out
+
+
+def flash_build(log):
+    """:func:`ptxas_report` of each flash attention instantiation, keyed
+    ``<variant>/<head-dim tile>``; None when this run did not build it
+    (the library was already built)."""
     import re
     if not log:
         return None
-    out, current = [], False
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            current = kernel in ln
-        elif current and "spill stores" in ln:
-            st, ld = re.findall(r"(\d+) bytes spill", ln)
-            out.append(int(st) + int(ld))
-            current = False
+    out = {}
+    for name, r in ptxas_report(log).items():
+        mt = re.search(r"flash_(mma|simt)_kernelI(f|13__nv_bfloat16)"
+                       r"Li(\d+)E", name)
+        if not mt:
+            continue
+        kind, ty, n = mt.group(1), mt.group(2), int(mt.group(3))
+        if kind == "mma":
+            key = ("mma_3xtf32" if ty == "f" else "mma_bf16") + f"/{n}"
+        else:                       # 16 * n output columns a row
+            key = f"simt_{'f32' if ty == 'f' else 'bf16'}/{16 * n}"
+        out[key] = r
     return out
 
 
@@ -417,12 +449,15 @@ def visible_pairs(t: int, s: int, causal: bool, window) -> int:
 
 def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
                 d: int, causal: bool, window, dtype: str, seed: int,
-                iters: int, plain_iters: int) -> dict:
+                iters: int, plain_iters: int, expect: str) -> dict:
     """Hold the flash attention kernel against its plain version, and
-    time one ``F.scaled_dot_product_attention`` call on the same case."""
+    time one ``F.scaled_dot_product_attention`` call on the same case.
+    ``expect`` is the kernel variant the type and head dim must select
+    (``jet_flash_attention.VARIANT_LAUNCHES`` shows which one ran)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import jet_flash_attention as jfa
     from repro_torch.kernels import ops
     rng = np.random.default_rng(seed)
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
@@ -439,15 +474,28 @@ def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
     def plain():
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    impl="ref")
+    jfa.VARIANT_LAUNCHES.reset()
     got, want = kernel(), plain()
     torch.cuda.synchronize()
+    ran = [n for n, c in jfa.VARIANT_LAUNCHES.items() if c]
     tol = 2e-4 if dtype == "float32" else 1e-2
     err, ok = close_enough(got, want, tol)
+    # bfloat16: the kernels round only P (mma_bf16) and the output, and
+    # the H100 reads at most one bfloat16 ulp of the largest |plain|
+    # (PERF.md §2); more would be a lost digit, such as a bf16 accumulator
+    ulp = None
+    if dtype == "bfloat16":
+        top = float(want.float().abs().max().item())
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(
+            math.log2(top))
     esize = q.element_size()
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * esize
     nops = 4.0 * b * hq * d * visible_pairs(t, s, causal, window)
-    bms, by = bound(nbytes, nops, FP32_OPS_PER_S if dtype == "float32"
-                    else BF16_OPS_PER_S)
+    # each variant's ceiling: the float32 split does three TF32 products
+    # for one float32 product; simt runs on the CUDA cores
+    bms, by = bound(nbytes, nops, {"mma_bf16": BF16_OPS_PER_S,
+                                   "mma_3xtf32": TF32_OPS_PER_S / 3,
+                                   "simt": FP32_OPS_PER_S}[expect])
     # the yardstick: one PyTorch call on the same case; a boolean mask
     # (True = attend) where causality is right-aligned or windowed
     lib_kw = {"enable_gqa": True} if hkv != hq else {}
@@ -467,17 +515,24 @@ def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
         return F.scaled_dot_product_attention(q, k, v, **lib_kw)
     lib_err, _ = close_enough(library(), want, tol)
     lib_ms = cuda_ms(library, iters)
+    ms = cuda_ms(kernel, iters)
     row = {"name": "flash_attention", "case": label,
            "q": [b, hq, t, d], "kv": [b, hkv, s, d], "causal": causal,
-           "window": window, "dtype": dtype, "tol": tol, "ok": ok,
-           "max_abs_err": err, "ms": cuda_ms(kernel, iters),
+           "window": window, "dtype": dtype, "variant": ran,
+           "smem_bytes": jfa.smem_bytes(expect, d), "tol": tol,
+           "bf16_ulp": ulp, "ok": ok, "max_abs_err": err, "ms": ms,
            "plain_ms": cuda_ms(plain, plain_iters), "bound_ms": bms,
            "bound_by": by, "library_ms": lib_ms,
-           "library_max_abs_err": lib_err, "gflop": nops / 1e9,
-           "bytes": nbytes}
+           "library_max_abs_err": lib_err, "tflops": nops / ms * 1e-9,
+           "gflop": nops / 1e9, "bytes": nbytes}
     emit("kernel", **row)
+    check(ran == [expect], f"flash_attention ({label}) ran {ran}, want "
+                           f"{expect}")
     check(ok, f"flash_attention kernel != plain version ({label}): max "
               f"abs err {err}, tol {tol}")
+    check(ulp is None or err <= ulp,
+          f"flash_attention ({label}): max abs err {err} is more than one "
+          f"bfloat16 ulp ({ulp}) of the largest output")
     return row
 
 
@@ -1108,8 +1163,10 @@ def profile_serve(cfg, dev) -> None:
                 if getattr(e, "device_time_total", 0) > 0
                 and e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.device_time_total for e in rows)
-        own = {k: [e for e in rows if f"{k}_kernel" in e.key]
-               for k in ("flash", "ssd")}
+        own = {k: [e for e in rows if any(n in e.key for n in names)]
+               for k, names in (("flash", ("flash_mma_kernel",
+                                           "flash_simt_kernel")),
+                                ("ssd", ("ssd_kernel",)))}
         top = sorted(rows, key=lambda e: -e.device_time_total)[:6]
         out[name] = {
             "steps": steps, "wall_ms": wall * 1e3,
@@ -1124,6 +1181,9 @@ def profile_serve(cfg, dev) -> None:
             "top": [{"kernel": e.key[:80], "count": e.count,
                      "device_us": e.device_time_total} for e in top]}
     emit("profile_serve", **out)
+    got = {k: r["count"] for k, r in out["prefill"]["own_kernels"].items()}
+    check(got == {"flash": 6, "ssd": 38}, f"profile_serve: the prefill's "
+                                          f"own kernels by name {got}")
 
 
 
@@ -1144,16 +1204,25 @@ def run() -> int:
         card = card_line()
         t0 = time.perf_counter()
         builds = _build.build_all()
-        spills = ptxas_spills(_build.BUILD_LOG.get("staged_matmul"),
-                              "wgmma_gemm_kernel")
+        log = _build.BUILD_LOG.get("staged_matmul")
+        spills = None if not log else [
+            r["spill_bytes"] for name, r in ptxas_report(log).items()
+            if "wgmma_gemm_kernel" in name]
+        flash = flash_build(_build.BUILD_LOG.get("flash_attention"))
         emit("card", nvidia_smi=card, torch=torch.__version__,
              cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
              build_s=time.perf_counter() - t0, builds=builds,
              ptxas=[ln.strip() for log in _build.BUILD_LOG.values()
                     for ln in log.splitlines() if "registers" in ln],
-             wgmma_spill_bytes=spills)
+             wgmma_spill_bytes=spills, flash_build=flash)
         check(spills is None or (len(spills) == 4 and not any(spills)),
               f"the wgmma kernel spills registers: {spills}")
+        # 5 head-dim tiles x 2 types on the tensor cores, 2 x 2 on the CUDA
+        # cores; none of head dim <= 128 may spill
+        check(flash is None or (len(flash) == 14 and not any(
+            r["spill_bytes"] for key, r in flash.items()
+            if int(key.split("/")[1]) <= 128)),
+            f"a flash attention kernel of head dim <= 128 spills: {flash}")
         rows = {}
         for name, main_shape, seed in (
                 ("priority_grants", (48, 3, 14), 1),
@@ -1163,13 +1232,27 @@ def run() -> int:
         # serve path's shapes first: those rows go into the kernels line
         rows["flash_attention"] = flash_phase(
             "serve path", 1, 32, 32, 1024, 1024, 64, True, None, "float32",
-            3, iters=50, plain_iters=5)
+            3, iters=50, plain_iters=5, expect="mma_3xtf32")
         flash_phase("large", 4, 32, 32, 4096, 4096, 64, True, None,
-                    "float32", 4, iters=5, plain_iters=2)
+                    "float32", 4, iters=5, plain_iters=2, expect="mma_3xtf32")
         flash_phase("gqa window bf16", 1, 32, 8, 1024, 1024, 80, True, 256,
-                    "bfloat16", 5, iters=20, plain_iters=3)
+                    "bfloat16", 5, iters=20, plain_iters=3, expect="mma_bf16")
         flash_phase("non-causal T<S", 2, 8, 8, 200, 1000, 64, False, None,
-                    "float32", 6, iters=20, plain_iters=3)
+                    "float32", 6, iters=20, plain_iters=3,
+                    expect="mma_3xtf32")
+        flash_phase("gemma-7b bf16", 1, 16, 16, 1024, 1024, 256, True, None,
+                    "bfloat16", 33, iters=20, plain_iters=3,
+                    expect="mma_bf16")
+        flash_phase("gemma-7b f32", 1, 16, 16, 1024, 1024, 256, True, None,
+                    "float32", 34, iters=20, plain_iters=3,
+                    expect="mma_3xtf32")
+        # head dims that are not a multiple of 8 run the CUDA-core kernel:
+        # both types at both of its widths (D <= 64, D <= 128)
+        for d, dtype, seed in ((20, "float32", 35), (100, "float32", 36),
+                               (20, "bfloat16", 37), (100, "bfloat16", 38)):
+            flash_phase(f"simt D={d} {dtype}", 1, 16, 4, 1024, 1024, d,
+                        True, None, dtype, seed, iters=10, plain_iters=3,
+                        expect="simt")
         rows["ssd_scan"] = ssd_phase("serve path", 1, 1024, 64, 64, 1, 64,
                                      256, 7, iters=20, plain_iters=5)
         ssd_phase("large", 4, 4096, 64, 64, 1, 64, 256, 8, iters=3,

@@ -55,7 +55,12 @@ def staged_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     impl: str = "auto") -> torch.Tensor:
-    """q:[B,Hq,T,D] k/v:[B,Hkv,S,D] -> [B,Hq,T,D]."""
+    """q:[B,Hq,T,D] k/v:[B,Hkv,S,D] -> [B,Hq,T,D].  On the card the type
+    and head dim pick one of the kernel's variants
+    (``jet_flash_attention.variant``: ``mma.sync`` on the tensor cores,
+    bfloat16 or float32 through a 3xTF32 split, for D % 8 == 0 up to 256;
+    the CUDA cores otherwise, D <= 128), counted in
+    ``jet_flash_attention.VARIANT_LAUNCHES``."""
     if resolve_impl(impl, q.device) == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     out = _flash_cuda(q, k, v, causal=causal, window=window)

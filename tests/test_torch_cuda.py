@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
 bit for bit; flash attention, the SSD scan, the paged decode attention and
-the staged matmul within the tolerances of ``tests/test_kernels.py``, and
+the staged matmul within the tolerances of ``tests/test_kernels.py``, each
+flash case on the kernel variant its type and head dim select, and
 the staged matmul's wgmma kernel bit for bit on small-integer operands;
 each against its plain version, each staged matmul shape on the kernel
 variant its type and shape select.
@@ -11,6 +12,8 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from repro_torch.fabric import fused
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.vector import run_fabric_sweep
 from repro_torch._device import full_fp32_matmul
+from repro_torch.kernels import jet_flash_attention as jfa
 from repro_torch.kernels import jet_staged_matmul as jsm
 from repro_torch.kernels import ops
 from repro_torch.models import api
@@ -101,13 +105,25 @@ def test_engine_runs_through_the_kernels(card):
 # --------------------------------------------------------------------------- #
 # (b, hq, hkv, t, s, d, causal, window, dtype): the serve path's causal
 # MHA, GQA + window in bfloat16 at danube's head dim 80, non-causal T < S,
-# causal T < S, ragged tiles, the widest head
+# causal T < S, ragged tiles, head dim 128 in bfloat16, gemma-7b's head dim
+# 256 in both types, a head dim of 24 (bfloat16 rows zero-padded to 32
+# bytes), a group of 8 at head dim 128 in float32, and head dims of 20 and
+# 100 in both types (not multiples of 8: the CUDA-core kernel at both of
+# its widths, D <= 64 and D <= 128)
 FLASH = [(1, 32, 32, 1024, 1024, 64, True, None, torch.float32),
          (1, 32, 8, 300, 300, 80, True, 64, torch.bfloat16),
          (2, 8, 8, 100, 333, 64, False, None, torch.float32),
          (2, 8, 2, 37, 150, 32, True, None, torch.float32),
          (1, 4, 1, 65, 65, 16, True, 3, torch.float32),
-         (1, 2, 2, 130, 130, 128, True, None, torch.bfloat16)]
+         (1, 2, 2, 130, 130, 128, True, None, torch.bfloat16),
+         (1, 16, 16, 300, 300, 256, True, None, torch.bfloat16),
+         (1, 16, 16, 300, 300, 256, True, None, torch.float32),
+         (1, 4, 2, 100, 100, 24, True, None, torch.bfloat16),
+         (1, 16, 2, 200, 200, 128, True, None, torch.float32),
+         (1, 4, 4, 70, 70, 20, True, None, torch.float32),
+         (1, 4, 2, 70, 70, 20, True, 16, torch.bfloat16),
+         (1, 4, 2, 130, 200, 100, True, None, torch.float32),
+         (1, 4, 1, 130, 130, 100, False, None, torch.bfloat16)]
 
 
 def _close(got, want, tol):
@@ -125,12 +141,25 @@ def test_flash_kernel_matches_plain(card, b, hq, hkv, t, s, d, causal,
     k = torch.randn((b, hkv, s, d), generator=g, device=card).to(dtype)
     v = torch.randn((b, hkv, s, d), generator=g, device=card).to(dtype)
     ops.reset_launches()
+    jfa.VARIANT_LAUNCHES.reset()
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ops.flash_attention(q, k, v, causal=causal, window=window,
                                impl="ref")
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    # head dims of 16-byte rows run on the tensor cores, the rest on the
+    # CUDA cores
+    ran = "simt" if d % 8 else \
+        "mma_bf16" if dtype == torch.bfloat16 else "mma_3xtf32"
+    assert {n: c for n, c in jfa.VARIANT_LAUNCHES.items() if c} == {ran: 1}
     _close(got, want, 2e-4 if dtype == torch.float32 else 5e-2)
+    if dtype == torch.bfloat16:
+        # the kernels round only P (mma_bf16) and the output: the H100
+        # reads at most one bfloat16 ulp of the largest output (PERF.md §2)
+        top = float(want.float().abs().max())
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(
+            math.log2(top))
+        assert float((got.float() - want.float()).abs().max()) <= ulp
 
 
 # (B, T, H, P, G, N, chunk): the serve path's shape, G < H with several
@@ -167,7 +196,7 @@ def test_model_kernel_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(TypeError):
         ops.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros((1, 2, 8, 160), device=card)
+        big = torch.zeros((1, 2, 8, 264), device=card)
         ops.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
