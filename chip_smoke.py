@@ -30,7 +30,24 @@ Each phase prints one JSON line:
    ``mma_bf16`` or the float32 ``mma_3xtf32``; CUDA cores: ``simt``) and
    must have run the one its type and head dim select; two rows are at
    gemma-7b's attention width (16 heads of 256), in bfloat16 and float32,
-   and four at head dims of 20 and 100, on ``simt`` in both types.
+   and four at head dims of 20 and 100, on ``simt`` in both types.  Each
+   SSD row names its variant (the tensor-core passes ``mma_3xtf32``, whose
+   bound is at a third of the TF32 peak, or ``simt`` on the CUDA cores),
+   which must be the one its widths select, the blocks each pass
+   launches and its shared memory, as the C source sizes them (equal to
+   ``mamba2_ssd.smem_bytes``), each pass's device time per call
+   (``torch.profiler``, apart from host issue), the host's microseconds
+   per call (``host_us``, no sync in the loop), and the distance of
+   kernel, plain version and ``simt`` to a float64 recurrence (``f64``);
+   rows on ``mma_3xtf32`` (the serve path, its single-chunk prompts of
+   256 and 64 tokens, and a large case) also hold the first kernel
+   (``simt``), forced, against the plain version and time it in the same
+   call (``prev_ms``, ``prev_device_ms``); one row runs the serve widths
+   in bfloat16, and a row at head dim 20 runs ``simt`` itself.  An
+   ``ssd_plan`` line holds the C plan's shared memory to the Python one
+   at every width tile.  The ``card`` line reports registers and spills
+   of every SSD kernel (``ssd_build``); the serve path's float32 64 x 64
+   passes may not spill.
 3. ``main_path``: the fabric bench's 48-point, 8-sender incast grid
    (receiver mode x PFC x 12 burst sizes) at full width, depth cut from
    20 ms to 2 ms, through ``run_fabric_sweep`` on the card.  Every launch
@@ -53,7 +70,9 @@ Each phase prints one JSON line:
    margin was below 1e-3.
 6. ``profile_serve``: one 1024-token prefill and 8 four-lane decode steps
    under ``torch.profiler``: kernels per decode step, device busy shares,
-   and the two kernels' device time per launch.
+   and the model kernels' device time per launch; the prefill must run
+   flash attention 6 times and each of the SSD scan's three passes 38
+   times, by kernel name.
 7. ``staged``: zamba2's shared MLP up-projection at a 1024-token prefill
    through ``ops.staged_matmul``, in float32 (the ``simt_f32`` kernel,
    within 1e-4 of the largest magnitude of ``torch.matmul``'s product in
@@ -208,6 +227,29 @@ def flash_build(log):
             key = ("mma_3xtf32" if ty == "f" else "mma_bf16") + f"/{n}"
         else:                       # 16 * n output columns a row
             key = f"simt_{'f32' if ty == 'f' else 'bf16'}/{16 * n}"
+        out[key] = r
+    return out
+
+
+def ssd_build(log):
+    """:func:`ptxas_report` of each SSD scan kernel, keyed
+    ``<pass>[/<type>][/<N tile>x<P tile>]``; None when this run did not
+    build it."""
+    import re
+    if not log:
+        return None
+    out = {}
+    for name, r in ptxas_report(log).items():
+        mt = re.search(r"ssd_(state|carry|output|simt)_kernel"
+                       r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?)?",
+                       name)
+        if not mt:
+            continue
+        key = mt.group(1)
+        if mt.group(2):
+            key += "/f32" if mt.group(2) == "f" else "/bf16"
+        if mt.group(3):
+            key += f"/{mt.group(3)}x{mt.group(4)}"
         out[key] = r
     return out
 
@@ -536,54 +578,201 @@ def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
     return row
 
 
+def ssd_truth64(x, dt, a, b, c):
+    """y of the recurrence h_t = exp(dt_t a) h_(t-1) + dt_t b_t x_t^T,
+    y_t = c_t h_t, step by step in float64 on the card: the truth both the
+    kernel and the plain version (float32) are measured against."""
+    import torch
+    B, T, H, P = x.shape
+    rep = H // b.shape[2]
+    xd, dtd, ad = x.double(), dt.double(), a.double()
+    bd = b.double().repeat_interleave(rep, dim=2)
+    cd = c.double().repeat_interleave(rep, dim=2)
+    h = torch.zeros((B, H, b.shape[3], P), dtype=torch.float64,
+                    device=x.device)
+    y = torch.empty((B, T, H, P), dtype=torch.float64, device=x.device)
+    for t in range(T):
+        h = (torch.exp(dtd[:, t] * ad)[..., None, None] * h
+             + dtd[:, t, :, None, None] * bd[:, t, :, :, None]
+             * xd[:, t, :, None, :])
+        y[:, t] = torch.einsum("bhn,bhnp->bhp", cd[:, t], h)
+    return y
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds per call of ``fn``, back to back with no sync
+    inside the timed loop: what a call costs the CPU (checks, allocations,
+    launches), apart from the card, which runs behind."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def ssd_plan_phase() -> dict:
+    """The SSD kernel's launch plan as the C source sizes it
+    (``mamba2_ssd.plan``) against the Python copy (``smem_bytes``) at
+    every width tile of ``mma_3xtf32`` and at ``simt`` chunks."""
+    from repro_torch.kernels import mamba2_ssd as mssd
+    got = {}
+    for name, n, p, chunk in (("mma_3xtf32", 64, 64, 256),
+                              ("mma_3xtf32", 8, 72, 20),
+                              ("mma_3xtf32", 128, 64, 256),
+                              ("mma_3xtf32", 128, 128, 64),
+                              ("simt", 64, 64, 256), ("simt", 64, 20, 256),
+                              ("simt", 12, 24, 32)):
+        c_smem = max(v[0] for v in mssd.plan(
+            name, 1, chunk, 4, n, p, chunk).values())
+        got[f"{name}/{n}x{p}/{chunk}"] = [c_smem,
+                                         mssd.smem_bytes(name, n, p, chunk)]
+    emit("ssd_plan", smem_bytes_c_vs_python=got)
+    check(all(c == py for c, py in got.values()),
+          f"the SSD kernel's shared memory (C) differs from "
+          f"mamba2_ssd.smem_bytes: {got}")
+    return got
+
+
 def ssd_phase(label: str, B: int, T: int, H: int, P: int, G: int, N: int,
-              chunk: int, seed: int, iters: int, plain_iters: int) -> dict:
+              chunk: int, seed: int, iters: int, plain_iters: int,
+              expect: str, prev_iters: int = 0,
+              dtype: str = "float32") -> dict:
     """Hold the SSD scan kernel against its plain version, on inputs made
     as the Mamba2 block makes them (dt = softplus around 0.05, a from the
-    block's a_log)."""
+    block's a_log).  ``expect`` is the kernel variant the widths must
+    select (``mamba2_ssd.VARIANT_LAUNCHES`` shows which one ran); with
+    ``prev_iters``, the first kernel (``simt``, forced through the wrapper,
+    never through ``ops``) is held to the plain version too and timed in
+    the same call as ``prev_ms``.  Kernel, plain version and ``simt`` are
+    each measured against the float64 recurrence as well (``f64``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import mamba2_ssd as mssd
     from repro_torch.kernels import ops
     rng = np.random.default_rng(seed)
+    ty = getattr(torch, dtype)
 
     def draw(shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale)
                                 .astype(np.float32)).cuda()
     x, b, c = draw((B, T, H, P)), draw((B, T, G, N)), draw((B, T, G, N))
     dt = F.softplus(draw((B, T, H), 0.5) + math.log(math.expm1(0.05)))
+    x, dt, b, c = (v.to(ty) for v in (x, dt, b, c))
     a = -torch.linspace(1.0, 8.0, H, device="cuda")
+    L = min(chunk, T)
+    tol_y = 2e-4 if dtype == "float32" else 1e-2
 
     def kernel():
         return ops.ssd(x, dt, a, b, c, chunk=chunk, impl="cuda")
 
+    def wrapper():
+        return mssd.ssd_scan(x, dt, a, b, c, L)
+
     def plain():
         return ops.ssd(x, dt, a, b, c, chunk=chunk, impl="ref")
+
+    def prev():
+        return mssd.ssd_scan(x, dt, a, b, c, L, _variant="simt")
+    mssd.VARIANT_LAUNCHES.reset()
     (y, h), (y0, h0) = kernel(), plain()
     torch.cuda.synchronize()
-    err_y, ok_y = close_enough(y, y0, 2e-4)
+    ran = [n for n, k in mssd.VARIANT_LAUNCHES.items() if k]
+    err_y, ok_y = close_enough(y, y0, tol_y)
     err_h, ok_h = close_enough(h, h0, 2e-4)
-    L = min(chunk, T)
+    truth = ssd_truth64(x, dt, a, b, c)
+
+    def vs_truth(got):
+        err = (got.double() - truth).abs()
+        return [float(err.max()), float(
+            (err / (tol_y + tol_y * truth.abs())).max())]
+    f64 = {"kernel": vs_truth(y), "plain": vs_truth(y0)}
     nc = T // L
-    # causal half of scores (c.b) and of scores @ x, plus c @ h and the
-    # state update, per (batch, head, chunk)
-    nops = float(B * H * nc) * (L * (L + 1) / 2 * 2 * (N + P)
-                                + 4.0 * L * N * P)
-    nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b.numel()
-                  + c.numel() + h.numel())
-    bms, by = bound(nbytes, nops, FP32_OPS_PER_S)
-    row = {"name": "ssd_scan", "case": label, "x": [B, T, H, P],
-           "bc": [B, T, G, N], "chunk": L, "blocks": B * H, "tol": 2e-4,
-           "ok": ok_y and ok_h, "max_abs_err": max(err_y, err_h),
-           "max_abs_err_y": err_y, "max_abs_err_h": err_h,
-           "ms": cuda_ms(kernel, iters),
+    # per (batch, head): the causal half of scores (c.b) and of scores @ x
+    # in every chunk, every chunk's own state (b w)^T x, and c @ h_in in the
+    # chunks after the first (h_in is 0 in the first); the same work
+    # whichever variant does it
+    nops = float(B * H) * (nc * L * (L + 1) * (N + P)
+                           + 2.0 * L * N * P * (2 * nc - 1))
+    nbytes = x.element_size() * (2 * x.numel() + dt.numel() + b.numel()
+                                 + c.numel()) + 4 * (a.numel() + h.numel())
+    # each variant's ceiling: the split does three TF32 products for one
+    # float32 product; simt runs on the CUDA cores
+    bms, by = bound(nbytes, nops, {"mma_3xtf32": TF32_OPS_PER_S / 3,
+                                   "simt": FP32_OPS_PER_S}[expect])
+    prev_ms = prev_err = prev_ok = prev_dev = prev_host = None
+    if prev_iters:
+        yp, hp = prev()
+        torch.cuda.synchronize()
+        ey, oy = close_enough(yp, y0, tol_y)
+        eh, oh = close_enough(hp, h0, 2e-4)
+        prev_err, prev_ok = max(ey, eh), oy and oh
+        f64["simt"] = vs_truth(yp)
+        prev_ms = cuda_ms(prev, prev_iters)
+        prev_dev = device_us(prev, ["ssd_simt_kernel"])["ssd_simt_kernel"]
+        prev_host = host_us(prev)
+    ms = cuda_ms(kernel, iters)
+    kplan = mssd.plan(expect, B, T, H, N, P, L)
+    dev = device_us(kernel, list(kplan))
+    row = {"name": "ssd_scan", "case": label, "dtype": dtype,
+           "x": [B, T, H, P], "bc": [B, T, G, N], "chunk": L,
+           "variant": ran, "blocks": {k: v[1] for k, v in kplan.items()},
+           "device_us": dev, "device_ms": sum(dev.values()) / 1e3,
+           "smem_bytes": max(v[0] for v in kplan.values()),
+           "tol": tol_y, "ok": ok_y and ok_h,
+           "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
+           "max_abs_err_h": err_h, "f64": f64, "ms": ms,
            "plain_ms": cuda_ms(plain, plain_iters), "bound_ms": bms,
-           "bound_by": by, "library_ms": None, "gflop": nops / 1e9,
-           "bytes": nbytes}
+           "bound_by": by, "library_ms": None,
+           "host_us": {"ops": host_us(kernel), "wrapper": host_us(wrapper),
+                       "simt_wrapper": prev_host},
+           "prev_ms": prev_ms, "prev_device_ms":
+               None if prev_dev is None else prev_dev / 1e3,
+           "prev_max_abs_err": prev_err, "tflops": nops / ms * 1e-9,
+           "gflop": nops / 1e9, "bytes": nbytes}
     emit("kernel", **row)
+    check(ran == [expect], f"ssd_scan ({label}) ran {ran}, want {expect}")
     check(ok_y and ok_h, f"ssd_scan kernel != plain version ({label}): "
                          f"max abs err y {err_y}, h {err_h}")
+    check(prev_ok is not False, f"ssd_scan simt != plain version "
+                                f"({label}): max abs err {prev_err}")
+    check(row["smem_bytes"] == mssd.smem_bytes(expect, N, P, L),
+          f"ssd_scan ({label}): the kernel asks for {row['smem_bytes']} "
+          f"bytes of shared memory, smem_bytes says "
+          f"{mssd.smem_bytes(expect, N, P, L)}")
     return row
+
+
+def device_us(fn, names, calls: int = 5, tries: int = 3) -> dict:
+    """Device microseconds per call of each kernel in ``names`` (matched in
+    the demangled name), from ``torch.profiler`` over ``calls`` calls of
+    ``fn``: what a call costs the card, apart from the host's issue time
+    that CUDA events over back-to-back calls include.  A window that
+    records no time for one of the kernels (the profiler now and then
+    loses a window's device records) is profiled again, up to ``tries``
+    windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        out = {n: sum(e.device_time_total for e in rows if n in e.key)
+               / calls for n in names}
+        if all(v > 0 for v in out.values()):
+            break
+    return out
 
 
 def cycled(fn, sets):
@@ -1166,7 +1355,10 @@ def profile_serve(cfg, dev) -> None:
         own = {k: [e for e in rows if any(n in e.key for n in names)]
                for k, names in (("flash", ("flash_mma_kernel",
                                            "flash_simt_kernel")),
-                                ("ssd", ("ssd_kernel",)))}
+                                ("ssd_state", ("ssd_state_kernel",)),
+                                ("ssd_carry", ("ssd_carry_kernel",)),
+                                ("ssd_output", ("ssd_output_kernel",)),
+                                ("ssd_simt", ("ssd_simt_kernel",)))}
         top = sorted(rows, key=lambda e: -e.device_time_total)[:6]
         out[name] = {
             "steps": steps, "wall_ms": wall * 1e3,
@@ -1182,8 +1374,10 @@ def profile_serve(cfg, dev) -> None:
                      "device_us": e.device_time_total} for e in top]}
     emit("profile_serve", **out)
     got = {k: r["count"] for k, r in out["prefill"]["own_kernels"].items()}
-    check(got == {"flash": 6, "ssd": 38}, f"profile_serve: the prefill's "
-                                          f"own kernels by name {got}")
+    want = {"flash": 6, "ssd_state": 38, "ssd_carry": 38, "ssd_output": 38,
+            "ssd_simt": 0}
+    check(got == want, f"profile_serve: the prefill's own kernels by name "
+                       f"{got}, want {want}")
 
 
 
@@ -1209,12 +1403,13 @@ def run() -> int:
             r["spill_bytes"] for name, r in ptxas_report(log).items()
             if "wgmma_gemm_kernel" in name]
         flash = flash_build(_build.BUILD_LOG.get("flash_attention"))
+        ssd = ssd_build(_build.BUILD_LOG.get("ssd_scan"))
         emit("card", nvidia_smi=card, torch=torch.__version__,
              cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
              build_s=time.perf_counter() - t0, builds=builds,
              ptxas=[ln.strip() for log in _build.BUILD_LOG.values()
                     for ln in log.splitlines() if "registers" in ln],
-             wgmma_spill_bytes=spills, flash_build=flash)
+             wgmma_spill_bytes=spills, flash_build=flash, ssd_build=ssd)
         check(spills is None or (len(spills) == 4 and not any(spills)),
               f"the wgmma kernel spills registers: {spills}")
         # 5 head-dim tiles x 2 types on the tensor cores, 2 x 2 on the CUDA
@@ -1223,6 +1418,12 @@ def run() -> int:
             r["spill_bytes"] for key, r in flash.items()
             if int(key.split("/")[1]) <= 128)),
             f"a flash attention kernel of head dim <= 128 spills: {flash}")
+        # 2 passes x 4 width tiles x 2 types, the carry, simt in 2 types;
+        # the serve path's float32 64 x 64 passes may not spill
+        check(ssd is None or (len(ssd) == 19 and not any(
+            ssd[f"{k}/f32/64x64"]["spill_bytes"]
+            for k in ("state", "output"))),
+            f"an SSD pass of the serve path spills: {ssd}")
         rows = {}
         for name, main_shape, seed in (
                 ("priority_grants", (48, 3, 14), 1),
@@ -1253,10 +1454,26 @@ def run() -> int:
             flash_phase(f"simt D={d} {dtype}", 1, 16, 4, 1024, 1024, d,
                         True, None, dtype, seed, iters=10, plain_iters=3,
                         expect="simt")
-        rows["ssd_scan"] = ssd_phase("serve path", 1, 1024, 64, 64, 1, 64,
-                                     256, 7, iters=20, plain_iters=5)
-        ssd_phase("large", 4, 4096, 64, 64, 1, 64, 256, 8, iters=3,
-                  plain_iters=2)
+        rows["ssd_scan"] = ssd_phase(
+            "serve path", 1, 1024, 64, 64, 1, 64, 256, 7, iters=50,
+            plain_iters=5, expect="mma_3xtf32", prev_iters=20)
+        # single-chunk prompts of the serve path (256 and 64 tokens)
+        ssd_phase("T=256, one chunk", 1, 256, 64, 64, 1, 64, 256, 9,
+                  iters=50, plain_iters=5, expect="mma_3xtf32",
+                  prev_iters=20)
+        ssd_phase("T=64, one chunk", 1, 64, 64, 64, 1, 64, 256, 10,
+                  iters=50, plain_iters=5, expect="mma_3xtf32",
+                  prev_iters=20)
+        ssd_phase("large", 4, 4096, 64, 64, 1, 64, 256, 8, iters=5,
+                  plain_iters=2, expect="mma_3xtf32", prev_iters=2)
+        # bfloat16 inputs, widened as they are staged
+        ssd_phase("serve widths bf16", 1, 1024, 64, 64, 1, 64, 256, 12,
+                  iters=50, plain_iters=5, expect="mma_3xtf32",
+                  dtype="bfloat16")
+        # a head dim that is not a multiple of 8 runs the first kernel, simt
+        ssd_phase("simt P=20", 1, 1024, 64, 20, 1, 64, 256, 11, iters=10,
+                  plain_iters=3, expect="simt")
+        ssd_plan_phase()
         rows["decode_attention_paged"] = decode_phase(
             "zamba2 shared attention", 6, 32, 32, 64, 16, SERVE_PROMPTS,
             "float32", 20, iters=200, plain_iters=20)

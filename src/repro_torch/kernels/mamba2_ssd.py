@@ -3,52 +3,158 @@
 
 The kernel replaces the reference's Pallas TPU kernel
 (``repro.kernels.mamba2_ssd.ssd_scan``): within a chunk a masked
-decay-attention, across chunks an (N, P) float32 state carry, one block
-per (batch, head) walking its chunks in order.  Its plain version is
-:func:`repro_torch.kernels.ref.ssd_chunked_ref`; callers go through
-:func:`repro_torch.kernels.ops.ssd`, which counts launches, applies
+decay-attention, across chunks an (N, P) float32 state carry.  Its plain
+version is :func:`repro_torch.kernels.ref.ssd_chunked_ref`; callers go
+through :func:`repro_torch.kernels.ops.ssd`, which counts launches, applies
 ``chunk = min(chunk, T)`` and sends CPU tensors to the plain version.
+
+**What bounds it.**  Operations: ~L²(N + P) + 4·L·N·P flops per (batch,
+head, chunk) against the inputs moved once; at the serving path's
+x [1, 1024, 64, 64], N 64, chunk 256 that is ~48 flop a byte, above the
+card's float32 ridge.  So the products go to the tensor cores.
+
+**Variants.**  The source holds two kernels, and :func:`variant` picks one
+from the type and the widths alone, before the launch:
+
+* ``mma_3xtf32``, where N and P are multiples of 8 up to
+  :data:`MAX_WIDTH` (zamba2: 64 and 64): three passes enqueued by one C
+  call, each parallel over chunks: the chunks' own states
+  and the prefix sums of dt·a (``ssd_state_kernel``), the carry of the
+  state from chunk to chunk (``ssd_carry_kernel``), and y per 64-row tile
+  of a chunk (``ssd_output_kernel``, four warps of 16 rows, flash
+  attention's ``mma.sync`` layout).  Every product runs on ``mma.sync``
+  m16n8k8 TF32 through a split of each operand into ``big`` (its TF32
+  rounding) and ``small`` (the rest), small·big + big·small + big·big:
+  float32 accuracy, not TF32 rounding.  bfloat16 inputs are widened to
+  float32 as they are staged.  The wrapper allocates the passes' float32
+  scratch in one tensor (states [B, H, T / chunk, N, P], then cum
+  [B, H, T]);
+* ``simt``: the first kernel, on the CUDA cores in float32, one block per
+  (batch, head) walking its chunks in order, for any other N, P, within
+  the card's shared memory per block at the chunk.
+
+Each launch adds one to :data:`VARIANT_LAUNCHES` under its variant.  No
+variant stands in for another: a build or launch error raises.
+
+What a launch runs (each kernel's shared memory and blocks) is the C
+source's to say: :func:`plan` asks it, and the wrapper's refusal of a
+``simt`` chunk too large for shared memory reads it there.
+:func:`smem_bytes` is the same plan in Python, for machines without the
+card; ``chip_smoke.py`` holds the two equal.
 
 This wrapper checks what the kernel takes (CUDA; x, dt, b, c of one type,
 float32 or bfloat16; a float32; contiguous; T a multiple of the chunk, H
-of G; the chunk's working set within the card's shared memory per block)
-and raises on the rest, allocates y and h, and launches on the current
-stream.  A launch error raises; nothing falls back.
+of G; 16-byte aligned for ``mma_3xtf32``; ``simt``'s working set within
+the card's shared memory per block) and raises on the rest, allocates y
+and h, and launches on the current stream.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .._build import library
+from .._device import LaunchCounts
 
 _SOURCE = "ssd_scan"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_IDS = {"simt": 0, "mma_3xtf32": 1}
 # Hopper's opt-in shared memory per block, where the runtime does not say
 SMEM_PER_BLOCK = 232448
+MAX_WIDTH = 128                     # N and P of mma_3xtf32
+WIDTH_TILES = (64, 128)             # N and P zero-padded to one of these
+TILE = 64                           # rows of a row tile, keys of a key tile
+STAGES = 2                          # cp.async ring depth
+SIMT_ROWS = 32                      # simt's row tile
+KERNELS = {"simt": ("ssd_simt_kernel",),
+           "mma_3xtf32": ("ssd_state_kernel", "ssd_carry_kernel",
+                          "ssd_output_kernel")}
+VARIANT_LAUNCHES = LaunchCounts(mma_3xtf32=0, simt=0)
+
+
+def variant(dtype: torch.dtype, n: int, p: int) -> str:
+    """The kernel that takes state width ``n`` and head dim ``p`` in
+    ``dtype``: ``mma_3xtf32`` when both are multiples of 8 (16-byte rows
+    for ``cp.async``) up to :data:`MAX_WIDTH`, else ``simt``."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the SSD kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if n < 1 or p < 1:
+        raise ValueError(f"widths N={n}, P={p} must be positive")
+    if n % 8 == 0 and p % 8 == 0 and n <= MAX_WIDTH and p <= MAX_WIDTH:
+        return "mma_3xtf32"
+    return "simt"
+
+
+def width_tile(w: int) -> int:
+    """The tile ``mma_3xtf32`` zero-pads a width (N or P) to: the smallest
+    of :data:`WIDTH_TILES` that holds it."""
+    return next(t for t in WIDTH_TILES if w <= t)
+
+
+def smem_bytes(name: str, n: int, p: int,
+               chunk: Optional[int] = None) -> int:
+    """Dynamic shared memory of the largest block of variant ``name`` at
+    widths ``n``, ``p``, as ``csrc/ssd_scan.cu`` lays it out (``Plan`` and
+    ``simt_smem_bytes``; :func:`plan` asks the source itself).
+
+    ``mma_3xtf32`` (widths padded by :func:`width_tile` to NT, PT; float32
+    words): the state pass holds :data:`STAGES` b and x tiles of
+    :data:`TILE` rows (NT + 8 and PT + 8 words a row) and their weights;
+    the output pass a c tile (NT + 4 words a row, for ldmatrix) and a ring
+    of :data:`STAGES` b and x key tiles (NT + 4, PT + 4) with their cum and
+    dt, in which h_in (NT rows of PT + 8) is staged first.  Neither depends
+    on the chunk.  ``simt`` holds the whole chunk, so it needs ``chunk``."""
+    if name == "simt":
+        if chunk is None:
+            raise ValueError("simt's shared memory depends on the chunk")
+        ns = n + 1
+        return 4 * (chunk * p + chunk * ns + n * p + 3 * chunk
+                    + SIMT_ROWS * ns + SIMT_ROWS * chunk)
+    if name != "mma_3xtf32":
+        raise ValueError(f"unknown SSD variant {name!r}")
+    nt, pt = width_tile(n), width_tile(p)
+    state = STAGES * (TILE * ((nt + 8) + (pt + 8)) + TILE)
+    out_stage = TILE * ((nt + 4) + (pt + 4)) + 2 * TILE
+    output = TILE * (nt + 4) + max(STAGES * out_stage, nt * (pt + 8))
+    return 4 * max(state, output)
 
 
 def _lib():
     lib = library(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p] + [i32] * 8 + [p]
+        lib.ssd_scan_fwd.argtypes = [p] * 9 + [i32] * 9 + [p]
         lib.ssd_scan_fwd.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [i32, i32, i32]
-        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_scan_plan.argtypes = [i32] * 7 + [p, p]
+        lib.ssd_scan_plan.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def _check(x, dt, a, b, c, chunk: int) -> None:
+def plan(name: str, batch: int, t: int, heads: int, n: int, p: int,
+         chunk: int) -> Dict[str, Tuple[int, int]]:
+    """(dynamic shared memory bytes, blocks) of each kernel a launch of
+    variant ``name`` runs at these sizes, keyed by kernel name in launch
+    order, as the launchers of ``csrc/ssd_scan.cu`` size them
+    (``ssd_scan_plan``).  Builds the library; raises on sizes the variant
+    does not take."""
+    smem, blk = (ctypes.c_longlong * 3)(), (ctypes.c_longlong * 3)()
+    k = _lib().ssd_scan_plan(_VARIANT_IDS[name], batch, t, heads, p, n,
+                             chunk, ctypes.addressof(smem),
+                             ctypes.addressof(blk))
+    if k != len(KERNELS[name]):
+        raise ValueError(f"{name} does not take N={n}, P={p}, T={t}, "
+                         f"chunk={chunk}")
+    return {kn: (smem[i], blk[i]) for i, kn in enumerate(KERNELS[name])}
+
+
+def _check(x, dt, a, b, c, chunk: int, force: Optional[str]) -> str:
     if x.device.type != "cuda":
         raise ValueError(f"the SSD kernel needs CUDA tensors, got "
                          f"{x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"the SSD kernel takes float32 or bfloat16 x, got "
-                        f"{x.dtype}")
     for name, t in (("dt", dt), ("a", a), ("b", b), ("c", c)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -60,7 +166,7 @@ def _check(x, dt, a, b, c, chunk: int) -> None:
     if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape:
         raise ValueError("want x [B,T,H,P], b and c [B,T,G,N]")
     B, T, H, P = x.shape
-    G = b.shape[2]
+    G, N = b.shape[2], b.shape[3]
     if tuple(dt.shape) != (B, T, H) or tuple(a.shape) != (H,) \
             or tuple(b.shape[:2]) != (B, T):
         raise ValueError(f"shapes do not match x {tuple(x.shape)}: dt "
@@ -71,40 +177,63 @@ def _check(x, dt, a, b, c, chunk: int) -> None:
     if chunk < 1 or T % chunk:
         raise ValueError(f"sequence length {T} must divide by the chunk "
                          f"{chunk}")
-    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
+    name = variant(x.dtype, N, P)
+    if force is not None:
+        if force not in _VARIANT_IDS:
+            raise ValueError(f"unknown SSD variant {force!r}")
+        if force == "mma_3xtf32" and name != force:
+            raise ValueError(f"mma_3xtf32 does not take N={N}, P={P}")
+        name = force
+    for n, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{n} must be contiguous")
+        if name != "simt" and n in ("x", "b", "c") and t.data_ptr() % 16:
+            raise ValueError(f"{n} must be 16-byte aligned")
     if x.device.index is not None and \
             x.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {x.device} but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
+    if name == "simt":
+        need = plan(name, B, T, H, N, P, chunk)["ssd_simt_kernel"][0]
+        limit = getattr(torch.cuda.get_device_properties(x.device),
+                        "shared_memory_per_block_optin", SMEM_PER_BLOCK)
+        if need > limit:
+            raise ValueError(f"chunk {chunk} at N={N}, P={P} needs {need} "
+                             f"bytes of shared memory per block, over the "
+                             f"card's {limit}; use a smaller chunk")
+    return name
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, chunk: int
+             b: torch.Tensor, c: torch.Tensor, chunk: int,
+             _variant: Optional[str] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x:[B,T,H,P] dt:[B,T,H] a:[H] b,c:[B,T,G,N] -> (y:[B,T,H,P] in x's
-    type, h:[B,H,N,P] float32), by one launch of the CUDA kernel."""
-    _check(x, dt, a, b, c, chunk)
+    type, h:[B,H,N,P] float32), by the kernel that :func:`variant` picks,
+    its passes enqueued by one C call.  ``_variant`` forces a variant (the
+    chip smoke test times ``simt`` beside the chosen one with it)."""
+    name = _check(x, dt, a, b, c, chunk, _variant)
     B, T, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    lib = _lib()
-    need = lib.ssd_scan_smem_bytes(chunk, N, P)
-    limit = getattr(torch.cuda.get_device_properties(x.device),
-                    "shared_memory_per_block_optin", SMEM_PER_BLOCK)
-    if need > limit:
-        raise ValueError(f"chunk {chunk} at N={N}, P={P} needs {need} bytes "
-                         f"of shared memory per block, over the card's "
-                         f"{limit}; use a smaller chunk")
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, h.zero_()
-    err = lib.ssd_scan_fwd(
+    cum = st = None
+    if name == "mma_3xtf32":
+        # one allocation: the states (16-byte aligned for cp.async), cum
+        n_st = B * H * (T // chunk) * N * P
+        scratch = torch.empty(n_st + B * H * T, dtype=torch.float32,
+                              device=x.device)
+        st = scratch.data_ptr()
+        cum = st + 4 * n_st
+    err = _lib().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), h.data_ptr(), B, T, H, P, G, N, chunk,
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        c.data_ptr(), y.data_ptr(), h.data_ptr(), cum, st, B, T, H, P, G, N,
+        chunk, _DTYPES[x.dtype], _VARIANT_IDS[name],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"ssd_scan kernel launch failed ({name}): CUDA "
+                           f"error {err}")
+    VARIANT_LAUNCHES[name] += 1
     return y, h

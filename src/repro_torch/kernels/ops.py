@@ -87,7 +87,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         b: torch.Tensor, c: torch.Tensor, *, chunk: int = 256,
         impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> (y [B,T,H,P], h [B,H,N,P] float32).  The chunk
-    is ``min(chunk, T)``, and T must divide by it (ValueError)."""
+    is ``min(chunk, T)``, and T must divide by it (ValueError).  On the card
+    the widths pick one of the kernel's variants (``mamba2_ssd.variant``:
+    three chunk-parallel passes on the tensor cores through a 3xTF32 split
+    for N, P multiples of 8 up to 128; the CUDA cores otherwise), counted
+    in ``mamba2_ssd.VARIANT_LAUNCHES``."""
     chunk = min(chunk, x.shape[1])
     if chunk < 1 or x.shape[1] % chunk:
         raise ValueError(f"sequence length {x.shape[1]} must divide by the "

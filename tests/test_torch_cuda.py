@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
 bit for bit; flash attention, the SSD scan, the paged decode attention and
 the staged matmul within the tolerances of ``tests/test_kernels.py``, each
-flash case on the kernel variant its type and head dim select, and
-the staged matmul's wgmma kernel bit for bit on small-integer operands;
-each against its plain version, each staged matmul shape on the kernel
-variant its type and shape select.
+flash case on the kernel variant its type and head dim select, each
+SSD case on the variant its widths select, and the staged matmul's
+wgmma kernel bit for bit on small-integer operands; each against its
+plain version, each staged matmul shape on the kernel variant its type
+and shape select.
 
 Needs an NVIDIA card and ``nvcc``; every test skips without one.  The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -25,6 +26,7 @@ from repro_torch.fabric.vector import run_fabric_sweep
 from repro_torch._device import full_fp32_matmul
 from repro_torch.kernels import jet_flash_attention as jfa
 from repro_torch.kernels import jet_staged_matmul as jsm
+from repro_torch.kernels import mamba2_ssd as mssd
 from repro_torch.kernels import ops
 from repro_torch.models import api
 
@@ -162,33 +164,91 @@ def test_flash_kernel_matches_plain(card, b, hq, hkv, t, s, d, causal,
         assert float((got.float() - want.float()).abs().max()) <= ulp
 
 
-# (B, T, H, P, G, N, chunk): the serve path's shape, G < H with several
-# chunks, one short chunk, bfloat16
-SSD = [(1, 1024, 64, 64, 1, 64, 256, torch.float32),
-       (2, 96, 8, 32, 2, 16, 32, torch.float32),
-       (1, 20, 4, 16, 1, 8, 256, torch.float32),
-       (1, 128, 8, 64, 1, 64, 64, torch.bfloat16)]
+# (B, T, H, P, G, N, chunk, dtype, a_min, dt_shift): the serve path's shape
+# and its widths at T = 256 (one chunk) and 512; G < H with several chunks
+# at small and at the serve widths; one short chunk (L = 20, a ragged row
+# tile); bfloat16; a strongly decaying head set (a down to -64, dt ~ 0.002:
+# exp(cum) underflows within a chunk); widths of 128 (the wider tiles, c
+# fragments reloaded from shared memory) and mixed tiles with a ragged
+# second row tile; N or P not a multiple of 8 on simt, in both types
+SSD = [(1, 1024, 64, 64, 1, 64, 256, torch.float32, -8.0, -3.0),
+       (1, 256, 64, 64, 1, 64, 256, torch.float32, -8.0, -3.0),
+       (1, 512, 64, 64, 1, 64, 256, torch.float32, -8.0, -3.0),
+       (2, 96, 8, 32, 2, 16, 32, torch.float32, -8.0, -3.0),
+       (1, 512, 16, 64, 2, 64, 128, torch.float32, -8.0, -3.0),
+       (1, 20, 4, 16, 1, 8, 256, torch.float32, -8.0, -3.0),
+       (1, 128, 8, 64, 1, 64, 64, torch.bfloat16, -8.0, -3.0),
+       (1, 256, 8, 64, 1, 64, 256, torch.float32, -64.0, -6.0),
+       (1, 256, 4, 128, 1, 128, 256, torch.float32, -8.0, -3.0),
+       (2, 192, 4, 128, 1, 32, 64, torch.float32, -8.0, -3.0),
+       (1, 192, 4, 32, 1, 128, 96, torch.float32, -8.0, -3.0),
+       (1, 128, 4, 20, 1, 64, 64, torch.float32, -8.0, -3.0),
+       (1, 64, 4, 24, 1, 12, 32, torch.bfloat16, -8.0, -3.0)]
 
 
-@pytest.mark.parametrize("B,T,H,P,G,N,chunk,dtype", SSD)
-def test_ssd_kernel_matches_plain(card, B, T, H, P, G, N, chunk, dtype):
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,dtype,a_min,dt_shift", SSD)
+def test_ssd_kernel_matches_plain(card, B, T, H, P, G, N, chunk, dtype,
+                                  a_min, dt_shift):
     g = torch.Generator(device=card).manual_seed(T)
     x = torch.randn((B, T, H, P), generator=g, device=card).to(dtype)
     dt = torch.nn.functional.softplus(
-        torch.randn((B, T, H), generator=g, device=card) * 0.5 - 3.0)
-    a = -torch.linspace(1.0, 8.0, H, device=card)
+        torch.randn((B, T, H), generator=g, device=card) * 0.5 + dt_shift)
+    a = -torch.linspace(1.0, -a_min, H, device=card)
     b = torch.randn((B, T, G, N), generator=g, device=card).to(dtype)
     c = torch.randn((B, T, G, N), generator=g, device=card).to(dtype)
     dt = dt.to(dtype)
     ops.reset_launches()
+    mssd.VARIANT_LAUNCHES.reset()
     y, h = ops.ssd(x, dt, a, b, c, chunk=chunk)
     y0, h0 = ops.ssd(x, dt, a, b, c, chunk=chunk, impl="ref")
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ssd_scan"] == 1
+    # widths of 16-byte rows up to 128 run the tensor-core passes, the rest
+    # the CUDA cores
+    ran = "mma_3xtf32" if N % 8 == 0 and P % 8 == 0 and max(N, P) <= 128 \
+        else "simt"
+    assert {n: k for n, k in mssd.VARIANT_LAUNCHES.items() if k} == {ran: 1}
     assert y.dtype == dtype and h.dtype == torch.float32
     tol = 2e-4 if dtype == torch.float32 else 5e-2
     _close(y, y0, tol)
     _close(h, h0, tol)
+
+
+def test_ssd_simt_forced_matches_plain(card):
+    # the first kernel (simt), forced at the serve path's widths
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((1, 512, 8, 64), generator=g, device=card)
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, 512, 8), generator=g, device=card) * 0.5 - 3.0)
+    a = -torch.linspace(1.0, 8.0, 8, device=card)
+    b = torch.randn((1, 512, 1, 64), generator=g, device=card)
+    c = torch.randn((1, 512, 1, 64), generator=g, device=card)
+    mssd.VARIANT_LAUNCHES.reset()
+    y, h = mssd.ssd_scan(x, dt, a, b, c, 256, _variant="simt")
+    y0, h0 = ops.ssd(x, dt, a, b, c, chunk=256, impl="ref")
+    torch.cuda.synchronize()
+    assert dict(mssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 1}
+    _close(y, y0, 2e-4)
+    _close(h, h0, 2e-4)
+
+
+@pytest.mark.parametrize("name,n,p,chunk", [
+    ("mma_3xtf32", 64, 64, 256), ("mma_3xtf32", 8, 72, 20),
+    ("mma_3xtf32", 128, 64, 80), ("mma_3xtf32", 128, 128, 64),
+    ("simt", 64, 20, 256), ("simt", 12, 24, 32)])
+def test_ssd_launch_plan_is_the_python_plan(card, name, n, p, chunk):
+    # what the C launchers ask for (ssd_scan_plan) against smem_bytes, the
+    # Python plan the CPU tests hold to 227 KB
+    plan = mssd.plan(name, 2, 4 * chunk, 3, n, p, chunk)
+    assert list(plan) == list(mssd.KERNELS[name])
+    assert max(s for s, _ in plan.values()) == mssd.smem_bytes(
+        name, n, p, chunk)
+    if name == "mma_3xtf32":    # per (b, h, chunk); per element; per row tile
+        assert plan["ssd_state_kernel"][1] == 2 * 3 * 4
+        assert plan["ssd_carry_kernel"] == (0, -(-2 * 3 * n * p // 256))
+        assert plan["ssd_output_kernel"][1] == 2 * 3 * 4 * -(-chunk // 64)
+    else:
+        assert plan["ssd_simt_kernel"][1] == 2 * 3
 
 
 def test_model_kernel_wrappers_reject_what_they_do_not_take(card):
@@ -201,12 +261,24 @@ def test_model_kernel_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
                             q.transpose(2, 3))
+    # N = 130 is no multiple of 8, so simt takes it, and simt holds the
+    # whole 512-row chunk in shared memory
     x = torch.zeros((1, 512, 4, 128), device=card)
-    bc = torch.zeros((1, 512, 1, 128), device=card)
+    bc = torch.zeros((1, 512, 1, 130), device=card)
     dt = torch.zeros((1, 512, 4), device=card)
     a = torch.zeros(4, device=card)
     with pytest.raises(ValueError, match="shared memory"):
         ops.ssd(x, dt, a, bc, bc, chunk=512)
+    with pytest.raises(ValueError, match="does not take"):
+        mssd.ssd_scan(x, dt, a, bc, bc, 512, _variant="mma_3xtf32")
+    # 16-byte rows are what the tensor-core passes stage by cp.async
+    x = torch.zeros((1, 64, 4, 65), device=card)[..., 1:]
+    bc = torch.zeros((1, 64, 1, 64), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd(x, dt[:, :64], a, bc, bc, chunk=64)
+    xa = torch.zeros(1 * 64 * 4 * 64 + 1, device=card)[1:].view(1, 64, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.ssd(xa, dt[:, :64].contiguous(), a, bc, bc, chunk=64)
 
 
 def test_tiny_zamba2_prefill_runs_through_the_kernels(card):

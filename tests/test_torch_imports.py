@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``
-(``repro_torch`` itself is allowed)."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or the
+reference package ``repro`` (``repro_torch`` itself is allowed)."""
 import ast
 from pathlib import Path
 
@@ -11,7 +11,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
