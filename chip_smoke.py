@@ -95,8 +95,16 @@ Each phase prints one JSON line:
 
 The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
 attention, a length-0 row that must give o == 0, danube-1.8b,
-starcoder2-15b and llama4-scout widths; o within 2e-4 in float32 and
-1e-2 in bfloat16, lse within 2e-4; no library call does the same) and the
+starcoder2-15b, llama4-scout and gemma-7b (head dim 256) widths; o within
+2e-4 in float32 and 1e-2 in bfloat16, lse within 2e-4; no library call
+does the same; each row names the variant that ran, which must be the
+one the types select, records the split count, blocks and shared memory
+of the split kernel and the merge as the C source plans them, each
+kernel's device time, the host's microseconds a call, and the same
+kernel forced to one split, ``s1_ms``, held to the same tolerances; a
+``decode_plan`` line holds the C plan equal to the Python one, and the
+``card`` line reports every decode kernel's registers and spills
+(``decode_build``), none of which may spill) and the
 staged matmul (zamba2's MLP up-projection in float32 and bfloat16,
 ragged shapes in float32 and in bfloat16 with K and N multiples of 8
 (wgmma in 128 x 128 tiles) and not (mma.sync), small-integer bfloat16
@@ -249,6 +257,30 @@ def ssd_build(log):
         if mt.group(2):
             key += "/f32" if mt.group(2) == "f" else "/bf16"
         if mt.group(3):
+            key += f"/{mt.group(3)}x{mt.group(4)}"
+        out[key] = r
+    return out
+
+
+def decode_build(log):
+    """:func:`ptxas_report` of each paged decode kernel, keyed
+    ``split_mma/<q type>/<head-dim tile>``,
+    ``split_simt/<q type>/<heads>x<128-column chunks>`` or
+    ``merge/<q type>``; None when this run did not build it."""
+    import re
+    if not log:
+        return None
+    out = {}
+    for name, r in ptxas_report(log).items():
+        mt = re.search(r"decode_(split_mma|split_simt|merge)_kernel"
+                       r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Li(\d+)E)?",
+                       name)
+        if not mt:
+            continue
+        key = f"{mt.group(1)}/{'f32' if mt.group(2) == 'f' else 'bf16'}"
+        if mt.group(1) == "split_mma":
+            key += f"/{mt.group(3)}"
+        elif mt.group(1) == "split_simt":
             key += f"/{mt.group(3)}x{mt.group(4)}"
         out[key] = r
     return out
@@ -821,11 +853,20 @@ def paged_inputs(b: int, hq: int, hkv: int, d: int, page: int, lengths,
 
 def decode_phase(label: str, b: int, hq: int, hkv: int, d: int, page: int,
                  lengths, dtype: str, seed: int, iters: int,
-                 plain_iters: int, hole: bool = False) -> dict:
+                 plain_iters: int, expect: str, hole: bool = False) -> dict:
     """Hold the paged decode kernel against its plain version (o and
     lse).  A length-0 row must give o == 0 from the kernel (the plain
-    version gives the mean of v there, as the reference's does)."""
+    version gives the mean of v there, as the reference's does).
+    ``expect`` is the variant the types must select
+    (``jet_decode_attention.VARIANT_LAUNCHES`` shows which one ran).  The
+    row records the launch plan as the C source makes it (splits, blocks
+    and shared memory of the split kernel and the merge), each kernel's
+    device time per call (``torch.profiler``), the host's microseconds per
+    ``ops`` call (``host_us``), and the same kernel forced to one split
+    (``s1_*``, no merge), held to the same tolerances and timed in the
+    same call."""
     import torch
+    from repro_torch.kernels import jet_decode_attention as jd
     from repro_torch.kernels import ops
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     q, kp, vp, table, lens = paged_inputs(b, hq, hkv, d, page, lengths, tdt,
@@ -835,21 +876,38 @@ def decode_phase(label: str, b: int, hq: int, hkv: int, d: int, page: int,
         return ops.decode_attention(q, k_pages, v_pages, table, lens,
                                     impl="cuda")
 
+    def one_split(k_pages, v_pages):
+        return jd.decode_attention_paged(q, k_pages, v_pages, table, lens,
+                                         splits=1)
+
     def plain(k_pages, v_pages):
         return ops.decode_attention(q, k_pages, v_pages, table, lens,
                                     impl="ref")
+    jd.VARIANT_LAUNCHES.reset()
     (o, lse), (o0, lse0) = kernel(kp, vp), plain(kp, vp)
+    o1, lse1 = one_split(kp, vp)
     torch.cuda.synchronize()
+    ran = [n for n, k in jd.VARIANT_LAUNCHES.items() if k]
     tol = 2e-4 if dtype == "float32" else 1e-2
     live = lens > 0
-    err_o, ok_o = close_enough(o[live], o0[live], tol)
-    err_l, ok_l = close_enough(lse, lse0, 2e-4)
+
+    def held(got_o, got_lse):
+        eo, oo = close_enough(got_o[live], o0[live], tol)
+        el, ol = close_enough(got_lse, lse0, 2e-4)
+        return eo, el, oo and ol and bool((got_o[~live] == 0).all())
+    err_o, err_l, ok = held(o, lse)
     zero_ok = bool((o[~live] == 0).all())
+    err_o1, err_l1, ok1 = held(o1, lse1)
     maxp = table.shape[1]
+    pl = jd.plan(tdt, tdt, b, hq, hkv, d, page, maxp,
+                 jd.sm_count(torch.cuda.current_device()))
+    pl1 = jd.plan(tdt, tdt, b, hq, hkv, d, page, maxp,
+                  jd.sm_count(torch.cuda.current_device()), splits=1)
     pos = sum(min(n, maxp * page) for n in lengths)
     esize = kp.element_size()
     # q and o, the K and V rows of every position read, their table
-    # entries, the lengths, and lse
+    # entries, the lengths, and lse (the partials are the design's cost,
+    # not the work's)
     nbytes = (2 * q.numel() * q.element_size() + 2 * pos * hkv * d * esize
               + 4 * sum(-(-n // page) for n in lengths) + 4 * b + 4 * b * hq)
     nops = 4.0 * hq * d * pos
@@ -858,14 +916,25 @@ def decode_phase(label: str, b: int, hq: int, hkv: int, d: int, page: int,
                                      / (2 * kp.numel() * esize))))
     sets = [(kp, vp)] + [(kp.clone(), vp.clone())
                          for _ in range(copies - 1)]
+    dev = device_us(cycled(kernel, sets), list(pl["kernels"]))
+    dev1 = device_us(cycled(one_split, sets), list(pl1["kernels"]))
     row = {"name": "decode_attention_paged", "case": label,
            "q": [b, hq, d], "pages": list(kp.shape), "page_table": [b, maxp],
            "lengths": list(lengths), "dtype": dtype, "tol": tol,
-           "tol_lse": 2e-4, "ok": ok_o and ok_l and zero_ok,
+           "tol_lse": 2e-4, "ok": ok, "variant": ran,
+           "splits": pl["splits"], "chunk": pl["chunk"],
+           "blocks": {k: v[1] for k, v in pl["kernels"].items()},
+           "smem_bytes": {k: v[0] for k, v in pl["kernels"].items()},
            "max_abs_err": max(err_o, err_l), "max_abs_err_o": err_o,
            "max_abs_err_lse": err_l, "zero_rows": int((~live).sum()),
-           "zero_rows_o_is_0": zero_ok, "blocks": b * hkv,
+           "zero_rows_o_is_0": zero_ok,
            "ms": cuda_ms(cycled(kernel, sets), iters),
+           "device_us": dev, "device_ms": sum(dev.values()) / 1e3,
+           "host_us": host_us(lambda: kernel(kp, vp)),
+           "s1_ms": cuda_ms(cycled(one_split, sets), iters),
+           "s1_device_ms": sum(dev1.values()) / 1e3,
+           "s1_blocks": pl1["kernels"][next(iter(pl1["kernels"]))][1],
+           "s1_ok": ok1, "s1_max_abs_err": max(err_o1, err_l1),
            "plain_ms": cuda_ms(cycled(plain, sets), plain_iters),
            "timed_copies": copies, "bound_ms": bms, "bound_by": by,
            "library_ms": None,
@@ -875,11 +944,45 @@ def decode_phase(label: str, b: int, hq: int, hkv: int, d: int, page: int,
     del sets
     torch.cuda.empty_cache()
     emit("kernel", **row)
-    check(ok_o and ok_l, f"decode_attention_paged kernel != plain version "
-                         f"({label}): max abs err o {err_o}, lse {err_l}")
-    check(zero_ok, f"decode_attention_paged: a length-0 row gave o != 0 "
-                   f"({label})")
+    check(ran == [expect], f"decode_attention_paged ({label}) ran {ran}, "
+                           f"want {expect}")
+    check(ok, f"decode_attention_paged kernel != plain version ({label}): "
+              f"max abs err o {err_o}, lse {err_l}, length-0 rows o == 0: "
+              f"{zero_ok}")
+    check(ok1, f"decode_attention_paged forced to one split != plain "
+               f"version ({label}): max abs err o {err_o1}, lse {err_l1}")
     return row
+
+
+def decode_plan_phase() -> dict:
+    """The paged decode kernel's launch plan as the C source makes it
+    (``jet_decode_attention.plan``) against the Python copy
+    (``split_plan``), at every row's sizes, forced splits and the widest
+    head dims of each variant."""
+    import torch
+    from repro_torch.kernels import jet_decode_attention as jd
+    f32, bf = torch.float32, torch.bfloat16
+    sms = jd.sm_count(torch.cuda.current_device())
+    got = {}
+    for qt, kt, b, hq, hkv, d, page, maxp, splits in (
+            (f32, f32, 6, 32, 32, 64, 16, 64, None),
+            (f32, f32, 4, 32, 8, 80, 32, 128, None),
+            (bf, bf, 8, 48, 4, 128, 16, 512, None),
+            (bf, bf, 32, 40, 8, 128, 16, 2048, None),
+            (bf, bf, 32, 40, 8, 128, 16, 2048, 1),
+            (bf, bf, 8, 16, 16, 256, 16, 512, None),
+            (f32, bf, 3, 64, 2, 256, 16, 63, 40),
+            (f32, f32, 3, 64, 2, 256, 1, 4096, None),
+            (bf, f32, 2, 12, 1, 20, 8, 9, 7)):
+        key = (f"{str(qt)[6:]}/{str(kt)[6:]}/B{b}/Hq{hq}/Hkv{hkv}/D{d}/"
+               f"page{page}/maxp{maxp}/S{splits}")
+        got[key] = [jd.plan(qt, kt, b, hq, hkv, d, page, maxp, sms, splits),
+                    jd.split_plan(qt, kt, b, hq, hkv, d, page, maxp, sms,
+                                  splits)]
+    emit("decode_plan", sms=sms, c_vs_python=got)
+    check(all(c == py for c, py in got.values()),
+          f"the paged decode plan (C) differs from split_plan: {got}")
+    return got
 
 
 def matmul_phase(label: str, m: int, k: int, n: int, dtype: str, seed: int,
@@ -1404,12 +1507,14 @@ def run() -> int:
             if "wgmma_gemm_kernel" in name]
         flash = flash_build(_build.BUILD_LOG.get("flash_attention"))
         ssd = ssd_build(_build.BUILD_LOG.get("ssd_scan"))
+        decode = decode_build(_build.BUILD_LOG.get("decode_attention"))
         emit("card", nvidia_smi=card, torch=torch.__version__,
              cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
              build_s=time.perf_counter() - t0, builds=builds,
              ptxas=[ln.strip() for log in _build.BUILD_LOG.values()
                     for ln in log.splitlines() if "registers" in ln],
-             wgmma_spill_bytes=spills, flash_build=flash, ssd_build=ssd)
+             wgmma_spill_bytes=spills, flash_build=flash, ssd_build=ssd,
+             decode_build=decode)
         check(spills is None or (len(spills) == 4 and not any(spills)),
               f"the wgmma kernel spills registers: {spills}")
         # 5 head-dim tiles x 2 types on the tensor cores, 2 x 2 on the CUDA
@@ -1424,6 +1529,12 @@ def run() -> int:
             ssd[f"{k}/f32/64x64"]["spill_bytes"]
             for k in ("state", "output"))),
             f"an SSD pass of the serve path spills: {ssd}")
+        # the split kernel: 3 head-dim tiles x 2 q types on the tensor
+        # cores, 4 head tiles x 2 column chunks x 2 q types on the CUDA
+        # cores; the merge in 2 q types; none may spill
+        check(decode is None or (len(decode) == 24 and not any(
+            r["spill_bytes"] for r in decode.values())),
+            f"a paged decode kernel spills: {decode}")
         rows = {}
         for name, main_shape, seed in (
                 ("priority_grants", (48, 3, 14), 1),
@@ -1476,16 +1587,24 @@ def run() -> int:
         ssd_plan_phase()
         rows["decode_attention_paged"] = decode_phase(
             "zamba2 shared attention", 6, 32, 32, 64, 16, SERVE_PROMPTS,
-            "float32", 20, iters=200, plain_iters=20)
+            "float32", 20, iters=200, plain_iters=20, expect="simt_f32")
         decode_phase("length 0", 3, 32, 32, 64, 16, [0, 16, 100], "float32",
-                     21, iters=200, plain_iters=20)
+                     21, iters=200, plain_iters=20, expect="simt_f32")
         decode_phase("danube-1.8b", 4, 32, 8, 80, 32, [4096, 1, 777, 3000],
-                     "float32", 22, iters=100, plain_iters=10)
+                     "float32", 22, iters=100, plain_iters=10,
+                     expect="simt_f32")
         decode_phase("starcoder2-15b", 8, 48, 4, 128, 16,
                      [1, 17, 300, 1000, 2048, 4097, 6000, 8192], "bfloat16",
-                     23, iters=100, plain_iters=10, hole=True)
+                     23, iters=100, plain_iters=10, expect="mma_bf16",
+                     hole=True)
         decode_phase("llama4-scout", 32, 40, 8, 128, 16, [32768] * 32,
-                     "bfloat16", 24, iters=10, plain_iters=2)
+                     "bfloat16", 24, iters=10, plain_iters=2,
+                     expect="mma_bf16")
+        decode_phase("gemma-7b", 8, 16, 16, 256, 16,
+                     [1, 300, 1000, 2048, 4096, 4097, 6000, 8192],
+                     "bfloat16", 33, iters=50, plain_iters=5,
+                     expect="mma_bf16")
+        decode_plan_phase()
         rows["staged_matmul"] = matmul_phase(
             "zamba2 MLP up-projection", 1024, 2048, 8192, "float32", 25,
             iters=10, plain_iters=10, expect="simt_f32")

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded through ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries are built at
 first use into ``build/repro_torch/`` at the repository root, keyed by a
-hash of the source and the flags, so a checkout builds its own kernels
-and a changed source never loads a stale library.  Nothing here runs at
+hash of the source, of the local headers it includes and of the flags
+(:func:`source_key`), so a checkout builds its own kernels and a changed
+source or header never loads a stale library.  Nothing here runs at
 import time: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per source: seconds the build took in this process (0.0 = reused) and
 # nvcc's report (ptxas registers / spills per kernel)
@@ -45,6 +48,26 @@ def nvcc() -> str:
                        "PATH) — the CUDA kernels are built from source")
 
 
+def source_key(src: Path) -> str:
+    """Hash of ``src``, of every header it includes by ``#include "..."``
+    that lies beside it (and of theirs, in turn), and of the nvcc flags."""
+    h, seen = hashlib.sha256(), set()
+
+    def add(path: Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        for inc in _INCLUDE.findall(text):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                add(dep)
+    add(src)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library(name: str) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu`` as a shared library, building it first if
     this source has not been built yet.  A failed build raises."""
@@ -52,10 +75,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{key}.so"
+    out = BUILD_DIR / f"{name}-{source_key(src)}.so"
     t0 = time.perf_counter()
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -74,7 +74,13 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token decode over a paged KV cache: q:[B,Hq,D];
     k/v_pages:[P,page,Hkv,D]; page_table:[B,maxp] int32 (-1 holes);
-    lengths:[B] int32 -> (o:[B,Hq,D], lse:[B,Hq] float32)."""
+    lengths:[B] int32 -> (o:[B,Hq,D], lse:[B,Hq] float32).  On the card
+    one call enqueues the kernel's split over positions and, where it
+    splits, the merge through lse; the types pick its variant
+    (``jet_decode_attention.variant``: bfloat16 pages on ``mma.sync``,
+    ``mma_bf16`` or, for a float32 q, ``mma_bf16x2``; float32 pages on the
+    CUDA cores, ``simt_f32``), counted in
+    ``jet_decode_attention.VARIANT_LAUNCHES``."""
     if resolve_impl(impl, q.device) == "ref":
         return ref.decode_attention_paged_ref(q, k_pages, v_pages,
                                               page_table, lengths)

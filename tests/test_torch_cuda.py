@@ -24,6 +24,7 @@ from repro_torch.fabric import fused
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.vector import run_fabric_sweep
 from repro_torch._device import full_fp32_matmul
+from repro_torch.kernels import jet_decode_attention as jda
 from repro_torch.kernels import jet_flash_attention as jfa
 from repro_torch.kernels import jet_staged_matmul as jsm
 from repro_torch.kernels import mamba2_ssd as mssd
@@ -319,7 +320,9 @@ def _paged(card, b, hq, hkv, d, page, lengths, q_dtype, kv_dtype, seed):
 
 # (b, hq, hkv, d, page, lengths, q dtype, page dtype): zamba2's shared
 # attention, danube's group of 4 at head dim 80, starcoder2's group of 12
-# in bfloat16, a page longer than the 64-position tile, mixed types
+# in bfloat16, a page longer than the 64-position tile, mixed types,
+# gemma-7b's 16 heads of 256 in bfloat16, head dim 256 in float32, groups
+# of 32 (two head tiles) in every variant
 PAGED = [(6, 32, 32, 64, 16, [64, 128, 256, 512, 1024, 256],
           torch.float32, torch.float32),
          (4, 32, 8, 80, 32, [4096, 1, 777, 3000], torch.float32,
@@ -327,7 +330,22 @@ PAGED = [(6, 32, 32, 64, 16, [64, 128, 256, 512, 1024, 256],
          (8, 48, 4, 128, 16, [1, 17, 300, 1000, 2048, 4097, 6000, 8192],
           torch.bfloat16, torch.bfloat16),
          (3, 8, 1, 32, 100, [250, 99, 101], torch.float32, torch.float32),
-         (2, 16, 2, 64, 8, [37, 64], torch.float32, torch.bfloat16)]
+         (2, 16, 2, 64, 8, [37, 64], torch.float32, torch.bfloat16),
+         (8, 16, 16, 256, 16, [1, 300, 1000, 2048, 4096, 4097, 6000, 8192],
+          torch.bfloat16, torch.bfloat16),
+         (3, 16, 16, 256, 16, [1, 300, 1000], torch.float32, torch.float32),
+         (2, 64, 2, 128, 16, [300, 1000], torch.bfloat16, torch.bfloat16),
+         (2, 64, 2, 256, 16, [77, 513], torch.float32, torch.bfloat16),
+         (2, 64, 2, 64, 16, [77, 513], torch.bfloat16, torch.float32)]
+
+
+def _decode_variant(q_dtype, kv_dtype):
+    """The variant the types must take: float32 pages on the CUDA cores,
+    bfloat16 pages on mma.sync, split into two bfloat16 halves where q is
+    float32."""
+    if kv_dtype == torch.float32:
+        return "simt_f32"
+    return "mma_bf16" if q_dtype == torch.bfloat16 else "mma_bf16x2"
 
 
 @pytest.mark.parametrize("b,hq,hkv,d,page,lengths,q_dtype,kv_dtype", PAGED)
@@ -336,12 +354,50 @@ def test_paged_decode_kernel_matches_plain(card, b, hq, hkv, d, page,
     q, kp, vp, table, lens = _paged(card, b, hq, hkv, d, page, lengths,
                                     q_dtype, kv_dtype, b * 100 + page)
     ops.reset_launches()
+    jda.VARIANT_LAUNCHES.reset()
     o, lse = ops.decode_attention(q, kp, vp, table, lens)
     o0, lse0 = ops.decode_attention(q, kp, vp, table, lens, impl="ref")
     torch.cuda.synchronize()
     assert ops.LAUNCHES["decode_attention_paged"] == 1
+    assert jda.VARIANT_LAUNCHES == {
+        **dict.fromkeys(jda.VARIANT_LAUNCHES, 0),
+        _decode_variant(q_dtype, kv_dtype): 1}
     assert o.dtype == q_dtype and lse.dtype == torch.float32
     _close(o, o0, 2e-4 if q_dtype == torch.float32 else 1e-2)
+    _close(lse, lse0, 2e-4)
+
+
+# forced split counts: one (no merge), two, and more splits than the table
+# has 64-position tiles (the splits past it are empty), at a page shorter
+# than a tile (8), a page longer than one (100: splits start mid-page),
+# with a hole where the second split starts and a length-0 row
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("page,splits", [(8, 1), (8, 2), (8, 40), (100, 2),
+                                         (100, 7)])
+def test_paged_decode_forced_splits_match_plain(card, q_dtype, kv_dtype,
+                                                page, splits):
+    lengths = [250, 99, 0, 130]
+    q, kp, vp, table, lens = _paged(card, 4, 8, 2, 64, page, lengths,
+                                    q_dtype, kv_dtype, 11 * page + splits)
+    sms = jda.sm_count(torch.cuda.current_device())
+    pl = jda.plan(q_dtype, kv_dtype, 4, 8, 2, 64, page, table.shape[1], sms,
+                  splits)
+    assert pl["splits"] == splits
+    assert pl == jda.split_plan(q_dtype, kv_dtype, 4, 8, 2, 64, page,
+                                table.shape[1], sms, splits)
+    # a hole at the first position of the second split
+    at = pl["chunk"] // page
+    if at < table.shape[1]:
+        table[0, at] = -1
+    o, lse = jda.decode_attention_paged(q, kp, vp, table, lens,
+                                        splits=splits)
+    o0, lse0 = ops.decode_attention(q, kp, vp, table, lens, impl="ref")
+    torch.cuda.synchronize()
+    assert bool((o[2] == 0).all())            # the reference kernel's value
+    live = lens > 0
+    _close(o[live], o0[live], 2e-4 if q_dtype == torch.float32 else 1e-2)
     _close(lse, lse0, 2e-4)
 
 
@@ -448,6 +504,10 @@ def test_paged_and_matmul_wrappers_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         ops.decode_attention(q[..., :6].contiguous(), kp[..., :6].contiguous(),
                              vp[..., :6].contiguous(), table, lens)
+    wide = [torch.zeros(t.shape[:-1] + (264,), device=card)
+            for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(*wide, table, lens)
     with pytest.raises(ValueError, match="multiple"):
         ops.decode_attention(q[:, :3].contiguous(), kp, vp, table, lens)
     with pytest.raises(ValueError, match="contiguous"):
