@@ -92,6 +92,35 @@ Each phase prints one JSON line:
    right; a small pool runs out as the reference's does (``ok`` False,
    the token written into page 0); and the kernel launches once per
    decode call.
+9. ``receiver_sweep`` (two lines): ``run_sweep`` on the card over
+   ``benchmarks/bench_fabric.py``'s sweep axes (msg_bytes x CPU memory
+   traffic x DDIO, 6 x 6 x 2) in both receiver modes, 144 points, at the
+   bench's full 10 ms (10,000 ticks), then the same ranges densified to
+   24 x 24 x 8 x 2 = 9,216 points: wall, ms/tick, kernels per tick and
+   busy share (a 200-tick profiler window); every output within 5e-3 of
+   the port's CPU float32 run (``sweep.max_rel_dev_vs_numpy`` of
+   ``bench_floors.json``; bit-equal expected), DDIO's and Jet's goodput
+   ranges.
+10. ``routing``: ``routing_grid`` (static ECMP, weighted ECMP, adaptive,
+    spray x {no failure, leaf0 -> spine0 down at 150 us}), 8 senders,
+    1 MB bursts, depth cut from 20 ms to 8 ms: within 5e-4 of CPU float64
+    on goodput and completion times with identical finite masks, reroute
+    counts equal, 4 grants and 1 admit launch a tick; static ECMP never
+    finishes under the failure while adaptive and spray do, adaptive
+    reroutes and static does not; a 50-tick profiler window.
+11. ``classes``: the QoS-mixed grid (legacy vs per-TC pause), the
+    strict/WRR pair (LOW under 1 Gbps with strict priority, over 15 with
+    WRR) and the host-gate pair (HIGH at 0.95 Gbps or more behind the
+    per-class receiver gate, 0.85 or less behind the whole-link gate),
+    4 ms each, each within 5e-4 of CPU float64 with the same launch
+    counts, each with a 50-tick profiler window.
+
+The card runs of phases 9-11 come first, then ``kernel`` rows of both
+water-fills at every shape those fabric grids gave them (grants at each
+grid's [G, Q, P], admit at its [G, Q, R]; bit for bit), then the CPU
+references of phases 9-11 in spawned worker processes (an ``oracles``
+line: workers, host cores, wall of each), so that no reference competes
+with a timed card run for the host; the lines of phases 9-11 follow.
 
 The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
 attention, a length-0 row that must give o == 0, danube-1.8b,
@@ -133,6 +162,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -352,8 +382,10 @@ def bitwise_equal(a, b) -> bool:
                                               b.view(torch.int32))
 
 
-def kernel_phase(name: str, shape, seed: int, iters: int) -> dict:
-    """Hold one kernel against its plain version at ``shape``."""
+def kernel_phase(name: str, shape, seed: int, iters: int,
+                 path=None) -> dict:
+    """Hold one kernel against its plain version at ``shape`` (the shape
+    the fabric grids named in ``path`` gave it, where given)."""
     from repro_torch.fabric import fused
     demand, can, budget, crumb = waterfill_inputs(shape, seed)
     g, q, n = shape
@@ -380,7 +412,8 @@ def kernel_phase(name: str, shape, seed: int, iters: int) -> dict:
     equal = bitwise_equal(got, want)
     err = float((got - want).abs().max().item()) if got.numel() else 0.0
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    row = {"name": name, "shape": list(shape), "bitwise_equal": equal,
+    row = {"name": name, "shape": list(shape), "path": path,
+           "bitwise_equal": equal,
            "max_abs_err": err, "ms": cuda_ms(kernel, iters),
            "plain_ms": cuda_ms(plain, iters),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -478,6 +511,325 @@ def profile_phase() -> None:
              for name, es in own.items()},
          top=[{"kernel": e.key[:80], "count": e.count,
                "device_us": e.device_time_total} for e in top])
+
+
+# --------------------------------------------------------------------------- #
+# The receiver-datapath sweep and the dense tick's dynamic branches
+# --------------------------------------------------------------------------- #
+SWEEP_TIME_S = 0.01         # bench_fabric.py's sweep depth, kept whole
+SWEEP_TOL = 5e-3            # bench_floors.json sweep.max_rel_dev_vs_numpy
+ROUTING_TIME_S = 0.008      # depth cut: 20 ms -> 8 ms (8000 ticks)
+CLASSES_TIME_S = 0.004      # the reference tests' own 4 ms
+ORACLE_WORKERS = 4          # CPU reference runs, after the card runs
+ROUTING_MODES = ("static_ecmp", "weighted_ecmp", "adaptive", "spray")
+CLASS_JOBS = ("qos_mixed", "wrr", "host_gate")
+
+
+def sweep_axes(dense: bool) -> dict:
+    """``benchmarks/bench_fabric.py``'s sweep axes (6 x 6 x 2), or the
+    same ranges densified to 24 x 24 x 8."""
+    import numpy as np
+    if not dense:
+        return dict(msg_bytes=[64 << 10, 128 << 10, 256 << 10, 512 << 10,
+                               768 << 10, 1 << 20],
+                    cpu_membw_gbps=[1200.0, 1400.0, 1500.0, 1600.0,
+                                    1760.0, 1900.0],
+                    ddio_bytes=[4 << 20, 6 << 20])
+    return dict(
+        msg_bytes=[int(x) for x in np.linspace(64 << 10, 1 << 20, 24)],
+        cpu_membw_gbps=[float(x) for x in np.linspace(1200.0, 1900.0, 24)],
+        ddio_bytes=[int(x) for x in np.linspace(4 << 20, 6 << 20, 8)])
+
+
+def sweep_configs(dense: bool, sim_time_s: float):
+    """The sweep grid in both receiver modes (DDIO points first)."""
+    from repro_torch.core.simulator import testbed_100g
+    from repro_torch.fabric import grid_configs
+    cfgs = []
+    for mode in ("ddio", "jet"):
+        cfgs += grid_configs(testbed_100g, mode=mode, sim_time_s=sim_time_s,
+                             **sweep_axes(dense))[0]
+    return cfgs
+
+
+def routing_scens(sim_time_s: float):
+    """Routing mode x {no failure, leaf0 -> spine0 down at 150 us}, 8
+    senders, 1 MB bursts: points ordered (fail_at, mode)."""
+    from repro_torch.fabric import routing_grid
+    return routing_grid(modes=ROUTING_MODES, fail_at_us=(math.inf, 150.0),
+                        burst_mb=1.0, sim_time_s=sim_time_s)[0]
+
+
+def class_scens(job: str, sim_time_s: float):
+    """The classes phase's grids: ``qos_mixed_grid`` (legacy vs per-TC
+    pause), the strict/WRR pair and the whole-link/per-class host-gate
+    pair (``repro_torch.fabric.wrr_pair``, ``host_gate_pair``)."""
+    from repro_torch.fabric import host_gate_pair, qos_mixed_grid, wrr_pair
+    if job == "qos_mixed":
+        return qos_mixed_grid(per_tc=(False, True),
+                              sim_time_s=sim_time_s)[0]
+    return (wrr_pair if job == "wrr" else host_gate_pair)(sim_time_s)
+
+
+def oracle(job: str, threads: int):
+    """A CPU reference run, in a worker process: the sweep in float32,
+    the fabric grids in float64."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    if job.startswith("sweep"):
+        from repro_torch.fabric import run_sweep
+        out = run_sweep(sweep_configs(job == "sweep_dense", SWEEP_TIME_S),
+                        device="cpu")
+    else:
+        from repro_torch.fabric import run_fabric_sweep
+        scens = routing_scens(ROUTING_TIME_S) if job == "routing" \
+            else class_scens(job, CLASSES_TIME_S)
+        out = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    return out, time.perf_counter() - t0
+
+
+def run_oracles() -> dict:
+    """Every CPU reference run of the phases below, in a pool of worker
+    processes (spawned, so no CUDA state is inherited).  Called once the
+    card runs are done, so no worker competes with the thread that
+    issues the timed card runs for the host's cores.  Returns ``{job:
+    (outputs, wall seconds)}``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    jobs = {"sweep_dense": 2, "routing": 1, "sweep": 1, "qos_mixed": 1,
+            "wrr": 1, "host_gate": 1}
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=ORACLE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = {j: pool.submit(oracle, j, n) for j, n in jobs.items()}
+        out = {j: f.result() for j, f in futs.items()}
+    emit("oracles", workers=ORACLE_WORKERS, host_cpus=os.cpu_count(),
+         wall_s=time.perf_counter() - t0,
+         job_wall_s={j: w for j, (_, w) in out.items()})
+    return out
+
+
+def profile_window(fn, ticks: int) -> dict:
+    """Kernels launched per tick and the device's busy share over one
+    call of ``fn`` (``ticks`` ticks) under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in rows)
+    busy_us = sum(e.device_time_total for e in rows)
+    own = [e for e in rows if "grants_kernel" in e.key
+           or "admit_kernel" in e.key]
+    return {"ticks": ticks, "wall_s": wall,
+            "kernels_per_tick": launches / ticks,
+            "device_busy_us_per_tick": busy_us / ticks,
+            "device_busy_share": busy_us * 1e-6 / wall if wall else None,
+            "waterfills_per_tick": sum(e.count for e in own) / ticks}
+
+
+def sweep_phase(label: str, dense: bool):
+    """The receiver-datapath sweep on the card, both modes, full depth.
+    Runs and times the card now; returns the function that, given the
+    CPU references, holds every output within SWEEP_TOL of the port's
+    CPU float32 run (bitwise expected), with identical finite masks."""
+    import numpy as np
+    import torch
+    from repro_torch.fabric import SweepParams, run_sweep
+    cfgs = sweep_configs(dense, SWEEP_TIME_S)
+    sp = SweepParams.from_configs(cfgs)
+    run_sweep(sweep_configs(dense, 20e-6))          # warm-up
+    t0 = time.perf_counter()
+    res = run_sweep(cfgs)
+    wall = time.perf_counter() - t0
+    prof = profile_window(
+        lambda: run_sweep(sweep_configs(dense, 200e-6)), 200)
+
+    def finish(oracles) -> dict:
+        want, cpu_wall = oracles["sweep_dense" if dense else "sweep"]
+        dev = {k: rel(res[k], want[k]) for k in want}
+        bitwise = {k: bool(np.array_equal(res[k], want[k])) for k in want}
+        n = len(cfgs) // 2
+        gp = res["goodput_gbps"]
+        out = {"case": label, "points": sp.n_points, "ticks": sp.ticks,
+               "sim_time_s": SWEEP_TIME_S, "ring_len": sp.ring_len,
+               "wall_s": wall, "ms_per_tick": wall / sp.ticks * 1e3,
+               "point_ticks_per_s": sp.n_points * sp.ticks / wall,
+               "cpu_float32_wall_s": cpu_wall, "profile": prof,
+               "max_rel_dev_vs_cpu": max(dev.values()), "dev": dev,
+               "bitwise_equal_cpu": all(bitwise.values()),
+               "not_bitwise": [k for k, v in bitwise.items() if not v],
+               "ddio_goodput_gbps": [float(gp[:n].min()),
+                                     float(gp[:n].max())],
+               "jet_goodput_gbps": [float(gp[n:].min()),
+                                    float(gp[n:].max())],
+               "torch_threads": torch.get_num_threads()}
+        emit("receiver_sweep", **out)
+        check(all(v <= SWEEP_TOL for v in dev.values()),
+              f"{label}: the sweep deviates from the CPU run: {dev}")
+        check(bool(np.isfinite(gp).all()), f"{label}: non-finite goodput")
+        check(gp[:n].min() < gp[:n].max(), f"{label}: DDIO goodput is flat")
+        return out
+    return finish
+
+
+def fabric_card_run(scens):
+    """One fabric grid on the card with the launch counters zeroed just
+    before: its packing, outputs and timing."""
+    from repro_torch.fabric import fused
+    from repro_torch.fabric.vector import (FabricSweepParams,
+                                           run_fabric_sweep)
+    fsp = FabricSweepParams.from_scenarios(scens)
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    res = run_fabric_sweep(scens, impl="auto")
+    wall = time.perf_counter() - t0
+    head = {"points": fsp.n_points, "flows": fsp.n_flows,
+            "ports": fsp.n_ports, "receivers": fsp.n_recv,
+            "ticks": fsp.ticks, "wall_s": wall,
+            "ms_per_tick": wall / fsp.ticks * 1e3,
+            "launches": dict(fused.LAUNCHES)}
+    return fsp, res, head
+
+
+def fabric_vs_cpu(job: str, fsp, res, head: dict, oracles):
+    """Hold a card run against its CPU float64 reference: adds the
+    deviations to ``head``; returns the reference's outputs and the
+    checks every fabric grid meets (called after its line is printed)."""
+    import numpy as np
+    want, cpu_wall = oracles[job]
+    dev = {k: rel(res[k], want[k]) for k in
+           ("flow_goodput_gbps", "flow_completion_us",
+            "incast_completion_us", "recv_goodput_gbps")}
+    head.update(cpu_float64_wall_s=cpu_wall, dev=dev,
+                pause_fanout=res["pause_fanout"].tolist(),
+                pause_fanout_cpu=want["pause_fanout"].tolist())
+    launches = head["launches"]
+
+    def held():
+        check(launches["priority_grants"] == 4 * fsp.ticks
+              and launches["priority_admit"] == fsp.ticks,
+              f"{job}: launches {launches}, want {4 * fsp.ticks} / "
+              f"{fsp.ticks}")
+        check(all(v <= TOL for v in dev.values()),
+              f"{job}: deviates from CPU float64: {dev} (inf = finite "
+              "masks differ)")
+        check(bool(np.isfinite(res["flow_goodput_gbps"]).all()),
+              f"{job}: non-finite goodput")
+    return want, held
+
+
+def routing_phase():
+    """The routing grid at 8 ms on the card.  Runs and times the card
+    now; returns its packing and the function that, given the CPU
+    references, holds it within TOL of CPU float64 with reroute counts
+    equal and 4 grants + 1 admit a tick, and checks that under the
+    failure static ECMP never finishes while adaptive and spray do."""
+    from repro_torch.fabric.vector import run_fabric_sweep
+    run_fabric_sweep(routing_scens(20e-6))          # warm-up
+    fsp, res, head = fabric_card_run(routing_scens(ROUTING_TIME_S))
+    prof = profile_window(lambda: run_fabric_sweep(routing_scens(50e-6)),
+                          50)
+
+    def finish(oracles) -> dict:
+        import numpy as np
+        want, held = fabric_vs_cpu("routing", fsp, res, head, oracles)
+        fct = res["incast_completion_us"]
+        rr = res["reroute_count"]
+        m = len(ROUTING_MODES)
+        out = {**head, "sim_time_s": ROUTING_TIME_S,
+               "modes": list(ROUTING_MODES), "fail_at_us": [None, 150.0],
+               "incast_fct_us": fct.tolist(), "reroute_count": rr.tolist(),
+               "reroute_count_cpu": want["reroute_count"].tolist(),
+               "uplink_util_max": res["uplink_util_max"].tolist(),
+               "profile": prof}
+        emit("routing", **out)
+        held()
+        check(np.array_equal(rr, want["reroute_count"]),
+              f"reroute counts {rr} != CPU {want['reroute_count']}")
+        fail = {mode: m + i for i, mode in enumerate(ROUTING_MODES)}
+        check(bool(np.isfinite(fct[:m]).all()),
+              f"an incast without failure did not finish: {fct[:m]}")
+        check(not np.isfinite(fct[fail["static_ecmp"]]),
+              "static ECMP finished under the failure")
+        check(np.isfinite(fct[fail["adaptive"]])
+              and np.isfinite(fct[fail["spray"]]),
+              "adaptive or spray did not finish under the failure")
+        check(rr[fail["adaptive"]] > 0 and rr[0] == 0
+              and rr[fail["static_ecmp"]] == 0,
+              f"reroute counts {rr}: adaptive must reroute, static never")
+        check(prof["waterfills_per_tick"] == 5,
+              f"profile: {prof['waterfills_per_tick']} water-fills a tick")
+        return out
+    return fsp, finish
+
+
+def classes_phase():
+    """The QoS-mixed grid, the strict/WRR pair and the host-gate pair at
+    4 ms on the card.  Runs and times the card now; returns each grid's
+    packing and the function that, given the CPU references, holds each
+    within TOL of CPU float64 with 4 grants + 1 admit a tick, and checks
+    that WRR keeps LOW above 15 Gbps where strict priority starves it
+    below 1, and that the per-class host gate keeps HIGH at 0.95 Gbps or
+    more where the whole-link gate holds it at 0.85 or less."""
+    from repro_torch.fabric.vector import run_fabric_sweep
+    runs = {}
+    for job in CLASS_JOBS:
+        run_fabric_sweep(class_scens(job, 20e-6))   # warm-up
+        fsp, res, head = fabric_card_run(class_scens(job, CLASSES_TIME_S))
+        head["profile"] = profile_window(
+            lambda: run_fabric_sweep(class_scens(job, 50e-6)), 50)
+        runs[job] = (fsp, res, head)
+
+    def finish(oracles) -> dict:
+        out, checks = {}, []
+        for job, (fsp, res, head) in runs.items():
+            _, held = fabric_vs_cpu(job, fsp, res, head, oracles)
+            checks.append(held)
+            out[job] = {**head, "sim_time_s": CLASSES_TIME_S,
+                        "flow_goodput_gbps":
+                            res["flow_goodput_gbps"].tolist(),
+                        "recv_pfc_pause_us":
+                            res["recv_pfc_pause_us"].tolist()}
+        low, hi = (out[j]["flow_goodput_gbps"] for j in ("wrr",
+                                                         "host_gate"))
+        out["wrr"]["low_gbps"] = [row[3] for row in low]
+        out["host_gate"]["high_gbps"] = [row[3] for row in hi]
+        emit("classes", **out)
+        for held in checks:
+            held()
+        low = out["wrr"]["low_gbps"]
+        check(low[0] < 1.0 and low[1] > 15.0,
+              f"LOW under strict / WRR: {low}")
+        hi = out["host_gate"]["high_gbps"]
+        check(hi[1] >= 0.95 and hi[0] <= 0.85,
+              f"HIGH under the whole-link / per-class gate: {hi}")
+        return out
+    return {job: r[0] for job, r in runs.items()}, finish
+
+
+def waterfill_path_rows(grids: dict, seed: int) -> None:
+    """Both water-fill kernels, bit for bit against their plain versions,
+    at every shape the driven fabric grids gave them: grants at each
+    grid's [G, Q, P], admit at its [G, Q, R]."""
+    shapes = {}
+    for path, fsp in grids.items():
+        for name, n in (("priority_grants", fsp.n_ports),
+                        ("priority_admit", fsp.n_recv)):
+            shapes.setdefault((name, (fsp.n_points, 3, n)), []).append(path)
+    for i, ((name, shape), paths) in enumerate(sorted(shapes.items())):
+        kernel_phase(name, shape, seed + i, iters=500, path=paths)
 
 
 def close_enough(got, want, tol: float):
@@ -1633,6 +1985,16 @@ def run() -> int:
         serve = serve_phase(zamba2, torch.device("cuda"))
         profile_serve(zamba2, torch.device("cuda"))
         paged, staged = paged_phase(zamba2, torch.device("cuda"))
+        # the card runs of the last three phases first, timed with no
+        # CPU reference running beside them; then the references
+        finish = [sweep_phase("bench 144", False),
+                  sweep_phase("dense 9216", True)]
+        routing_fsp, routing_finish = routing_phase()
+        class_fsps, classes_finish = classes_phase()
+        waterfill_path_rows({"routing8": routing_fsp, **class_fsps}, 40)
+        oracles = run_oracles()
+        for done in finish + [routing_finish, classes_finish]:
+            done(oracles)
         # each kernel's launches on the path that runs it
         launches = {**main["launches"],
                     "flash_attention": serve["launches"]["flash_attention"],

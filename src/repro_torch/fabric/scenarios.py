@@ -1,17 +1,22 @@
 """Scenario library: the storage-incast workload over the Clos fabric
 (paper §5–6: N senders on one leaf burst into one receiver on another,
-plus an optional open-loop victim flow) and the grid builders that feed
+plus an optional open-loop victim flow), the QoS-mixed storage fleet,
+the OLAP shuffle, incast under a link failure, the strict/WRR and
+whole-link/per-class host-gate pairs, and the grid functions that feed
 :func:`repro_torch.fabric.vector.run_fabric_sweep`."""
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from ..core.datapath import QoS
 from ..core.simulator import SimConfig, testbed_100g
 from .fabric import FabricConfig, Flow
+from .routing import RoutingConfig
 from .switch import SwitchConfig
-from .topology import Topology, incast_fabric
+from .topology import Topology, clos, incast_fabric
 
 
 @dataclasses.dataclass
@@ -82,3 +87,184 @@ def incast_grid(mode: Sequence[str] = ("jet", "ddio"),
             n_senders=n_senders, mode=mode, pfc=pfc, burst_mb=burst_mb,
             sim_time_s=sim_time_s),
         mode=list(mode), pfc=list(pfc), burst_mb=list(burst_mb))
+
+
+def qos_mixed_storage(n_bulk: int = 4, n_oltp: int = 3, n_olap: int = 2,
+                      bulk_gbps: float = 60.0, oltp_gbps: float = 25.0,
+                      olap_gbps: float = 25.0,
+                      oltp_on_off_us: Tuple[float, float] = (60.0, 60.0),
+                      per_tc: bool = True, pfc: bool = True,
+                      ecn: bool = False, pool_mb: float = 0.5,
+                      sim_time_s: float = 0.01) -> Scenario:
+    """QoS-mixed storage fleet (paper fig 9 classes on one fabric): LOW
+    bulk writers incast into a small-pool Jet receiver (``h1_0``, whose
+    pool pressure drives the §5 LOW->DRAM spill), HIGH OLTP clients run
+    on-off burst trains into ``h1_1`` and NORMAL OLAP scans stream into
+    ``h1_2``.  The bulk class oversubscribes its receiver's access link,
+    so with ``pfc`` the congested downlink asserts pause up the tree:
+    per-priority pause (``per_tc=True``) stalls only LOW, the legacy
+    whole-link pause stalls all three classes.  OLTP/OLAP clients share
+    source hosts with bulk writers, so the classes meet at the source
+    NIC and on every fabric link."""
+    n = max(n_bulk, n_oltp, n_olap)
+    topo = incast_fabric(n, host_gbps=100.0, uplink_gbps=800.0,
+                         extra_receivers=2)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0", offered_gbps=bulk_gbps,
+                  qos=QoS.LOW, tag="incast")
+             for i in range(n_bulk)]
+    flows += [Flow(src=f"h0_{i}", dst="h1_1", offered_gbps=oltp_gbps,
+                   qos=QoS.HIGH, tag="oltp", on_off_us=oltp_on_off_us)
+              for i in range(n_oltp)]
+    flows += [Flow(src=f"h0_{i}", dst="h1_2", offered_gbps=olap_gbps,
+                   qos=QoS.NORMAL, tag="olap")
+              for i in range(n_olap)]
+
+    def recv(host: str) -> SimConfig:
+        if host == "h1_0":      # the squeezed Jet pool: LOW spills (§5)
+            return testbed_100g("jet", pfc_enabled=False,
+                                jet_pool_bytes=int(pool_mb * (1 << 20)),
+                                rnic_ecn_cnp=False)
+        return testbed_100g("ddio", pfc_enabled=False)
+
+    sw = SwitchConfig(pfc_enabled=pfc, ecn_enabled=ecn, per_tc=per_tc,
+                      port_buffer_bytes=1 << 20)
+    return Scenario(
+        name=f"qosmix{n_bulk}b{n_oltp}o{n_olap}a"
+             f"_{'tc' if per_tc else 'link'}{'_pfc' if pfc else ''}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=recv))
+
+
+def qos_mixed_grid(per_tc: Sequence[bool] = (False, True),
+                   pool_mb: Sequence[float] = (0.5,),
+                   **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Pause granularity x Jet pool size grid over
+    :func:`qos_mixed_storage` (both are per-point parameters, so one
+    sweep covers 802.1Qbb and legacy whole-link pause)."""
+    return fabric_grid(
+        lambda per_tc, pool_mb: qos_mixed_storage(
+            per_tc=per_tc, pool_mb=pool_mb, **kw),
+        per_tc=list(per_tc), pool_mb=list(pool_mb))
+
+
+def olap_shuffle(n_mappers: int = 4, n_reducers: int = 4,
+                 shuffle_mb: float = 2.0, routing: str = "static_ecmp",
+                 pfc: bool = False, n_spines: int = 2,
+                 sim_time_s: float = 0.02) -> Scenario:
+    """Multi-receiver OLAP shuffle: every mapper on leaf 0 streams one
+    partition to every reducer on leaf 1, an all-to-all across the spine
+    tier, so the uplink choice decides completion time.  Static ECMP
+    piles the partitions onto ``flow_id % n_spines`` uplinks; the dynamic
+    modes spread them by load."""
+    per_leaf = max(n_mappers, n_reducers)
+    topo = clos(n_leaves=2, hosts_per_leaf=per_leaf, n_spines=n_spines,
+                host_gbps=100.0, uplink_gbps=200.0)
+    flows = [Flow(src=f"h0_{i}", dst=f"h1_{j}",
+                  burst_bytes=shuffle_mb * 1e6 / n_reducers,
+                  qos=QoS.NORMAL, tag="shuffle")
+             for i in range(n_mappers) for j in range(n_reducers)]
+    sw = SwitchConfig(pfc_enabled=pfc)
+    return Scenario(
+        name=f"shuffle{n_mappers}x{n_reducers}_{routing}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory("ddio", pfc),
+                            routing=RoutingConfig(mode=routing)))
+
+
+def link_failure_incast(n_senders: int = 8, mode: str = "ddio",
+                        routing: str = "adaptive", burst_mb: float = 2.0,
+                        fail_at_us: float = 150.0,
+                        restore_us: float = math.inf,
+                        fail_spine: int = 0, pfc: bool = False,
+                        with_victim: bool = True,
+                        uplink_gbps: float = 400.0,
+                        sim_time_s: float = 0.02) -> Scenario:
+    """Incast under a link failure: the incast-N burst is in flight when
+    the ``leaf0 -> spine{fail_spine}`` uplink dies at ``fail_at_us``
+    (both directions; back at ``restore_us``, never by default).  Static
+    ECMP keeps hashing half the flows onto the dead spine, whose bursts
+    stall; adaptive and spray reroute onto the surviving uplinks.
+    ``fail_at_us=inf`` schedules no failure."""
+    topo = incast_fabric(n_senders, uplink_gbps=uplink_gbps)
+    if math.isfinite(fail_at_us):
+        topo.fail_link("leaf0", f"spine{fail_spine}", at_us=fail_at_us,
+                       restore_us=restore_us)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0",
+                  burst_bytes=burst_mb * 1e6, tag="incast")
+             for i in range(n_senders)]
+    if with_victim:
+        flows.append(Flow(src=f"h0_{n_senders - 1}", dst="h1_1",
+                          tag="victim"))
+    sw = SwitchConfig(pfc_enabled=pfc)
+    fa = "nofail" if not math.isfinite(fail_at_us) else f"f{fail_at_us:g}"
+    return Scenario(
+        name=f"linkfail{n_senders}_{routing}_{fa}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory(mode, pfc),
+                            routing=RoutingConfig(mode=routing)))
+
+
+def routing_grid(modes: Sequence[str] = ("static_ecmp", "adaptive",
+                                         "spray"),
+                 fail_at_us: Sequence[float] = (math.inf, 150.0),
+                 **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Routing mode x link-failure schedule grid over
+    :func:`link_failure_incast`: both are per-point parameters, so one
+    engine run covers every (mode, failure) combination."""
+    return fabric_grid(
+        lambda routing, fail_at_us: link_failure_incast(
+            routing=routing, fail_at_us=fail_at_us, **kw),
+        routing=list(modes), fail_at_us=list(fail_at_us))
+
+
+def wrr_pair(sim_time_s: float = 0.004) -> List[Scenario]:
+    """Strict priority vs WRR (quanta 4:2:1) on one saturated 100G
+    downlink: three 60 Gbps HIGH senders and one 40 Gbps LOW sender into
+    one receiver, PFC and ECN off.  Strict priority starves LOW; WRR
+    keeps it at its quanta share (the reference's
+    ``tests/test_routing.py::test_wrr_prevents_low_starvation_on_
+    saturated_port``)."""
+    topo = incast_fabric(4, host_gbps=100.0, uplink_gbps=800.0)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0", offered_gbps=60.0,
+                  qos=QoS.HIGH, tag="hi") for i in range(3)]
+    flows.append(Flow(src="h0_3", dst="h1_0", offered_gbps=40.0,
+                      qos=QoS.LOW, tag="low"))
+    out = []
+    for sched in ("strict", "wrr"):
+        sw = SwitchConfig(pfc_enabled=False, ecn_enabled=False,
+                          scheduler=sched, port_buffer_bytes=1 << 20)
+        out.append(Scenario(
+            name=sched, topology=topo, flows=flows,
+            fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                                receiver_cfg=lambda h: testbed_100g(
+                                    "ddio"))))
+    return out
+
+
+def host_gate_pair(sim_time_s: float = 0.004) -> List[Scenario]:
+    """Whole-link vs per-class receiver PFC: a LOW bulk incast fills the
+    receiver's RNIC buffer beside a 1 Gbps HIGH flow.  The whole-link
+    gate stalls HIGH with the bulk; the per-class gate pauses only the
+    LOW class (the reference's ``tests/test_routing.py::
+    test_host_per_tc_pfc_isolates_classes_on_access_link``)."""
+    topo = incast_fabric(4, host_gbps=100.0, uplink_gbps=800.0)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0", qos=QoS.LOW, tag="bulk")
+             for i in range(3)]
+    flows.append(Flow(src="h0_3", dst="h1_0", offered_gbps=1.0,
+                      qos=QoS.HIGH, tag="hi"))
+    out = []
+    for per_tc in (False, True):
+        def recv(host, per_tc=per_tc):
+            return testbed_100g("ddio", pfc_enabled=True,
+                                host_pfc_per_tc=per_tc, rnic_ecn_cnp=False,
+                                cpu_membw_gbps=1995.0)
+        out.append(Scenario(
+            name=f"host_gate_{'tc' if per_tc else 'link'}", topology=topo,
+            flows=flows,
+            fabric=FabricConfig(sim_time_s=sim_time_s,
+                                switch=SwitchConfig(pfc_enabled=True),
+                                receiver_cfg=recv)))
+    return out

@@ -3,14 +3,16 @@ knees and per-priority PFC watermarks (802.1Qbb).
 
 The queues themselves live stacked in the fabric step; this module keeps
 the knobs.  With ``per_tc=False`` every flow rides TC 0 — the legacy
-per-link pause (congestion spreading, §2.1).  The engine runs the
-strict-priority scheduler; ``scheduler="wrr"`` is part of the
-configuration but not of this port's engine.
+per-link pause (congestion spreading, §2.1).  Classes share a port's
+budget by strict priority (HIGH first, the default) or by weighted round
+robin (``scheduler="wrr"``: the budget water-filled across backlogged
+classes in proportion to :meth:`SwitchConfig.quanta`, 4:2:1 unless
+``wrr_quanta`` says otherwise).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 from ..core.datapath import N_QOS
 
@@ -43,6 +45,11 @@ class SwitchConfig:
                 len(self.wrr_quanta) != N_TC
                 or any(q <= 0.0 for q in self.wrr_quanta)):
             raise ValueError(f"wrr_quanta needs {N_TC} positive weights")
+
+    def quanta(self) -> Tuple[float, ...]:
+        q = self.wrr_quanta if self.wrr_quanta is not None \
+            else (4.0, 2.0, 1.0)
+        return tuple(float(x) for x in q)
 
     def kmin_frac(self, tc: int) -> float:
         return (self.tc_ecn_kmin_frac[tc]

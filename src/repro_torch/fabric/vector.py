@@ -1,19 +1,26 @@
 """Vectorized fabric engine in PyTorch: whole-grid multi-host simulation.
 
-The port of ``repro.fabric.vector``'s dense engine for its static
-configuration: static ECMP routes, DCQCN senders, strict-priority
-switches, whole-link receiver PFC, fixed dt.  The entire tick body is
-packed into stacked tensors and advances all grid points at once:
+The port of ``repro.fabric.vector``'s dense engine: DCQCN senders,
+strict-priority or WRR switches, whole-link or per-class receiver PFC,
+static ECMP or per-tick dynamic routing (weighted ECMP, adaptive, spray)
+under link failure and flap schedules, at a fixed dt.  The entire tick
+body is packed into stacked tensors and advances all grid points at
+once:
 
 * per-flow DCQCN/offer state as ``[G, F]`` tensors, plus a slot-major
   CNP propagation ring ``[G, Hc, 3, F]``;
 * per-port queue state as one ``[G, 2, P, F]`` tensor (axis 1: queued
   bytes, ECN-marked subset) covering every NIC egress queue and switch
-  output port on some flow's path; per-(TC, port) occupancy and the
-  PFC assert/pause state ``[G, Q, P]`` come from one-hot ``matmul``s
-  with the per-point flow->class one-hot;
+  output port on some flow's path (every *candidate* uplink and
+  downlink once a point routes dynamically); per-(TC, port) occupancy
+  and the PFC assert/pause state ``[G, Q, P]`` come from one-hot
+  ``matmul``s with the per-point flow->class one-hot;
 * per-receiver datapath state as ``[G, R]`` tensors, the QoS admission
-  classes as ``[G, Q, R]`` and the release rings as ``[G, H, 2, R]``.
+  classes (and the per-class receiver pause state) as ``[G, Q, R]`` and
+  the release rings as ``[G, H, 2, R]``;
+* routing as per-tick state: the spine choice ``[G, F]``, link up/down
+  windows as per-point ``[G, P]`` integer tick bounds, and spray's
+  reorder settling as one more slot-major ring ``[G, Hs, 2, F]``.
 
 Semantics are the reference's batch-fluid tick, op for op: four
 tier-ordered forwarding stages with cut-through inside the tick,
@@ -21,16 +28,17 @@ proportional buffer-space allocation and one pre-batch ECN-knee decision
 per port per stage, receiver CNPs to the heaviest recently-arriving flow
 (lowest flow id on ties), per-flow DCQCN CNP pacing, and per-priority
 PFC pause propagation.  The tick's two priority water-fills go through
-:mod:`repro_torch.fabric.fused` (CUDA kernels on the card).
+:mod:`repro_torch.fabric.fused` (CUDA kernels on the card); the WRR
+rounds that follow the strict grants are plain tensor code, as in the
+reference.
 
 The grid axis is written out (no vmap) and the tick loop runs eagerly
 from the host with the tick index a Python int: nothing in the loop
 reads a device value back, so the host only waits at the end.
 
-Grids that need the reference's other layers — dynamic routing or link
-failures, WRR scheduling, per-TC host PFC, the CC zoo, the message
-layer, fault injection, link flaps, 3-level (sparse) fabrics or adaptive
-dt — raise ``NotImplementedError`` naming the feature.
+Grids that need the reference's other layers — the CC zoo, the message
+layer, fault injection, 3-level (sparse) fabrics or adaptive dt — raise
+``NotImplementedError`` naming the feature.
 """
 from __future__ import annotations
 
@@ -44,11 +52,14 @@ from .._device import resolve_device, resolve_dtype
 from ..core.datapath import N_QOS, hold_us_baseline, hold_us_jet
 from ..core.dcqcn import DcqcnConfig
 from . import fused
+from .topology import NEVER_TICK
 
 _STAGES = 4          # NIC egress, leaf uplink, spine, leaf downlink
 
-# pvals entries that stay integer (tick offsets)
-_INT_KEYS = frozenset(["d_base", "d_strag", "cnp_dly"])
+# pvals entries that stay integer (tick indices, codes, ring offsets)
+_INT_KEYS = frozenset(["d_base", "d_strag", "cnp_dly", "fail_at",
+                       "fail_until", "rmode", "flet", "settle", "sched",
+                       "flap_start", "flap_period", "flap_down"])
 
 _RECV_SCALARS = [
     ("jet", lambda c: 1.0 if c.mode == "jet" else 0.0),
@@ -97,13 +108,10 @@ _SWITCH_TC = [
 ]
 
 # Fields of the reference's packing that belong to layers this engine
-# does not run, with the value a static dense grid packs them at; a
-# packing that sets any other value is refused by ``from_arrays``.
-_STATIC_DEFAULTS = {
-    "upP": None, "dnP": None, "candS": None, "crossF": None, "T1": None,
-    "init_spine": None, "dyn_route": False, "any_wrr": False,
-    "host_tc": False, "settle_ring": 1, "n_spines": 0, "any_cc": False,
-    "any_msg": False, "msg_ring": 1, "any_flt": False, "any_flap": False,
+# does not run, with the value a grid without them packs; a packing that
+# sets any other value is refused by ``from_arrays``.
+_UNPORTED_DEFAULTS = {
+    "any_cc": False, "any_msg": False, "msg_ring": 1, "any_flt": False,
     "sparse": False, "port_of": None, "prv_port": None, "nxt_slot": None,
     "pack_fail": False, "pause_extra": None, "pausable_extra": None,
 }
@@ -126,12 +134,8 @@ def unsupported_features(scens: Sequence) -> List[str]:
 
     for s in scens:
         topo, fab = s.topology, s.fabric
-        need("dynamic routing (mode != static_ecmp)", fab.routing.is_dynamic)
-        need("link failure schedules", bool(attr(topo, "link_down")))
-        need("link flaps", bool(attr(topo, "link_flaps")))
         need("3-level super-spine fabrics (sparse incidence)",
              bool(attr(topo, "super_spines")))
-        need("WRR switch scheduling", fab.switch.scheduler == "wrr")
         need("fault injection (FaultConfig)",
              attr(fab, "faults") is not None)
         msgs = [f.msg if attr(f, "msg") is not None else attr(fab, "msg")
@@ -142,10 +146,6 @@ def unsupported_features(scens: Sequence) -> List[str]:
                for f in s.flows]
         need("the CC zoo (non-DCQCN congestion control)",
              any(c is not None and c.algo != "dcqcn" for c in ccs))
-        if fab.switch.per_tc:
-            need("per-TC host PFC",
-                 any(fab.receiver_cfg(f.dst).host_pfc_per_tc
-                     for f in s.flows))
     return feats
 
 
@@ -189,25 +189,53 @@ class FabricSweepParams:
     dt_us: float
     ring_len: int
     cnp_ring: int                        # CNP propagation ring length
+    # -- dynamic-routing structure (None on the static path) ----------------
+    # With any point routing dynamically (mode != static_ecmp, or a
+    # failure or flap schedule), ports cover every candidate uplink and
+    # downlink and the spine choice is per-tick state [G, F].
+    upP: Optional[np.ndarray] = None     # [S, F, P] candidate uplink 1-hot
+    dnP: Optional[np.ndarray] = None     # [S, F, P] candidate downlink
+    candS: Optional[np.ndarray] = None   # [S, F] bool candidacy
+    crossF: Optional[np.ndarray] = None  # [F] bool: cross-leaf flow
+    T1: Optional[np.ndarray] = None      # [P, F, P] uplink->downlink map
+    init_spine: Optional[np.ndarray] = None   # [F] int32 (fid % S)
+    dyn_route: bool = False
+    any_wrr: bool = False                # any point schedules WRR drain
+    host_tc: bool = False                # any point runs per-TC host PFC
+    settle_ring: int = 1                 # Hs (spray reorder settling)
+    n_spines: int = 0
+    any_flap: bool = False               # any point schedules link flaps
 
     @classmethod
     def from_scenarios(cls, scens: Sequence) -> "FabricSweepParams":
         """Pack a grid of scenarios (anything with ``.topology``,
-        ``.flows``, ``.fabric``) whose points share topology structure,
-        routes and the flow set; numeric knobs may vary per point."""
+        ``.flows``, ``.fabric``) whose points share the topology
+        structure and the flow set; numeric knobs, the routing mode and
+        link failure/flap schedules may vary per point.  A grid with no
+        dynamic point keeps the frozen static-ECMP routes, which must
+        then agree."""
         if not scens:
             raise ValueError("empty fabric sweep grid")
         feats = unsupported_features(scens)
         if feats:
             raise NotImplementedError(
-                "the PyTorch fabric engine runs static-ECMP dense grids; "
-                "this grid needs " + ", ".join(feats))
+                "the PyTorch fabric engine does not run this grid's "
+                + ", ".join(feats))
         s0 = scens[0]
         topo0, flows0 = s0.topology, s0.flows
         dt = s0.fabric.dt_us
         ticks = int(s0.fabric.sim_time_s * 1e6 / dt)
         F = len(flows0)
         recv_hosts = sorted({f.dst for f in flows0})
+        # engine-level capability flags: shared structure, selected per
+        # point by plain parameters (rmode / sched / hpfc)
+        dyn = any(s.fabric.routing.is_dynamic or bool(s.topology.link_down)
+                  or bool(s.topology.link_flaps) for s in scens)
+        any_wrr = any(s.fabric.switch.scheduler == "wrr" for s in scens)
+        any_flap = any(bool(s.topology.link_flaps) for s in scens)
+        host_tc = any(s.fabric.switch.per_tc
+                      and s.fabric.receiver_cfg(h).host_pfc_per_tc
+                      for s in scens for h in recv_hosts)
         for s in scens:
             s.topology.validate()
             if s.fabric.dt_us != dt or \
@@ -220,14 +248,28 @@ class FabricSweepParams:
                 raise ValueError("grid points must share the flow set "
                                  "(src/dst/tag/qos); offered/burst/start "
                                  "may vary")
-        # static ECMP: routes are frozen structure and must agree
-        routes = [topo0.route(f.src, f.dst, fid)
-                  for fid, f in enumerate(flows0)]
-        for s in scens:
-            if any(s.topology.route(f.src, f.dst, fid) != routes[fid]
-                   for fid, f in enumerate(s.flows)):
-                raise ValueError("grid points must share routes (same "
-                                 "topology structure)")
+        if not dyn:
+            # static ECMP: routes are frozen structure and must agree
+            routes = [topo0.route(f.src, f.dst, fid)
+                      for fid, f in enumerate(flows0)]
+            for s in scens:
+                if any(s.topology.route(f.src, f.dst, fid) != routes[fid]
+                       for fid, f in enumerate(s.flows)):
+                    raise ValueError("grid points must share routes (same "
+                                     "topology structure)")
+        else:
+            # routes are per-tick state: only the node/link structure
+            # must agree
+            for s in scens:
+                tt = s.topology
+                if (sorted(tt.links) != sorted(topo0.links)
+                        or tt.host_leaf != topo0.host_leaf
+                        or tt.spines != topo0.spines
+                        or tt.leaves != topo0.leaves):
+                    raise ValueError(
+                        "grid points must share topology structure "
+                        "(nodes and links); link rates, failure "
+                        "schedules and routing mode may vary")
 
         # ---- ports on some flow's path, tagged with their stage ---------- #
         port_id: Dict[Tuple[str, str], int] = {}
@@ -241,44 +283,103 @@ class FabricSweepParams:
                 raise ValueError(f"port {key} used in two stages")
             return pid
 
-        cols = np.arange(F)
-        stage_ports = np.full((_STAGES, F), -1, np.int32)
-        prev_port = np.full((_STAGES, F), -1, np.int32)
-        for fid, nodes in enumerate(routes):
-            if len(nodes) == 3:                   # intra-leaf
-                src, leaf, dst = nodes
-                p0 = add((src, leaf), 0)
-                p3 = add((leaf, dst), 3)
-                stage_ports[0, fid], stage_ports[3, fid] = p0, p3
-                prev_port[3, fid] = p0
-            else:                                 # via one spine
-                src, sl, spine, dl, dst = nodes
-                p0 = add((src, sl), 0)
-                p1 = add((sl, spine), 1)
-                p2 = add((spine, dl), 2)
-                p3 = add((dl, dst), 3)
-                stage_ports[:, fid] = (p0, p1, p2, p3)
-                prev_port[1, fid], prev_port[2, fid], \
-                    prev_port[3, fid] = p0, p1, p2
-        P = len(port_id)
-        port_keys = list(port_id)
-
         def onehot(idx):                          # [P, F] from [F] ids
-            oh = np.zeros((P, F))
+            oh = np.zeros((len(port_id), F))
             valid = idx >= 0
             oh[idx[valid], cols[valid]] = 1.0
             return oh
 
-        occ = [onehot(stage_ports[k]) for k in range(_STAGES)]
-        # destination port after stages 0..2 (stage 3 -> receivers)
-        d0 = np.where(stage_ports[1] >= 0, stage_ports[1], stage_ports[3])
-        dest = [onehot(d0), onehot(stage_ports[2]), onehot(stage_ports[3])]
-        prev_onehot = np.zeros((P, F, P))
-        for k in range(1, _STAGES):
+        Sn = len(topo0.spines)
+        cols = np.arange(F)
+        upP = dnP = candS = crossF = T1 = init_spine = None
+        if not dyn:
+            stage_ports = np.full((_STAGES, F), -1, np.int32)
+            prev_port = np.full((_STAGES, F), -1, np.int32)
+            for fid, nodes in enumerate(routes):
+                if len(nodes) == 3:                   # intra-leaf
+                    src, leaf, dst = nodes
+                    p0 = add((src, leaf), 0)
+                    p3 = add((leaf, dst), 3)
+                    stage_ports[0, fid], stage_ports[3, fid] = p0, p3
+                    prev_port[3, fid] = p0
+                else:                                 # via one spine
+                    src, sl, spine, dl, dst = nodes
+                    p0 = add((src, sl), 0)
+                    p1 = add((sl, spine), 1)
+                    p2 = add((spine, dl), 2)
+                    p3 = add((dl, dst), 3)
+                    stage_ports[:, fid] = (p0, p1, p2, p3)
+                    prev_port[1, fid], prev_port[2, fid], \
+                        prev_port[3, fid] = p0, p1, p2
+            P = len(port_id)
+            occ = [onehot(stage_ports[k]) for k in range(_STAGES)]
+            # destination port after stages 0..2 (stage 3 -> receivers)
+            d0 = np.where(stage_ports[1] >= 0, stage_ports[1],
+                          stage_ports[3])
+            dest = [onehot(d0), onehot(stage_ports[2]),
+                    onehot(stage_ports[3])]
+            prev_onehot = np.zeros((P, F, P))
+            for k in range(1, _STAGES):
+                for fid in range(F):
+                    p, pr = stage_ports[k, fid], prev_port[k, fid]
+                    if p >= 0 and pr >= 0:
+                        prev_onehot[p, fid, pr] = 1.0
+        else:
+            # every candidate uplink/downlink joins the port set; the
+            # per-tick routing weights decide where bytes go
+            hl = topo0.host_leaf
+            stage0 = np.full(F, -1, np.int64)
+            stage3 = np.full(F, -1, np.int64)
+            up_ids = np.full((Sn, F), -1, np.int64)
+            dn_ids = np.full((Sn, F), -1, np.int64)
+            for fid, f in enumerate(flows0):
+                sl, dl = hl[f.src], hl[f.dst]
+                if f.src == f.dst:
+                    raise ValueError("flow endpoints must differ")
+                stage0[fid] = add((f.src, sl), 0)
+                if sl == dl:
+                    stage3[fid] = add((sl, f.dst), 3)
+                else:
+                    if not Sn:
+                        raise ValueError(f"no spine connects {sl}->{dl}")
+                    for si, sp in enumerate(topo0.spines):
+                        up_ids[si, fid] = add((sl, sp), 1)
+                        dn_ids[si, fid] = add((sp, dl), 2)
+                    stage3[fid] = add((dl, f.dst), 3)
+            P = len(port_id)
+            candS = up_ids >= 0
+            crossF = candS.any(0) if Sn else np.zeros(F, bool)
+            occ1 = np.zeros((P, F))
+            occ2 = np.zeros((P, F))
+            upP = np.zeros((Sn, F, P))
+            dnP = np.zeros((Sn, F, P))
+            T1 = np.zeros((P, F, P))
+            prev_onehot = np.zeros((P, F, P))
             for fid in range(F):
-                p, pr = stage_ports[k, fid], prev_port[k, fid]
-                if p >= 0 and pr >= 0:
-                    prev_onehot[p, fid, pr] = 1.0
+                p0, p3 = stage0[fid], stage3[fid]
+                if crossF[fid]:
+                    for si in range(Sn):
+                        pu, pd = up_ids[si, fid], dn_ids[si, fid]
+                        occ1[pu, fid] = occ2[pd, fid] = 1.0
+                        upP[si, fid, pu] = dnP[si, fid, pd] = 1.0
+                        T1[pu, fid, pd] = 1.0
+                        prev_onehot[pu, fid, p0] = 1.0
+                        prev_onehot[pd, fid, pu] = 1.0
+                        # a rerouted or sprayed flow's bytes at the host
+                        # port come from any candidate: pause targeting
+                        # covers the whole candidate set
+                        prev_onehot[p3, fid, pd] = 1.0
+                else:
+                    prev_onehot[p3, fid, p0] = 1.0
+            occ = [onehot(stage0), occ1, occ2, onehot(stage3)]
+            # dest[0] covers only intra-leaf flows (cross-leaf stage-0
+            # output follows the per-tick weights); the T1 map replaces
+            # dest[1]
+            dest = [onehot(np.where(crossF, -1, stage3)),
+                    np.zeros((P, F)), onehot(stage3)]
+            init_spine = np.where(crossF, cols % max(Sn, 1), 0) \
+                .astype(np.int32)
+        port_keys = list(port_id)
 
         R = len(recv_hosts)
         ridx = {h: i for i, h in enumerate(recv_hosts)}
@@ -299,7 +400,10 @@ class FabricSweepParams:
                                ["gbps", "ecn_en", "can_assert", "line",
                                 "cap", "burst", "start", "cnp_iv_f",
                                 "d_base", "d_strag", "cnp_dly", "clsF",
-                                "on_us", "off_us"]}
+                                "on_us", "off_us", "fail_at", "fail_until",
+                                "rmode", "flet", "hystb", "settle",
+                                "sched", "quanta", "hpfc", "flap_start",
+                                "flap_period", "flap_down"]}
         for name, _ in _RECV_SCALARS + _DCQCN_SCALARS + _SWITCH_SCALARS \
                 + _SWITCH_TC:
             pv[name] = []
@@ -345,6 +449,29 @@ class FabricSweepParams:
                     (f.cnp_delay_us if f.cnp_delay_us is not None
                      else s.fabric.cnp_delay_us) / dt)))
                 for f in s.flows])
+            if dyn:
+                rc = s.fabric.routing
+                ft = topo.failure_ticks(dt)
+                nv = (NEVER_TICK, NEVER_TICK)
+                pv["fail_at"].append([ft.get(k, nv)[0] for k in port_keys])
+                pv["fail_until"].append([ft.get(k, nv)[1]
+                                         for k in port_keys])
+                pv["rmode"].append(rc.mode_code())
+                pv["flet"].append(max(1, int(round(rc.flowlet_gap_us
+                                                   / dt))))
+                pv["hystb"].append(rc.hysteresis_frac
+                                   * sw.port_buffer_bytes)
+                stl = int(round(rc.spray_settle_us / dt)) \
+                    if rc.mode == "spray" else 0
+                pv["settle"].append([stl if crossF[fid] else 0
+                                     for fid in range(F)])
+            if any_wrr:
+                pv["sched"].append(1 if sw.scheduler == "wrr" else 0)
+                pv["quanta"].append(list(sw.quanta()))
+            if host_tc:
+                pv["hpfc"].append([
+                    1.0 if (sw.per_tc and rcfgs[h].host_pfc_per_tc)
+                    else 0.0 for h in recv_hosts])
             line = [topo.access_gbps(f.src) for f in s.flows]
             pv["line"].append(line)
             pv["cap"].append([np.inf if f.offered_gbps is None
@@ -361,11 +488,21 @@ class FabricSweepParams:
             dcq = [_dcqcn_of(s, f, lr) for f, lr in zip(s.flows, line)]
             for name, fn in _DCQCN_SCALARS:
                 pv[name].append([fn(d) for d in dcq])
+            if any_flap:
+                fl = topo.flap_ticks(dt)
+                nf = (NEVER_TICK, 2, 1)
+                pv["flap_start"].append([fl.get(k, nf)[0]
+                                         for k in port_keys])
+                pv["flap_period"].append([fl.get(k, nf)[1]
+                                          for k in port_keys])
+                pv["flap_down"].append([fl.get(k, nf)[2]
+                                        for k in port_keys])
         pvals = {k: np.asarray(v, np.int32 if k in _INT_KEYS
                                else np.float64)
-                 for k, v in pv.items()}
+                 for k, v in pv.items() if v}
         H = int(max(pvals["d_base"].max(), pvals["d_strag"].max())) + 2
         Hc = int(pvals["cnp_dly"].max()) + 1
+        Hs = int(pvals["settle"].max()) + 1 if dyn else 1
         return cls(port_keys=port_keys, recv_hosts=recv_hosts,
                    flow_tags=[f.tag for f in flows0],
                    stage_mask=stage_mask, occ=occ, dest=dest,
@@ -373,15 +510,19 @@ class FabricSweepParams:
                    prev_onehot=prev_onehot, owner_recv=owner_recv,
                    pvals=pvals, n_points=len(scens), n_flows=F, n_ports=P,
                    n_recv=R, ticks=ticks, dt_us=dt, ring_len=H,
-                   cnp_ring=Hc)
+                   cnp_ring=Hc, upP=upP, dnP=dnP, candS=candS,
+                   crossF=crossF, T1=T1, init_spine=init_spine,
+                   dyn_route=dyn, any_wrr=any_wrr, host_tc=host_tc,
+                   settle_ring=Hs, n_spines=Sn if dyn else 0,
+                   any_flap=any_flap)
 
     @classmethod
     def from_arrays(cls, d: Dict) -> "FabricSweepParams":
         """Build the packing from the reference's (``repro``'s
         ``FabricSweepParams`` as a field -> value dict of numpy arrays and
         Python scalars), so both engines can run on identical packed
-        parameters.  Raises if the packing sets a sparse or dynamic
-        field, or carries a field this port does not know."""
+        parameters.  Raises if the packing sets a field of a layer this
+        port does not run, or carries a field it does not know."""
         names = [f.name for f in dataclasses.fields(cls)]
         missing = [n for n in names if n not in d]
         if missing:
@@ -389,13 +530,13 @@ class FabricSweepParams:
         for k, v in d.items():
             if k in names or k in _IGNORED:
                 continue
-            if k not in _STATIC_DEFAULTS:
+            if k not in _UNPORTED_DEFAULTS:
                 raise ValueError(f"unknown packing field {k!r}")
-            want = _STATIC_DEFAULTS[k]
+            want = _UNPORTED_DEFAULTS[k]
             if (v is not None) if want is None else (v != want):
                 raise NotImplementedError(
-                    f"packing sets {k}={v!r}: the PyTorch fabric engine "
-                    "runs static-ECMP dense grids only")
+                    f"packing sets {k}={v!r}: a layer the PyTorch fabric "
+                    "engine does not run")
         return cls(**{n: d[n] for n in names})
 
 
@@ -437,6 +578,8 @@ def _static(fsp: FabricSweepParams) -> Dict[str, object]:
         "prev_mat": fsp.prev_onehot.reshape(P * F, P),
         "sel0": sel[0],
         "sel1": sel[1],
+        **({"upP": fsp.upP, "dnP": fsp.dnP, "candS": fsp.candS,
+            "T1": fsp.T1} if fsp.dyn_route else {}),
     }
 
 
@@ -467,7 +610,7 @@ def _init_state(fsp: FabricSweepParams, p, dtype, device):
     def flags(*sh):
         return torch.zeros((G,) + sh, dtype=torch.bool, device=device)
 
-    return {
+    s = {
         # flows
         "rc": p["dline"] + z(F), "rt": p["dline"] + z(F),
         "alpha": full(1.0, F),
@@ -496,27 +639,114 @@ def _init_state(fsp: FabricSweepParams, p, dtype, device):
         "pool_peak": z(R), "cnps": z(R), "ecns": z(R), "replaces": z(R),
         "copies": z(R), "pfc_us": z(R), "ecn_tus": z(R),
         "cnp_tus": p["cnp_iv"] + z(R),   # allow an immediate first CNP
-        "pfc": flags(R),
+        # per-class pause state when any point runs per-TC host PFC
+        # (legacy points keep every row in lockstep)
+        "pfc": flags(N_QOS, R) if fsp.host_tc else flags(R),
         "ring": z(H, 2, R),     # slot-major; axis 2: base / straggler
         "heavy": full(-1, R, dt=torch.int32),
         # fleet counters
         "ecn_marked": z(), "sw_dropped": z(),
     }
+    if fsp.dyn_route:
+        # routing state: current spine choice (static hash seed), reroute
+        # counts and per-port carried bytes
+        s["route"] = torch.as_tensor(fsp.init_spine, dtype=torch.int32,
+                                     device=device).expand(G, F).clone()
+        s["reroutes"] = z(F)
+        s["tx"] = z(P)
+        if fsp.n_spines:
+            # idle-gap flowlets: per-flow flowlet index and last active
+            # tick (far past, so the first injection opens a flowlet)
+            s["flet_k"] = full(0, F, dt=torch.int32)
+            s["flet_last"] = full(-(1 << 30), F, dt=torch.int32)
+    if fsp.settle_ring > 1:
+        s["sring"] = z(fsp.settle_ring, 2, F)
+    return s
+
+
+# --------------------------------------------------------------------------- #
+# Link state and spine choice of one tick, stacked: Topology.link_up_at
+# and the routing.* helpers of the scalar engine over [G, P] and
+# [G, S, F] tensors (the tests hold each to its scalar twin)
+# --------------------------------------------------------------------------- #
+def link_state(t: int, p, flap: bool):
+    """Down and falling-edge masks ``[G, P]`` at tick ``t`` from the
+    per-point failure windows (down while ``fail_at <= t < fail_until``)
+    and, with ``flap``, the periodic flaps folded into the same masks:
+    down for the first ``flap_down`` ticks of each ``flap_period`` from
+    ``flap_start`` (the negative phase before the start is masked)."""
+    downP = (t >= p["fail_at"]) & (t < p["fail_until"])
+    edgeP = p["fail_at"] == t
+    if flap:
+        live = t >= p["flap_start"]
+        phase = (t - p["flap_start"]) % p["flap_period"]
+        downP = downP | (live & (phase < p["flap_down"]))
+        edgeP = edgeP | (live & (phase == 0))
+    return downP, edgeP
+
+
+def flowlet_hashes(fid, k, scale):
+    """``routing.flowlet_hash`` of int32 flow ids ``fid`` [F] and flowlet
+    indices ``k`` [G, F] in ``scale``'s dtype (``scale`` = 65536); ``k``
+    reduced mod 2^16 keeps every product inside int32."""
+    kred = k % 65536
+    hv = ((fid + 1) * 40503 + kred * 9973) % 65536
+    return hv.to(scale.dtype) / scale
+
+
+def adaptive_choice(occS, upS, cur, cur_oh, up_cur, hyst, one, zero, inf):
+    """``routing.adaptive_pick`` for every (point, flow): the
+    least-congested up candidate (first minimum) of ``occS`` [G, S, F],
+    taken only when the current spine ``cur`` [G, F] is down or that
+    candidate's queue is more than ``hyst`` shorter; ``cur`` when every
+    candidate is down."""
+    occ_cur = (occS * torch.where(cur_oh, one, zero)).sum(-2)
+    occ_masked = torch.where(upS, occS, inf)
+    best = torch.argmin(occ_masked, -2).to(torch.int32)
+    occ_best = occ_masked.amin(-2)
+    return torch.where(
+        upS.any(-2) & (~up_cur | (occ_best < occ_cur - hyst)), best, cur)
+
+
+def weighted_choice(free, hsh, one, zero):
+    """``routing.weighted_pick`` of weights ``free`` [G, S, F] at hashes
+    ``hsh`` [G, F]: the first spine whose cumulative weight exceeds
+    ``hsh`` times the cumsum's own last element (which the sequential
+    sum always reaches).  Returns the pick and that total [G, F]; the
+    pick is meaningful where the total is positive."""
+    cum = torch.cumsum(free, -2)
+    tot = cum[:, -1]
+    over = torch.where(cum > (hsh * tot)[:, None, :], one, zero)
+    return torch.argmax(over, -2).to(torch.int32), tot
+
+
+def spray_split(free, tot, ch_oh, zero, tiny):
+    """``routing.spray_weights``: the byte split [G, S, F] in proportion
+    to free space ``free`` over its total ``tot`` [G, F], or the chosen
+    spine's one-hot ``ch_oh`` where nothing is up or has room."""
+    totS = tot[:, None, :]
+    return torch.where(totS > zero, free / torch.maximum(totS, tiny),
+                       ch_oh)
 
 
 # --------------------------------------------------------------------------- #
 # The per-tick step
 # --------------------------------------------------------------------------- #
 def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
-               dtype: torch.dtype, device: torch.device, impl: str):
+               dtype: torch.dtype, device: torch.device, impl: str,
+               opts: dict):
     """Build ``step(state, t) -> state`` over ``[G, ...]`` tensors.
 
     ``st`` holds the static structure tensors (no grid axis), ``p`` the
     per-point parameters ``[G, ...]``, both on ``device``.  Queued bytes
     and their ECN-marked subset travel together as one ``[G, 2, P, F]``
     tensor and the two release rings as one ``[G, H, 2, R]`` tensor.
-    Per-point constants are hoisted out of the tick.
+    Per-point constants are hoisted out of the tick.  ``opts`` holds the
+    packing's capability flags (see :func:`_opts`); with all of them off
+    the step is the static engine's.
     """
+    dyn, wrr, host_tc = opts["dyn"], opts["wrr"], opts["host_tc"]
+    Hs, Sn, flap = opts["Hs"], opts["Sn"], opts["flap"]
     def c(x):                            # 0-d constant of the engine dtype
         return torch.tensor(x, dtype=dtype, device=device)
 
@@ -553,6 +783,30 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
     rx_pfc_en = p["pfc_en"] > 0.5
     wm_en = p["wm_cnp"] > 0.5
     linecap = torch.minimum(p["line"], p["cap"])
+    if wrr:
+        quantaQ = p["quanta"][..., None]                 # [G, Q, 1]
+        is_wrr = (p["sched"] == 1)[:, None, None]        # [G, 1, 1]
+    if host_tc:
+        hpfc_b = (p["hpfc"] > half)[:, None, :]          # [G, 1, R]
+        rx_pfc_tc = rx_pfc_en[:, None, :]
+        xoffQ = p["xoff"][:, None, :]
+        xonQ = p["xon"][:, None, :]
+        # each admission class's 1/N_QOS share of the RNIC buffer
+        part_q = (p["rnic_buf"] / c(float(N_QOS)))[:, None, :]
+    if dyn and Sn:
+        bufSF = p["buf"][:, None, None]                  # vs [G, S, F]
+        hystF = p["hystb"][:, None]                      # vs [G, F]
+        arangeS = torch.arange(Sn, dtype=torch.int32,
+                               device=device)[:, None]   # [S, 1]
+        rmode = p["rmode"][:, None]                      # [G, 1]
+        is_spray = (rmode == 3)[..., None]               # [G, 1, 1]
+
+    def qsum(x):
+        """Sum over the class axis of [G, Q, N] in class order."""
+        acc = x[:, 0]
+        for q_i in range(1, x.shape[1]):
+            acc = acc + x[:, q_i]
+        return acc
 
     def cut(s, fire):
         """DCQCN on_cnp for flows where ``fire`` holds."""
@@ -577,15 +831,37 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         [G, P, F]; one class per flow, so one nonzero term per entry."""
         return torch.matmul(x_q.transpose(-1, -2), clsF)
 
-    def drain(s, k):
+    def drain(s, k, upf=None):
         """Stage-k ports forward up to rate*dt: strict-priority budget
-        grants (the fused water-fill), pro rata across the flows of a
-        class.  Returns the drained tensor ``out`` [G, 2, P, F]."""
+        grants (the fused water-fill), or WRR water-filling where a point
+        schedules it, pro rata across the flows of a class.  ``upf``
+        zeroes the budget of dead links.  Returns the drained tensor
+        ``out`` [G, 2, P, F]."""
         qm = s["qm"]
         qtc = class_tot(qm[:, 0])                            # [G, Q, P]
+        budget0 = budget if upf is None else budget * upf
         can_q = st["stage"][k] & ~s["paused"] & (qtc > zero)
-        frac_q = fused.priority_grants(qtc, can_q, budget, budget_crumb,
+        frac_q = fused.priority_grants(qtc, can_q, budget0, budget_crumb,
                                        impl=impl)
+        if wrr:
+            # weighted water-filling over backlogged unpaused classes:
+            # N_QOS rounds, each followed by the crumb clamp, in the
+            # reference's order (OutputPort._wrr_fracs)
+            rem = torch.where(can_q, qtc, zero)
+            alloc = torch.zeros_like(qtc)
+            bl = budget0
+            for _ in range(N_QOS):
+                wq = torch.where(rem > zero, quantaQ, zero)
+                share = bl[:, None, :] * wq \
+                    / torch.maximum(qsum(wq), tiny)[:, None, :]
+                take = torch.minimum(share, rem)
+                alloc = alloc + take
+                rem = rem - take
+                bl = bl - qsum(take)
+                bl = torch.where(bl < budget_crumb, zero, bl)
+            frac_wrr = torch.where(qtc > zero,
+                                   alloc / torch.maximum(qtc, tiny), zero)
+            frac_q = torch.where(is_wrr, frac_wrr, frac_q)
         frac_pf = to_flows(frac_q)
         can_pf = to_flows(torch.where(can_q, one, zero))
         out = qm * frac_pf[:, None]
@@ -627,6 +903,19 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         now = nows[t]
         fold(s, "injected", "inj_lo")
         fold(s, "delivered", "deliv_lo")
+
+        # ---- 0. link failure / flap events -------------------------------- #
+        upf = None
+        if dyn:
+            downP, edgeP = link_state(t, p, flap)           # [G, P]
+            upf = torch.where(downP, zero, one)
+            failf = torch.where(edgeP, one, zero)
+            # in-flight bytes die with the link; fluid go-back-N
+            # re-credits them for retransmission
+            lostF = (s["qm"][:, 0] * failf[:, :, None]).sum(-2)
+            s["inj_lo"] = s["inj_lo"] - lostF
+            s["sw_dropped"] = s["sw_dropped"] + lostF.sum(-1)
+            s["qm"] = s["qm"] * (one - failf)[:, None, :, None]
 
         # ---- 1. senders: DCQCN advance + offer ---------------------------- #
         adv = now > p["start"]
@@ -676,13 +965,71 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s["qm"] = s["qm"] + (occ[0] * take_f[:, None, :])[:, None] \
             * st["sel0"]
 
+        # ---- 1.5 routing weights (after injection) ------------------------ #
+        D0 = dest[0]
+        if dyn and Sn:
+            # idle-gap flowlets: a flow injecting again after more than
+            # flowlet_gap ticks of silence opens a new flowlet
+            act = take_f > zero
+            boundary = act & ((t - s["flet_last"]) > p["flet"][:, None])
+            k_new = s["flet_k"] + boundary.to(torch.int32)
+            s["flet_k"] = k_new
+            s["flet_last"] = torch.where(act, t, s["flet_last"])
+            # per-tick spine selection: uplink occupancy and up-state per
+            # candidate as [G, S, F] blocks (one-hot contractions, exact)
+            occP = s["qm"][:, 0].sum(-1)                      # [G, P]
+            occS = torch.einsum("sfp,gp->gsf", st["upP"], occP)
+            up1 = torch.einsum("sfp,gp->gsf", st["upP"], upf)
+            up2 = torch.einsum("sfp,gp->gsf", st["dnP"], upf)
+            upS = st["candS"] & (up1 > half) & (up2 > half)
+            free = torch.where(upS, torch.maximum(bufSF - occS, zero), zero)
+            cur = s["route"]                                  # [G, F]
+            cur_oh = arangeS == cur[:, None, :]               # [G, S, F]
+            up_cur = (upS & cur_oh).any(-2)
+            adapt = adaptive_choice(occS, upS, cur, cur_oh, up_cur, hystF,
+                                    one, zero, inf)
+            hsh = flowlet_hashes(arangeF, k_new, c(65536.0))  # [G, F]
+            pick, tot = weighted_choice(free, hsh, one, zero)
+            repick = boundary | ~up_cur
+            wec = torch.where(repick & (tot > zero), pick, cur)
+            choice = torch.where(rmode == 2, adapt,
+                                 torch.where(rmode == 1, wec, cur))
+            s["reroutes"] = s["reroutes"] + \
+                torch.where(choice != cur, one, zero)
+            s["route"] = choice
+            ch_oh = torch.where(arangeS == choice[:, None, :], one, zero)
+            W = torch.where(is_spray, spray_split(free, tot, ch_oh, zero,
+                                                  tiny), ch_oh)
+            D0 = dest[0] + torch.einsum("gsf,sfp->gpf", W, st["upP"])
+
         # ---- 2. tier-ordered forwarding (cut-through within the tick) ---- #
-        for k in range(_STAGES - 1):
-            out = drain(s, k)
-            fbm = (occ[k] * out).sum(-2)                     # [G, 2, F]
-            enqueue(s, dest[k] * fbm[..., None, :])
-        out = drain(s, _STAGES - 1)
-        fbm = (occ[_STAGES - 1] * out).sum(-2)
+        out = drain(s, 0, upf)
+        fbm = (occ[0] * out).sum(-2)                         # [G, 2, F]
+        # cross-leaf stage-0 output follows this tick's routing weights
+        enqueue(s, D0[..., None, :, :] * fbm[..., None, :])
+        out = drain(s, 1, upf)
+        if dyn:
+            # uplink output keeps its port-level provenance: the [P, F, P]
+            # map sends bytes drained at (leaf, spine) to that spine's
+            # downlink toward the flow's leaf
+            s["tx"] = s["tx"] + out[:, 0].sum(-1)
+            enqueue(s, torch.einsum("gcpf,pfq->gcqf", out, st["T1"]))
+        else:
+            fbm = (occ[1] * out).sum(-2)
+            enqueue(s, dest[1] * fbm[..., None, :])
+        out = drain(s, 2, upf)
+        fbm = (occ[2] * out).sum(-2)
+        enqueue(s, dest[2] * fbm[..., None, :])
+        out = drain(s, 3, upf)
+        fbm = (occ[3] * out).sum(-2)
+        if Hs > 1:
+            # spray reorder settling: arrivals wait `settle` ticks in a
+            # slot-major ring before receiver admission (settle 0 reads
+            # the slot just written: pass-through)
+            s["sring"][:, t % Hs] = fbm
+            sidx = (t - p["settle"]) % Hs                    # [G, F]
+            fbm = torch.take_along_dim(s["sring"], sidx[:, None, None, :],
+                                       1)[:, 0]
         arr_b = fbm[:, 0]
         arr_m = fbm[:, 1]
 
@@ -792,11 +1139,22 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s["pool_peak"] = torch.maximum(s["pool_peak"],
                                        torch.where(jet, s["resident"], zero))
 
-        # receiver congestion signalling (whole-link RNIC gate)
+        # receiver congestion signalling
         q_frac = s["qos_q"].sum(-2) / p["rnic_buf"]
-        s["pfc"] = rx_pfc_en & torch.where(s["pfc"], q_frac >= p["xon"],
-                                           q_frac > p["xoff"])
-        s["pfc_us"] = s["pfc_us"] + torch.where(s["pfc"], fdt, zero)
+        if host_tc:
+            # per-class gate ([G, Q, R]): per-TC points watermark each
+            # class's occupancy of its 1/N_QOS partition, legacy points
+            # see the total occupancy in every row
+            sel = torch.where(hpfc_b, s["qos_q"] / part_q,
+                              q_frac[:, None, :])
+            s["pfc"] = rx_pfc_tc & torch.where(s["pfc"], sel >= xonQ,
+                                               sel > xoffQ)
+            pfc_any = s["pfc"].any(-2)
+        else:
+            s["pfc"] = rx_pfc_en & torch.where(s["pfc"], q_frac >= p["xon"],
+                                               q_frac > p["xoff"])
+            pfc_any = s["pfc"]
+        s["pfc_us"] = s["pfc_us"] + torch.where(pfc_any, fdt, zero)
         cnp_tus = s["cnp_tus"] + fdt
         wm_fire = wm_en & (q_frac > p["ecn_th"]) & (cnp_tus >= p["cnp_iv"])
         s["cnp_tus"] = torch.where(wm_fire, zero, cnp_tus)
@@ -863,9 +1221,11 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s["pause_tc_us"] = s["pause_tc_us"] + \
             torch.where(link_paused, fdt, zero)
         s["ever_paused"] = s["ever_paused"] | link_any
-        # the receiver RNIC gate pauses its whole access link
-        rx_gate = s["pfc"][:, st["owner_clamp"]] & st["owner_valid"]
-        s["paused"] = link_paused | rx_gate[:, None, :]
+        # the receiver RNIC gate: the whole access link (broadcast over
+        # the class axis) or, per-TC, each admission class's own priority
+        rx_gate = s["pfc"][..., st["owner_clamp"]] & st["owner_valid"]
+        s["paused"] = link_paused | (rx_gate if host_tc
+                                     else rx_gate[:, None, :])
         return s
 
     return step
@@ -917,19 +1277,55 @@ def _results(s: Dict[str, np.ndarray],
         "recv_mem_fallback_bytes": np.asarray(s["mem_fb"], np.float64),
     }
     # candidate ingress links that can ever receive a pause = ports with
-    # ingress support (the scalar driver's `pausable` set exactly)
+    # ingress support (the scalar engine's `pausable` set exactly); links
+    # down for the whole window can neither pause nor carry, so they
+    # leave the storm and utilization denominators
     pmask = fsp.prev_onehot.sum((0, 1)) > 0
-    n_pausable = np.full(G, pmask.sum())
+    if "fail_at" in fsp.pvals:
+        dead = (fsp.pvals["fail_at"] <= 0) \
+            & (fsp.pvals["fail_until"] >= fsp.ticks)         # [G, P]
+    else:
+        dead = np.zeros((G, fsp.n_ports), bool)
+    n_pausable = (pmask[None, :] & ~dead).sum(-1)            # [G]
     out["n_pausable_links"] = n_pausable
     out["pause_storm"] = np.where(
         n_pausable > 0,
         out["pause_tc_fanout"].max(-1) / np.maximum(n_pausable, 1), 0.0)
     # layers this engine does not run report their zero outputs
     for k in ("retransmit_bytes", "dropped_pkts", "deadlock_ticks",
-              "msg_count_total", "reroute_count"):
+              "msg_count_total"):
         out[k] = np.zeros(G)
     out["has_messages"] = np.zeros(G, bool)
+    if "reroutes" in s:
+        rr = np.asarray(s["reroutes"], np.float64)
+        out["flow_reroutes"] = rr
+        out["reroute_count"] = rr.sum(-1)
+    else:
+        out["reroute_count"] = np.zeros(G)
+    if "tx" in s:
+        # per-uplink (leaf -> spine) utilization; links dead for the
+        # whole window leave the mean and max
+        tx = np.asarray(s["tx"], np.float64)
+        cap = fsp.pvals["gbps"] * 1e9 / 8.0 * (sim_us * 1e-6)
+        util = np.where(cap > 0.0, tx / np.maximum(cap, 1e-30), 0.0)
+        up_mask = fsp.stage_mask[1]
+        alive = up_mask[None, :] & ~dead
+        out["uplink_util"] = np.where(up_mask[None, :], util, 0.0)
+        if up_mask.any():
+            out["uplink_util_max"] = np.where(alive, util, 0.0).max(-1)
+            out["uplink_util_mean"] = np.where(alive, util, 0.0).sum(-1) \
+                / np.maximum(alive.sum(-1), 1)
+        else:
+            out["uplink_util_max"] = np.zeros(G)
+            out["uplink_util_mean"] = np.zeros(G)
     return out
+
+
+def _opts(fsp: FabricSweepParams) -> dict:
+    """The packing's capability flags for :func:`_make_step`."""
+    return {"dyn": fsp.dyn_route, "wrr": fsp.any_wrr,
+            "host_tc": fsp.host_tc, "Hs": fsp.settle_ring,
+            "Sn": fsp.n_spines, "flap": fsp.any_flap}
 
 
 # --------------------------------------------------------------------------- #
@@ -946,7 +1342,7 @@ def run_packed(fsp: FabricSweepParams, device=None,
     p = {k: _to_device(v, dt, dev) for k, v in _np_params(fsp, np_dt).items()}
     st = {k: _to_device(v, dt, dev) for k, v in _static(fsp).items()}
     step = _make_step(st, p, fsp.dt_us, fsp.ring_len, fsp.cnp_ring,
-                      fsp.ticks, dt, dev, impl)
+                      fsp.ticks, dt, dev, impl, _opts(fsp))
     s = _init_state(fsp, p, dt, dev)
     for t in range(fsp.ticks):
         s = step(s, t)
@@ -963,7 +1359,7 @@ def run_fabric_sweep(scenarios: Sequence, device=None,
     recurrence at once; returns ``{metric: array}`` aligned with the input
     order (arrays are ``[G]``, ``[G, F]`` or ``[G, R]`` — flow order is the
     scenario flow list, receiver order is ``sorted({flow.dst})``), with
-    the keys the reference returns for static grids.
+    the keys the reference returns.
 
     ``device=None`` runs on CUDA and raises ``RuntimeError`` without it;
     pass ``device="cpu"`` for the CPU.  ``dtype`` defaults to float32

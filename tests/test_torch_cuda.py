@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
-bit for bit; flash attention, the SSD scan, the paged decode attention and
+bit for bit, and the fabric engines that run them (the dense tick under
+dynamic routing and a link failure within 5e-4 of CPU float64; the
+receiver sweep bit for bit against the CPU); flash attention, the SSD scan, the paged decode attention and
 the staged matmul within the tolerances of ``tests/test_kernels.py``, each
 flash case on the kernel variant its type and head dim select, each
 SSD case on the variant its widths select, and the staged matmul's
@@ -101,6 +103,48 @@ def test_engine_runs_through_the_kernels(card):
         assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
         m = np.isfinite(b)
         assert np.allclose(a[m], b[m], rtol=5e-4, atol=0.0), k
+
+
+def test_receiver_sweep_on_the_card_equals_the_cpu_run(card):
+    """Float32 on both devices, op for op: the card's sweep equals the
+    CPU's bit for bit (an escape-pressure Jet grid and a DDIO one)."""
+    from repro_torch.core.simulator import testbed_100g
+    from repro_torch.fabric import grid_configs, run_sweep
+    cfgs = grid_configs(testbed_100g, mode="jet", sim_time_s=0.002,
+                        jet_pool_bytes=[2 << 20, 12 << 20],
+                        straggler_frac=[0.05, 0.3],
+                        mem_esc_bytes=[0, 2 << 20])[0]
+    cfgs += grid_configs(testbed_100g, mode="ddio", sim_time_s=0.002,
+                         msg_bytes=[64 << 10, 1 << 20],
+                         cpu_membw_gbps=[1200.0, 1900.0])[0]
+    got = run_sweep(cfgs)
+    want = run_sweep(cfgs, device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+def test_routing_grid_on_the_card_matches_cpu_float64(card):
+    """All four routing modes x an uplink failure at 50 us, 2 ms: within
+    5e-4 of CPU float64 with identical finite masks and reroute counts,
+    through 4 grants and 1 admit launch a tick."""
+    scens = TSC.routing_grid(
+        modes=("static_ecmp", "weighted_ecmp", "adaptive", "spray"),
+        fail_at_us=(math.inf, 50.0), burst_mb=1.0, n_senders=4,
+        sim_time_s=0.002)[0]
+    fused.reset_launches()
+    got = run_fabric_sweep(scens)
+    assert fused.LAUNCHES == {"priority_grants": 8000,
+                              "priority_admit": 2000}
+    want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    for k in ("flow_goodput_gbps", "flow_completion_us",
+              "incast_completion_us", "uplink_util_max"):
+        a, b = got[k], want[k]
+        assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
+        m = np.isfinite(b)
+        assert np.allclose(a[m], b[m], rtol=5e-4, atol=0.0), k
+    assert np.array_equal(got["reroute_count"], want["reroute_count"])
+    assert not np.isfinite(got["incast_completion_us"][4])
 
 
 # --------------------------------------------------------------------------- #

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.fabric import scenarios as SC
+from repro.fabric.messages import MessageConfig
 from repro.fabric.vector import FabricSweepParams as RefParams
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.vector import FabricSweepParams
@@ -102,9 +103,14 @@ def test_from_arrays_round_trips_reference_packing(grid):
 
 
 def _dyn_packing():
-    return RefParams.from_scenarios(
-        SC.routing_grid(modes=("static_ecmp", "adaptive"),
-                        fail_at_us=(150.0,), sim_time_s=0.0005)[0])
+    """A dynamic-routing grid whose flows also run the message layer,
+    which the port does not run (a dynamic grid without it packs:
+    ``tests/test_torch_routing.py``)."""
+    scens = SC.routing_grid(modes=("static_ecmp", "adaptive"),
+                            fail_at_us=(150.0,), sim_time_s=0.0005)[0]
+    for s in scens:
+        s.fabric.msg = MessageConfig()
+    return RefParams.from_scenarios(scens)
 
 
 def _sparse_packing():

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.fabric import scenarios as SC
+from repro.fabric.cc import CcConfig
 from repro.fabric.vector import FabricSweepParams as RefParams
 from repro.fabric.vector import run_fabric_sweep as ref_sweep
 from repro_torch.fabric import scenarios as TSC
@@ -160,20 +161,28 @@ def test_engine_forces_full_fp32_matmuls():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: SC.routing_grid(modes=("adaptive",), fail_at_us=(150.0,))[0],
+    lambda: [SC.incast(4, pfc=True), _cc_zoo(SC.incast(4))],
     lambda: [SC.message_incast(4)],
     lambda: [SC.lossy_incast(4)],
     lambda: [SC.pod_incast()],
-    lambda: [SC.incast(4, pfc=True), _wrr(SC.incast(4))],
-], ids=["routing_grid", "message_incast", "lossy_incast", "pod_incast",
-        "wrr"])
+    lambda: [_pod_fail(SC.pod_incast())],
+], ids=["cc_zoo", "message_incast", "lossy_incast", "pod_incast",
+        "pod_incast_fail_link"])
 def test_unsupported_features_raise(make):
     with pytest.raises(NotImplementedError):
         run_fabric_sweep(make(), device="cpu")
 
 
-def _wrr(s):
-    s.fabric.switch.scheduler = "wrr"
+def _cc_zoo(s):
+    """Flows under a non-DCQCN controller (the CC zoo), no messages."""
+    for f in s.flows:
+        f.cc = CcConfig(algo="timely")
+    return s
+
+
+def _pod_fail(s):
+    """A pod fabric with a link failure schedule (the sparse engine)."""
+    s.topology.fail_link("p1s0", "ss0", at_us=100.0)
     return s
 
 
