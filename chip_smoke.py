@@ -114,13 +114,30 @@ Each phase prints one JSON line:
     per-class receiver gate, 0.85 or less behind the whole-link gate),
     4 ms each, each within 5e-4 of CPU float64 with the same launch
     counts, each with a 50-tick profiler window.
+12. ``messages``: ``benchmarks/bench_fabric.py``'s whole messages grid
+    (``message_sweep_grid``: 16/64/256 KB verbs writes x windows 4/16 x
+    DCQCN/Timely/HPCC, 18 points, 8 senders into one receiver, 10 ms =
+    10,000 ticks, nothing cut): per-point message counts within 8 of CPU
+    float64, p50/p99/p999 within one histogram bucket + 2 us, goodput
+    within 5e-4 with identical finite masks, 4 grants and 1 admit launch
+    a tick; the p99 of each controller at window 16 for each size, and a
+    50-tick profiler window.
+13. ``faults``: the bench's faults grid (``lossy_incast_grid``: loss
+    0 / 0.2 / 1 / 5 % x go-back-N / selective) and its crash case
+    (selective at 0.5 % loss, ``h1_0`` down 400-600 us) as a ninth point,
+    4 ms: dropped packets and retransmitted bytes within 1e-4 of CPU
+    float64, message counts within 8, crash recovery within a tick,
+    deadlock ticks equal, 0 dropped packets at the lossless selective
+    point, and at 5 % loss selective retransmitting less than half of
+    go-back-N's bytes and completing more messages; 4 grants and 1 admit
+    a tick; a 50-tick profiler window.
 
-The card runs of phases 9-11 come first, then ``kernel`` rows of both
+The card runs of phases 9-13 come first, then ``kernel`` rows of both
 water-fills at every shape those fabric grids gave them (grants at each
 grid's [G, Q, P], admit at its [G, Q, R]; bit for bit), then the CPU
-references of phases 9-11 in spawned worker processes (an ``oracles``
+references of phases 9-13 in spawned worker processes (an ``oracles``
 line: workers, host cores, wall of each), so that no reference competes
-with a timed card run for the host; the lines of phases 9-11 follow.
+with a timed card run for the host; the lines of phases 9-13 follow.
 
 The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
 attention, a length-0 row that must give o == 0, danube-1.8b,
@@ -520,6 +537,12 @@ SWEEP_TIME_S = 0.01         # bench_fabric.py's sweep depth, kept whole
 SWEEP_TOL = 5e-3            # bench_floors.json sweep.max_rel_dev_vs_numpy
 ROUTING_TIME_S = 0.008      # depth cut: 20 ms -> 8 ms (8000 ticks)
 CLASSES_TIME_S = 0.004      # the reference tests' own 4 ms
+MESSAGES_TIME_S = 0.01      # bench_fabric.py's messages depth, kept whole
+FAULTS_TIME_S = 0.004       # bench_fabric.py's faults depth, kept whole
+COUNT_SLACK = 8             # messages a point: tests/test_messages.py's
+                            # float32 tier
+P99_SLACK_US = 2.0          # + one histogram bucket: its JAX_SLACK_US
+FAULT_TOL = 1e-4            # dropped / retransmitted: tests/test_faults.py
 ORACLE_WORKERS = 4          # CPU reference runs, after the card runs
 ROUTING_MODES = ("static_ecmp", "weighted_ecmp", "adaptive", "spray")
 CLASS_JOBS = ("qos_mixed", "wrr", "host_gate")
@@ -571,6 +594,33 @@ def class_scens(job: str, sim_time_s: float):
     return (wrr_pair if job == "wrr" else host_gate_pair)(sim_time_s)
 
 
+def message_scens(sim_time_s: float):
+    """``benchmarks/bench_fabric.py:run_messages_bench``'s grid: points
+    ordered (algo, msg_kb, verb, window)."""
+    from repro_torch.fabric import message_sweep_grid
+    return message_sweep_grid(msg_kb=(16.0, 64.0, 256.0), window=(4, 16),
+                              verb=("write",),
+                              algo=("dcqcn", "timely", "hpcc"),
+                              sim_time_s=sim_time_s)
+
+
+def fault_scens(sim_time_s: float):
+    """``benchmarks/bench_fabric.py:run_faults_bench``'s grid, points
+    ordered (loss_rate, recovery), and its crash case as a ninth point."""
+    from repro_torch.fabric import FaultConfig, lossy_incast, \
+        lossy_incast_grid
+    scens, pts = lossy_incast_grid(loss_rate=(0.0, 0.002, 0.01, 0.05),
+                                   recovery=("go_back_n", "selective"),
+                                   sim_time_s=sim_time_s)
+    crash = lossy_incast(loss_rate=0.005, recovery="selective",
+                         sim_time_s=sim_time_s)
+    crash.fabric.faults = FaultConfig(0.005, seed=7).crash(
+        "h1_0", at_us=400.0, restart_us=600.0)
+    return scens + [crash], pts + [{"loss_rate": 0.005,
+                                    "recovery": "selective",
+                                    "crash": ["h1_0", 400.0, 600.0]}]
+
+
 def oracle(job: str, threads: int):
     """A CPU reference run, in a worker process: the sweep in float32,
     the fabric grids in float64."""
@@ -584,8 +634,14 @@ def oracle(job: str, threads: int):
                         device="cpu")
     else:
         from repro_torch.fabric import run_fabric_sweep
-        scens = routing_scens(ROUTING_TIME_S) if job == "routing" \
-            else class_scens(job, CLASSES_TIME_S)
+        if job == "routing":
+            scens = routing_scens(ROUTING_TIME_S)
+        elif job == "messages":
+            scens = message_scens(MESSAGES_TIME_S)[0]
+        elif job == "faults":
+            scens = fault_scens(FAULTS_TIME_S)[0]
+        else:
+            scens = class_scens(job, CLASSES_TIME_S)
         out = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     return out, time.perf_counter() - t0
 
@@ -598,8 +654,8 @@ def run_oracles() -> dict:
     (outputs, wall seconds)}``."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    jobs = {"sweep_dense": 2, "routing": 1, "sweep": 1, "qos_mixed": 1,
-            "wrr": 1, "host_gate": 1}
+    jobs = {"sweep_dense": 2, "messages": 1, "routing": 1, "faults": 1,
+            "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=ORACLE_WORKERS,
@@ -817,6 +873,137 @@ def classes_phase():
               f"HIGH under the whole-link / per-class gate: {hi}")
         return out
     return {job: r[0] for job, r in runs.items()}, finish
+
+
+def counts_within(got, want) -> bool:
+    import numpy as np
+    return bool(np.abs(np.asarray(got) - np.asarray(want)).max()
+                <= COUNT_SLACK)
+
+
+def messages_phase():
+    """The bench's messages grid at its full 10 ms on the card.  Runs and
+    times the card now; returns its packing and the function that, given
+    the CPU references, holds message counts within COUNT_SLACK a point,
+    the percentiles within one histogram bucket + P99_SLACK_US and
+    goodput within TOL of CPU float64, with 4 grants + 1 admit a tick."""
+    from repro_torch.fabric.messages import hist_ratio
+    from repro_torch.fabric.vector import run_fabric_sweep
+    run_fabric_sweep(message_scens(20e-6)[0])            # warm-up
+    scens, pts = message_scens(MESSAGES_TIME_S)
+    fsp, res, head = fabric_card_run(scens)
+    prof = profile_window(
+        lambda: run_fabric_sweep(message_scens(50e-6)[0]), 50)
+
+    def finish(oracles) -> dict:
+        import numpy as np
+        want, held = fabric_vs_cpu("messages", fsp, res, head, oracles)
+        bucket = hist_ratio() - 1.0
+        pct = {k: float(np.max(np.abs(res[k] - want[k])
+                               - bucket * want[k]))
+               for k in ("msg_p50_us", "msg_p99_us", "msg_p999_us")}
+        cnt = res["msg_count_total"]
+        p99 = {f"{algo}/{int(kb)}k": float(res["msg_p99_us"][i])
+               for i, pt in enumerate(pts) for algo, kb in
+               [(pt["algo"], pt["msg_kb"])] if pt["window"] == 16}
+        out = {**head, "sim_time_s": MESSAGES_TIME_S,
+               "msg_count_total": cnt.tolist(),
+               "msg_count_total_cpu": want["msg_count_total"].tolist(),
+               "count_max_diff": float(np.abs(
+                   cnt - want["msg_count_total"]).max()),
+               "pct_excess_over_bucket_us": pct,
+               "p99_us_window16": p99,
+               "msg_rate_mops": res["msg_rate_mops"].tolist(),
+               "profile": prof}
+        emit("messages", **out)
+        held()
+        check(counts_within(cnt, want["msg_count_total"]),
+              f"messages: counts {cnt} vs CPU {want['msg_count_total']}")
+        check(all(v <= P99_SLACK_US for v in pct.values()),
+              f"messages: percentiles beyond a bucket + "
+              f"{P99_SLACK_US} us: {pct}")
+        check(bool(res["has_messages"].all() and (cnt > 0).all()),
+              "messages: a point completed no message")
+        check(prof["waterfills_per_tick"] == 5,
+              f"profile: {prof['waterfills_per_tick']} water-fills a tick")
+        return out
+    return fsp, finish
+
+
+def faults_phase():
+    """The bench's faults grid and its crash case at the full 4 ms on the
+    card.  Runs and times the card now; returns its packing and the
+    function that, given the CPU references, holds dropped packets and
+    retransmitted bytes within FAULT_TOL, message counts within
+    COUNT_SLACK, crash recovery within a tick and deadlock ticks equal
+    to CPU float64, and checks the lossless selective point drops
+    nothing and selective beats go-back-N at 5 % loss."""
+    from repro_torch.fabric.vector import run_fabric_sweep
+    run_fabric_sweep(fault_scens(20e-6)[0])              # warm-up
+    scens, pts = fault_scens(FAULTS_TIME_S)
+    fsp, res, head = fabric_card_run(scens)
+    prof = profile_window(
+        lambda: run_fabric_sweep(fault_scens(50e-6)[0]), 50)
+
+    def finish(oracles) -> dict:
+        import numpy as np
+        want, cpu_wall = oracles["faults"]
+        dev = {k: rel(res[k], want[k]) for k in
+               ("dropped_pkts", "retransmit_bytes", "flow_goodput_gbps",
+                "crash_recovery_us")}
+        rec, rec_cpu = res["crash_recovery_us"], want["crash_recovery_us"]
+        fin = np.isfinite(rec_cpu)
+        rec_ok = bool(np.array_equal(np.isfinite(rec), fin)
+                      and (np.abs(rec[fin] - rec_cpu[fin])
+                           <= fsp.dt_us).all())
+
+        def at(rate, recovery):
+            return next(i for i, pt in enumerate(pts)
+                        if pt["loss_rate"] == rate
+                        and pt["recovery"] == recovery
+                        and "crash" not in pt)
+        sel0 = at(0.0, "selective")
+        g5, s5 = at(0.05, "go_back_n"), at(0.05, "selective")
+        retx, cnt = res["retransmit_bytes"], res["msg_count_total"]
+        launches = head["launches"]
+        out = {**head, "sim_time_s": FAULTS_TIME_S, "points_axes": pts,
+               "cpu_float64_wall_s": cpu_wall, "dev": dev,
+               "dropped_pkts": res["dropped_pkts"].tolist(),
+               "retransmit_bytes": retx.tolist(),
+               "msg_count_total": cnt.tolist(),
+               "msg_count_total_cpu": want["msg_count_total"].tolist(),
+               "msg_p999_us": res["msg_p999_us"].tolist(),
+               "crash_recovery_us": rec[-1].tolist(),
+               "crash_recovery_us_cpu": rec_cpu[-1].tolist(),
+               "deadlock_ticks": res["deadlock_ticks"].tolist(),
+               "deadlock_ticks_cpu": want["deadlock_ticks"].tolist(),
+               "profile": prof}
+        emit("faults", **out)
+        check(launches["priority_grants"] == 4 * fsp.ticks
+              and launches["priority_admit"] == fsp.ticks,
+              f"faults: launches {launches}, want {4 * fsp.ticks} / "
+              f"{fsp.ticks}")
+        check(dev["dropped_pkts"] <= FAULT_TOL
+              and dev["retransmit_bytes"] <= FAULT_TOL,
+              f"faults: fault accounting deviates from CPU float64: {dev}")
+        check(counts_within(cnt, want["msg_count_total"]),
+              f"faults: counts {cnt} vs CPU {want['msg_count_total']}")
+        check(rec_ok, f"faults: crash recovery {rec.tolist()} vs CPU "
+              f"{rec_cpu.tolist()}")
+        check(np.array_equal(res["deadlock_ticks"], want["deadlock_ticks"]),
+              "faults: deadlock ticks differ from CPU float64")
+        check(res["dropped_pkts"][sel0] == 0.0,
+              f"faults: the lossless selective point dropped "
+              f"{res['dropped_pkts'][sel0]} packets")
+        check(retx[s5] < 0.5 * retx[g5] and cnt[s5] > cnt[g5],
+              f"faults: at 5 % loss selective retransmits {retx[s5]} vs "
+              f"go-back-N {retx[g5]}, completes {cnt[s5]} vs {cnt[g5]}")
+        check(bool(np.isfinite(res["flow_goodput_gbps"]).all()),
+              "faults: non-finite goodput")
+        check(prof["waterfills_per_tick"] == 5,
+              f"profile: {prof['waterfills_per_tick']} water-fills a tick")
+        return out
+    return fsp, finish
 
 
 def waterfill_path_rows(grids: dict, seed: int) -> None:
@@ -1991,9 +2178,13 @@ def run() -> int:
                   sweep_phase("dense 9216", True)]
         routing_fsp, routing_finish = routing_phase()
         class_fsps, classes_finish = classes_phase()
-        waterfill_path_rows({"routing8": routing_fsp, **class_fsps}, 40)
+        msg_fsp, messages_finish = messages_phase()
+        flt_fsp, faults_finish = faults_phase()
+        waterfill_path_rows({"routing8": routing_fsp, **class_fsps,
+                             "messages18": msg_fsp, "lossy9": flt_fsp}, 40)
         oracles = run_oracles()
-        for done in finish + [routing_finish, classes_finish]:
+        for done in finish + [routing_finish, classes_finish,
+                              messages_finish, faults_finish]:
             done(oracles)
         # each kernel's launches on the path that runs it
         launches = {**main["launches"],

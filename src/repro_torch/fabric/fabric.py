@@ -1,13 +1,17 @@
 """Fabric scenario configuration: flows riding the Clos and the
-fabric-wide knobs (tick, switch, receivers, CNP delay, routing).
+fabric-wide knobs (tick, switch, receivers, CNP delay, routing, the
+message layer, congestion control and fault injection).
 
 Per 1 us fluid tick the engine (:mod:`repro_torch.fabric.vector`) lets
 every flow's DCQCN machine offer bytes into its NIC queue, forwards in
 tier order with cut-through inside the tick, advances each receiver's
 datapath on the arrivals, routes its CNPs and the switches' ECN marks
 back to the offending senders, and refreshes per-priority PFC pause
-state.  ``msg``, ``cc`` and ``faults`` name layers of the reference
-engine that this port does not run; they stay ``None`` here.
+state.  A flow's ``msg`` rides its byte stream as verbs messages
+(:mod:`repro_torch.fabric.messages`), its ``cc`` picks DCQCN, Timely or
+HPCC (:mod:`repro_torch.fabric.cc`), and ``FabricConfig.faults`` injects
+loss, corruption and crashes and engages the recovery ledgers
+(:mod:`repro_torch.fabric.faults`).
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ from typing import Callable, Optional, Tuple
 
 from ..core.datapath import QoS
 from ..core.simulator import SimConfig, testbed_100g
+from .cc import CcConfig
+from .faults import FaultConfig
+from .messages import MessageConfig
 from .routing import RoutingConfig
 from .switch import SwitchConfig
 
@@ -36,9 +43,10 @@ class Flow:
     # per-flow NP->RP CNP propagation delay override; None falls back to
     # FabricConfig.cnp_delay_us
     cnp_delay_us: Optional[float] = None
-    # message layer / congestion-control override (reference-only layers)
-    msg: Optional[object] = None
-    cc: Optional[object] = None
+    # message layer / congestion-control override; None falls back to
+    # the FabricConfig defaults
+    msg: Optional[MessageConfig] = None
+    cc: Optional[CcConfig] = None
 
 
 def burst_done_bytes(burst_bytes: float) -> float:
@@ -62,8 +70,10 @@ class FabricConfig:
     # CNP propagation delay NP -> RP (us); 0.0 = same-tick delivery
     cnp_delay_us: float = 0.0
     routing: RoutingConfig = dataclasses.field(default_factory=RoutingConfig)
-    # message layer / congestion control / fault injection of the
-    # reference engine; None keeps the fluid DCQCN semantics this port runs
-    msg: Optional[object] = None
-    cc: Optional[object] = None
-    faults: Optional[object] = None
+    # default message layer / congestion control of every flow without
+    # its own; None keeps the fluid DCQCN semantics
+    msg: Optional[MessageConfig] = None
+    cc: Optional[CcConfig] = None
+    # fault injection + loss recovery; None = no faults, bit-equal to an
+    # engine without the layer
+    faults: Optional[FaultConfig] = None

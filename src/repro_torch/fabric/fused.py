@@ -14,6 +14,10 @@ implementations:
   one launch for the whole grid, one thread per (grid point, column),
   the class loop in registers.  It is bitwise equal to the plain version.
 
+The PFC-deadlock watchdog's helpers (:func:`pause_pair_onehot`,
+:func:`cycle_flags`) are plain tensor code in both packages: {0,1}
+matrix products, exact in float32 with TF32 off.
+
 Dispatch (``_device.resolve_impl``, shared with the model kernels):
 ``impl="auto"`` launches the kernel on a CUDA tensor and runs the plain
 version on a CPU one; ``impl="cuda"`` on a CPU tensor raises; ``"ref"``
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .._build import library
@@ -160,3 +165,37 @@ def priority_admit(demand, space, impl: str = "auto"):
     if resolve_impl(impl, demand.device) == "cuda":
         return _admit_cuda(demand, space)
     return priority_admit_ref(demand, space)
+
+
+# --------------------------------------------------------------------------- #
+# PFC-deadlock watchdog (faults.has_pause_cycle, vectorized)
+# --------------------------------------------------------------------------- #
+def pause_pair_onehot(port_keys) -> np.ndarray:
+    """Static port -> (src-node, dst-node) scatter: [P, N*N] one-hot so
+    ``link_paused @ E`` reshapes to the per-TC pause-dependency adjacency
+    that :func:`repro_torch.fabric.faults.has_pause_cycle` walks."""
+    nodes = sorted({a for a, _ in port_keys} | {b for _, b in port_keys})
+    ni = {h: i for i, h in enumerate(nodes)}
+    n = len(nodes)
+    E = np.zeros((len(port_keys), n * n))
+    for p, (a, b) in enumerate(port_keys):
+        E[p, ni[a] * n + ni[b]] = 1.0
+    return E
+
+
+def cycle_flags(lp, E, n: int):
+    """Per-point deadlock flag [..] from the pause mask ``lp`` [.., Q, P]
+    ({0,1} floats) and ``E`` from :func:`pause_pair_onehot`.  Builds the
+    per-TC node adjacency and closes it with ``ceil(log2 n)`` squarings
+    of ``min(C + C @ C, 1)``; a nonzero diagonal in any class's closure
+    is a cyclic pause dependency (the predicate of ``has_pause_cycle``,
+    which looks for a cycle in any single-TC digraph).  Every product is
+    of {0,1} matrices, so it is exact in any order."""
+    one = lp.new_ones(())
+    adj = torch.matmul(lp, E)
+    C = torch.minimum(adj, one).reshape(adj.shape[:-1] + (n, n))
+    hops = max(1, int(np.ceil(np.log2(max(n, 2)))))
+    for _ in range(hops):
+        C = torch.minimum(C + torch.matmul(C, C), one)
+    diag = torch.diagonal(C, dim1=-2, dim2=-1)
+    return diag.sum((-1, -2)) > 0.0          # any TC, any node

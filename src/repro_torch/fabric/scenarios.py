@@ -1,8 +1,9 @@
 """Scenario library: the storage-incast workload over the Clos fabric
 (paper §5–6: N senders on one leaf burst into one receiver on another,
-plus an optional open-loop victim flow), the QoS-mixed storage fleet,
-the OLAP shuffle, incast under a link failure, the strict/WRR and
-whole-link/per-class host-gate pairs, and the grid functions that feed
+plus an optional open-loop victim flow), HPC all-to-all, the QoS-mixed
+storage fleet, the OLAP shuffle, incast under a link failure, the
+strict/WRR and whole-link/per-class host-gate pairs, the message incast
+under the CC zoo and its lossy twin, and the grid functions that feed
 :func:`repro_torch.fabric.vector.run_fabric_sweep`."""
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..core.datapath import QoS
 from ..core.simulator import SimConfig, testbed_100g
+from .cc import CcConfig
 from .fabric import FabricConfig, Flow
+from .faults import FaultConfig
+from .messages import MessageConfig
 from .routing import RoutingConfig
 from .switch import SwitchConfig
 from .topology import Topology, clos, incast_fabric
@@ -72,6 +76,25 @@ def incast(n_senders: int = 8, mode: str = "jet", burst_mb: float = 2.0,
         topology=topo, flows=flows,
         fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
                             receiver_cfg=_recv_factory(mode, pfc)))
+
+
+def all_to_all(n_hosts: int = 8, mode: str = "jet",
+               msg_kb: int = 256, pfc: bool = False,
+               sim_time_s: float = 0.01) -> Scenario:
+    """HPC all-to-all: every host streams to every other host (the MPI
+    personalized-exchange shape of the paper's fig 13 substrate)."""
+    per_leaf = max(2, (n_hosts + 1) // 2)   # ceil: never truncate odd N
+    topo = clos(n_leaves=2, hosts_per_leaf=per_leaf, n_spines=2)
+    hosts = topo.hosts[:n_hosts]
+    assert len(hosts) == n_hosts
+    flows = [Flow(src=a, dst=b, tag="a2a")
+             for a in hosts for b in hosts if a != b]
+    sw = SwitchConfig(pfc_enabled=pfc)
+    return Scenario(
+        name=f"a2a{n_hosts}_{mode}", topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory(
+                                mode, pfc, msg_bytes=msg_kb << 10)))
 
 
 def incast_grid(mode: Sequence[str] = ("jet", "ddio"),
@@ -268,3 +291,92 @@ def host_gate_pair(sim_time_s: float = 0.004) -> List[Scenario]:
                                 switch=SwitchConfig(pfc_enabled=True),
                                 receiver_cfg=recv)))
     return out
+
+
+def message_incast(n_senders: int = 8, algo: str = "dcqcn",
+                   verb: str = "write", msg_kb: float = 64.0,
+                   window: int = 16, mode: str = "ddio",
+                   sim_time_s: float = 0.002,
+                   cc: Optional[CcConfig] = None) -> Scenario:
+    """N open-loop senders incast one receiver, every flow carrying the
+    op layer: fixed-size verbs messages under an outstanding window,
+    rate-controlled by ``algo`` from the CC zoo.  The canonical tail-
+    latency benchmark — DCQCN's CNP-driven throttling versus the
+    delay/INT controllers shows up directly in message p99/p999."""
+    topo = incast_fabric(n_senders)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0", tag="incast")
+             for i in range(n_senders)]
+    msg = MessageConfig(verb=verb, msg_bytes=msg_kb * 1024.0,
+                        window=window)
+    return Scenario(
+        name=f"msg_incast{n_senders}_{algo}_{verb}"
+             f"_{int(msg_kb)}k_w{window}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, msg=msg,
+                            cc=cc if cc is not None else CcConfig(algo=algo),
+                            receiver_cfg=_recv_factory(mode, False)))
+
+
+def message_sweep_grid(msg_kb: Sequence[float] = (4.0, 64.0, 1024.0),
+                       window: Sequence[int] = (1, 16, 64),
+                       verb: Sequence[str] = ("write", "send"),
+                       algo: Sequence[str] = ("dcqcn", "timely", "hpcc"),
+                       **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Message size x outstanding window x verb x CC algorithm grid over
+    :func:`message_incast` for :func:`repro_torch.fabric.vector
+    .run_fabric_sweep` — the classic verbs sweep (ib_write_bw-style
+    size/queue-depth curves) as one grid run.  Per point the
+    results carry Mops (``msg_rate_mops``), GiB/s (``msg_goodput_gbps``)
+    and tail latency (``msg_p99_us``) — msg/cc are per-point parameters,
+    not structure, so all points share one packing."""
+    return fabric_grid(
+        lambda msg_kb, window, verb, algo: message_incast(
+            msg_kb=msg_kb, window=window, verb=verb, algo=algo, **kw),
+        msg_kb=list(msg_kb), window=list(window), verb=list(verb),
+        algo=list(algo))
+
+
+def lossy_incast(n_senders: int = 8, loss_rate: float = 0.01,
+                 recovery: str = "go_back_n", algo: str = "dcqcn",
+                 verb: str = "write", msg_kb: float = 64.0,
+                 window: int = 16, mode: str = "ddio", seed: int = 7,
+                 sim_time_s: float = 0.002,
+                 cc: Optional[CcConfig] = None) -> Scenario:
+    """:func:`message_incast` on a lossy fabric: every link drops a
+    stochastic ``loss_rate`` fraction of its ticks (counter-based hash,
+    identical realization in every engine — see
+    :mod:`repro_torch.fabric.faults`), and every flow recovers via
+    ``MessageConfig.recovery`` — ``"go_back_n"`` gaps the receive window
+    and replays from the RTO with exponential backoff, ``"selective"``
+    replays only the lost span after the NACK delay (IRN).  The p999 gap
+    between the two recovery modes under the same loss realization is
+    the fault layer's headline plot."""
+    topo = incast_fabric(n_senders)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0", tag="incast")
+             for i in range(n_senders)]
+    msg = MessageConfig(verb=verb, msg_bytes=msg_kb * 1024.0,
+                        window=window, recovery=recovery)
+    return Scenario(
+        name=f"lossy_incast{n_senders}_{recovery}"
+             f"_l{loss_rate:g}_{algo}_{int(msg_kb)}k",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, msg=msg,
+                            cc=cc if cc is not None else CcConfig(algo=algo),
+                            faults=FaultConfig(loss_rate=loss_rate,
+                                               seed=seed),
+                            receiver_cfg=_recv_factory(mode, False)))
+
+
+def lossy_incast_grid(loss_rate: Sequence[float] = (0.002, 0.01, 0.05),
+                      recovery: Sequence[str] = ("go_back_n", "selective"),
+                      **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Loss rate x recovery mode grid over :func:`lossy_incast` for
+    :func:`repro_torch.fabric.vector.run_fabric_sweep` — fault parameters are
+    per-point sweep values, not structure, so the whole grid shares one
+    packing.  Per point the results carry ``dropped_pkts``,
+    ``retransmit_bytes`` and the message latency percentiles the
+    go-back-N vs selective comparison reads (``msg_p999_us``)."""
+    return fabric_grid(
+        lambda loss_rate, recovery: lossy_incast(
+            loss_rate=loss_rate, recovery=recovery, **kw),
+        loss_rate=list(loss_rate), recovery=list(recovery))

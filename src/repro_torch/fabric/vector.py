@@ -1,9 +1,12 @@
 """Vectorized fabric engine in PyTorch: whole-grid multi-host simulation.
 
-The port of ``repro.fabric.vector``'s dense engine: DCQCN senders,
-strict-priority or WRR switches, whole-link or per-class receiver PFC,
-static ECMP or per-tick dynamic routing (weighted ECMP, adaptive, spray)
-under link failure and flap schedules, at a fixed dt.  The entire tick
+The port of ``repro.fabric.vector``'s dense engine: DCQCN, Timely or
+HPCC senders, strict-priority or WRR switches, whole-link or per-class
+receiver PFC, static ECMP or per-tick dynamic routing (weighted ECMP,
+adaptive, spray) under link failure and flap schedules, verbs messages
+with a log-histogram of their latencies, and fault injection (lossy
+links, corruption, receiver crashes, go-back-N or selective recovery, a
+PFC-deadlock watchdog), at a fixed dt.  The entire tick
 body is packed into stacked tensors and advances all grid points at
 once:
 
@@ -20,7 +23,11 @@ once:
   the release rings as ``[G, H, 2, R]``;
 * routing as per-tick state: the spine choice ``[G, F]``, link up/down
   windows as per-point ``[G, P]`` integer tick bounds, and spray's
-  reorder settling as one more slot-major ring ``[G, Hs, 2, F]``.
+  reorder settling as one more slot-major ring ``[G, Hs, 2, F]``;
+* the message layer as per-flow started/completed counts ``[G, F]``, a
+  message start-time ring ``[G, Lm, F]`` and a ``[G, B, F]`` latency
+  histogram; the fault layer as per-flow recovery ledgers ``[G, F]``
+  and a counter hash of (tick, link) that decides every drop.
 
 Semantics are the reference's batch-fluid tick, op for op: four
 tier-ordered forwarding stages with cut-through inside the tick,
@@ -36,9 +43,8 @@ The grid axis is written out (no vmap) and the tick loop runs eagerly
 from the host with the tick index a Python int: nothing in the loop
 reads a device value back, so the host only waits at the end.
 
-Grids that need the reference's other layers — the CC zoo, the message
-layer, fault injection, 3-level (sparse) fabrics or adaptive dt — raise
-``NotImplementedError`` naming the feature.
+Grids that need the reference's 3-level (sparse) fabrics or adaptive dt
+raise ``NotImplementedError`` naming the feature.
 """
 from __future__ import annotations
 
@@ -52,6 +58,10 @@ from .._device import resolve_device, resolve_dtype
 from ..core.datapath import N_QOS, hold_us_baseline, hold_us_jet
 from ..core.dcqcn import DcqcnConfig
 from . import fused
+from .cc import CcConfig
+from .faults import link_salt, loss_threshold
+from .messages import (HIST_BUCKETS, HIST_MIN_US, MSG_COUNT_EPS, hist_ratio,
+                       percentile_from_counts)
 from .topology import NEVER_TICK
 
 _STAGES = 4          # NIC egress, leaf uplink, spine, leaf downlink
@@ -59,7 +69,26 @@ _STAGES = 4          # NIC egress, leaf uplink, spine, leaf downlink
 # pvals entries that stay integer (tick indices, codes, ring offsets)
 _INT_KEYS = frozenset(["d_base", "d_strag", "cnp_dly", "fail_at",
                        "fail_until", "rmode", "flet", "settle", "sched",
-                       "flap_start", "flap_period", "flap_down"])
+                       "cc_algo", "f_salt", "f_thr", "f_cthr",
+                       "flap_start", "flap_period", "flap_down",
+                       "crash_at", "crash_until", "rto_ticks",
+                       "nack_ticks", "rto_cap"])
+
+# CcConfig knobs stacked per flow when any point runs a non-DCQCN
+# controller (masked `where` lanes select the algorithm per flow)
+_CC_SCALARS = [
+    ("cc_minr", lambda c: c.min_rate_gbps),
+    ("base_rtt", lambda c: c.base_rtt_us),
+    ("cc_upd", lambda c: c.update_us),
+    ("t_low", lambda c: c.t_low_us),
+    ("t_high", lambda c: c.t_high_us),
+    ("tl_beta", lambda c: c.timely_beta),
+    ("tl_add", lambda c: c.timely_add_gbps),
+    ("tl_a", lambda c: c.timely_ewma),
+    ("hp_eta", lambda c: c.hpcc_eta),
+    ("hp_ai", lambda c: c.hpcc_ai_gbps),
+]
+_CC_DEFAULT = CcConfig()
 
 _RECV_SCALARS = [
     ("jet", lambda c: 1.0 if c.mode == "jet" else 0.0),
@@ -107,11 +136,10 @@ _SWITCH_TC = [
     ("sw_xon", lambda s, tc: s.xon_frac(tc)),
 ]
 
-# Fields of the reference's packing that belong to layers this engine
-# does not run, with the value a grid without them packs; a packing that
-# sets any other value is refused by ``from_arrays``.
+# Fields of the reference's packing that belong to its sparse engine,
+# which this one does not run, with the value a dense grid packs; a
+# packing that sets any other value is refused by ``from_arrays``.
 _UNPORTED_DEFAULTS = {
-    "any_cc": False, "any_msg": False, "msg_ring": 1, "any_flt": False,
     "sparse": False, "port_of": None, "prv_port": None, "nxt_slot": None,
     "pack_fail": False, "pause_extra": None, "pausable_extra": None,
 }
@@ -123,30 +151,9 @@ def unsupported_features(scens: Sequence) -> List[str]:
     """Names of the reference-engine layers a grid needs that this port
     does not run (empty = the grid runs here).  Reads scenarios by duck
     type, so the reference's scenario objects can be checked too."""
-    def attr(o, name, default=None):
-        return getattr(o, name, default)
-
-    feats = []
-
-    def need(name, hit):
-        if hit and name not in feats:
-            feats.append(name)
-
-    for s in scens:
-        topo, fab = s.topology, s.fabric
-        need("3-level super-spine fabrics (sparse incidence)",
-             bool(attr(topo, "super_spines")))
-        need("fault injection (FaultConfig)",
-             attr(fab, "faults") is not None)
-        msgs = [f.msg if attr(f, "msg") is not None else attr(fab, "msg")
-                for f in s.flows]
-        need("the message layer (MessageConfig)",
-             any(m is not None for m in msgs))
-        ccs = [f.cc if attr(f, "cc") is not None else attr(fab, "cc")
-               for f in s.flows]
-        need("the CC zoo (non-DCQCN congestion control)",
-             any(c is not None and c.algo != "dcqcn" for c in ccs))
-    return feats
+    if any(getattr(s.topology, "super_spines", None) for s in scens):
+        return ["3-level super-spine fabrics (sparse incidence)"]
+    return []
 
 
 def _dcqcn_of(s, f, line: float) -> DcqcnConfig:
@@ -204,6 +211,10 @@ class FabricSweepParams:
     host_tc: bool = False                # any point runs per-TC host PFC
     settle_ring: int = 1                 # Hs (spray reorder settling)
     n_spines: int = 0
+    any_cc: bool = False                 # any point runs a non-DCQCN CC
+    any_msg: bool = False                # any point runs the message layer
+    msg_ring: int = 1                    # Lm (message start-time ring)
+    any_flt: bool = False                # any point attaches a FaultConfig
     any_flap: bool = False               # any point schedules link flaps
 
     @classmethod
@@ -211,8 +222,9 @@ class FabricSweepParams:
         """Pack a grid of scenarios (anything with ``.topology``,
         ``.flows``, ``.fabric``) whose points share the topology
         structure and the flow set; numeric knobs, the routing mode and
-        link failure/flap schedules may vary per point.  A grid with no
-        dynamic point keeps the frozen static-ECMP routes, which must
+        link failure/flap schedules, the message layer, the congestion
+        controller and fault injection may vary per point.  A grid with
+        no dynamic point keeps the frozen static-ECMP routes, which must
         then agree."""
         if not scens:
             raise ValueError("empty fabric sweep grid")
@@ -236,6 +248,30 @@ class FabricSweepParams:
         host_tc = any(s.fabric.switch.per_tc
                       and s.fabric.receiver_cfg(h).host_pfc_per_tc
                       for s in scens for h in recv_hosts)
+        any_flt = any(s.fabric.faults is not None for s in scens)
+
+        # message layer / CC zoo: per-flow Flow overrides falling back to
+        # the FabricConfig defaults
+        def msg_of(s):
+            return [f.msg if f.msg is not None else s.fabric.msg
+                    for f in s.flows]
+
+        def cc_of(s):
+            return [f.cc if f.cc is not None else s.fabric.cc
+                    for f in s.flows]
+
+        any_msg = any(m is not None for s in scens for m in msg_of(s))
+        any_cc = any(c is not None and c.algo != "dcqcn"
+                     for s in scens for c in cc_of(s))
+        if any_msg:
+            for s in scens:
+                for m in msg_of(s):
+                    if m is not None and m.window is None:
+                        raise ValueError(
+                            "MessageConfig.window=None (unbounded) needs "
+                            "a scalar driver; the vector engine carries "
+                            "message starts in a fixed ring — set a "
+                            "finite window")
         for s in scens:
             s.topology.validate()
             if s.fabric.dt_us != dt or \
@@ -402,10 +438,15 @@ class FabricSweepParams:
                                 "d_base", "d_strag", "cnp_dly", "clsF",
                                 "on_us", "off_us", "fail_at", "fail_until",
                                 "rmode", "flet", "hystb", "settle",
-                                "sched", "quanta", "hpfc", "flap_start",
-                                "flap_period", "flap_down"]}
+                                "sched", "quanta", "hpfc",
+                                "m_bytes", "m_win", "m_extra", "cc_algo",
+                                "f_salt", "f_thr", "f_cthr", "f_mtu",
+                                "flap_start", "flap_period", "flap_down",
+                                "crash_at", "crash_until", "rec_en",
+                                "rec_sel", "rto_ticks", "nack_ticks",
+                                "rto_cap", "rto_mult"]}
         for name, _ in _RECV_SCALARS + _DCQCN_SCALARS + _SWITCH_SCALARS \
-                + _SWITCH_TC:
+                + _SWITCH_TC + _CC_SCALARS:
             pv[name] = []
         # switch traffic class of each flow as a [Q, F] one-hot; legacy
         # per-link points collapse every flow onto TC 0
@@ -474,8 +515,28 @@ class FabricSweepParams:
                     else 0.0 for h in recv_hosts])
             line = [topo.access_gbps(f.src) for f in s.flows]
             pv["line"].append(line)
-            pv["cap"].append([np.inf if f.offered_gbps is None
-                              else f.offered_gbps for f in s.flows])
+            msgs, ccs = msg_of(s), cc_of(s)
+            # the per-op issue gap is one more rate ceiling (the Mops
+            # plateau), folded into the offered cap
+            pv["cap"].append([
+                min(np.inf if f.offered_gbps is None else f.offered_gbps,
+                    np.inf if m is None else m.op_rate_gbps)
+                for f, m in zip(s.flows, msgs)])
+            if any_msg:
+                # m_bytes=inf disables the layer per flow: no message ever
+                # starts or completes and the window room is infinite
+                pv["m_bytes"].append([np.inf if m is None
+                                      else float(m.msg_bytes)
+                                      for m in msgs])
+                pv["m_win"].append([1.0 if m is None else float(m.window)
+                                    for m in msgs])
+                pv["m_extra"].append([0.0 if m is None else m.extra_us
+                                      for m in msgs])
+            if any_cc:
+                cl = [c if c is not None else _CC_DEFAULT for c in ccs]
+                pv["cc_algo"].append([c.code() for c in cl])
+                for name, fn in _CC_SCALARS:
+                    pv[name].append([fn(c) for c in cl])
             pv["burst"].append([np.inf if f.burst_bytes is None
                                 else f.burst_bytes for f in s.flows])
             pv["start"].append([f.start_us for f in s.flows])
@@ -488,6 +549,9 @@ class FabricSweepParams:
             dcq = [_dcqcn_of(s, f, lr) for f, lr in zip(s.flows, line)]
             for name, fn in _DCQCN_SCALARS:
                 pv[name].append([fn(d) for d in dcq])
+            if any_flt:
+                _pack_faults(pv, s.fabric.faults, port_keys, ridx, msgs,
+                             dt, P, R)
             if any_flap:
                 fl = topo.flap_ticks(dt)
                 nf = (NEVER_TICK, 2, 1)
@@ -503,6 +567,9 @@ class FabricSweepParams:
         H = int(max(pvals["d_base"].max(), pvals["d_strag"].max())) + 2
         Hc = int(pvals["cnp_dly"].max()) + 1
         Hs = int(pvals["settle"].max()) + 1 if dyn else 1
+        # message start-time ring: the window bound keeps outstanding
+        # <= W+1; +4 leaves slack for float32 count jitter at boundaries
+        Lm = int(pvals["m_win"].max()) + 4 if any_msg else 1
         return cls(port_keys=port_keys, recv_hosts=recv_hosts,
                    flow_tags=[f.tag for f in flows0],
                    stage_mask=stage_mask, occ=occ, dest=dest,
@@ -514,7 +581,8 @@ class FabricSweepParams:
                    crossF=crossF, T1=T1, init_spine=init_spine,
                    dyn_route=dyn, any_wrr=any_wrr, host_tc=host_tc,
                    settle_ring=Hs, n_spines=Sn if dyn else 0,
-                   any_flap=any_flap)
+                   any_cc=any_cc, any_msg=any_msg, msg_ring=Lm,
+                   any_flt=any_flt, any_flap=any_flap)
 
     @classmethod
     def from_arrays(cls, d: Dict) -> "FabricSweepParams":
@@ -538,6 +606,55 @@ class FabricSweepParams:
                     f"packing sets {k}={v!r}: a layer the PyTorch fabric "
                     "engine does not run")
         return cls(**{n: d[n] for n in names})
+
+
+def _pack_faults(pv, ff, port_keys, ridx, msgs, dt: float, P: int,
+                 R: int) -> None:
+    """Append one point's fault-layer parameters: per-port hash salts and
+    thresholds, crash windows per receiver, per-flow recovery knobs.  A
+    ``faults=None`` point packs never-firing values and ``mtu=inf``, so
+    its ``dropped_pkts`` stays exactly 0."""
+    if ff is None:
+        pv["f_salt"].append([0] * P)
+        pv["f_thr"].append([0] * P)
+        pv["f_cthr"].append([0] * P)
+        pv["crash_at"].append([NEVER_TICK] * R)
+        pv["crash_until"].append([NEVER_TICK] * R)
+        pv["f_mtu"].append(np.inf)
+    else:
+        pv["f_salt"].append([link_salt(a, b, ff.seed) for a, b in port_keys])
+        pv["f_thr"].append([loss_threshold(ff.rate_for(a, b))
+                            for a, b in port_keys])
+        # corruption (CRC fail) only on receiver access links
+        pv["f_cthr"].append([loss_threshold(ff.corrupt_rate) if b in ridx
+                             else 0 for a, b in port_keys])
+        ca, cu = [NEVER_TICK] * R, [NEVER_TICK] * R
+        for ch, (a_us, r_us) in ff.crashes.items():
+            if ch not in ridx:
+                raise ValueError(f"crash scheduled on {ch!r}, which is not "
+                                 "a receiver in this fabric")
+            at = max(0, int(round(a_us / dt)))
+            ca[ridx[ch]] = at
+            cu[ridx[ch]] = max(at + 1, int(round(r_us / dt)))
+        pv["crash_at"].append(ca)
+        pv["crash_until"].append(cu)
+        pv["f_mtu"].append(ff.mtu_bytes)
+    # recovery ledgers engage per flow iff a FaultConfig is attached and
+    # the flow carries a MessageConfig
+    pv["rec_en"].append([1.0 if (ff is not None and m is not None) else 0.0
+                         for m in msgs])
+    pv["rec_sel"].append([1.0 if (m is not None
+                                  and m.recovery == "selective") else 0.0
+                          for m in msgs])
+    pv["rto_ticks"].append([1 if m is None
+                            else max(1, int(round(m.rto_us / dt)))
+                            for m in msgs])
+    pv["nack_ticks"].append([1 if m is None
+                             else max(1, int(round(m.nack_us / dt)))
+                             for m in msgs])
+    pv["rto_cap"].append([0 if m is None else int(m.rto_cap) for m in msgs])
+    pv["rto_mult"].append([1.0 if m is None else float(m.rto_backoff)
+                           for m in msgs])
 
 
 # --------------------------------------------------------------------------- #
@@ -580,6 +697,9 @@ def _static(fsp: FabricSweepParams) -> Dict[str, object]:
         "sel1": sel[1],
         **({"upP": fsp.upP, "dnP": fsp.dnP, "candS": fsp.candS,
             "T1": fsp.T1} if fsp.dyn_route else {}),
+        # deadlock-watchdog scatter: port -> flattened (u, v) node pair
+        **({"dl_E": fused.pause_pair_onehot(fsp.port_keys)}
+           if fsp.any_flt else {}),
     }
 
 
@@ -661,6 +781,35 @@ def _init_state(fsp: FabricSweepParams, p, dtype, device):
             s["flet_last"] = full(-(1 << 30), F, dt=torch.int32)
     if fsp.settle_ring > 1:
         s["sring"] = z(fsp.settle_ring, 2, F)
+    if fsp.any_cc:
+        # delay/INT controller state (TimelyRate / HpccRate)
+        s["prev_rtt"] = p["base_rtt"] + z(F)
+        s["rtt_diff"] = z(F)
+        s["cc_tus"] = z(F)
+    if fsp.any_msg:
+        # message layer: started/completed counts, start-time ring,
+        # latency sum and the fixed-bucket log histogram
+        s["m_hw"] = full(0, F, dt=torch.int64)
+        s["m_done"] = full(0, F, dt=torch.int64)
+        s["mring"] = z(fsp.msg_ring, F)
+        s["m_lat"] = z(F)
+        s["m_last"] = z(F)
+        s["m_hist"] = z(HIST_BUCKETS, F)
+        s["m_over"] = z(F)
+    if fsp.any_flt:
+        # fault layer: the per-flow recovery ledger (lost bytes, RTO timer
+        # and backoff stage, go-back-N gap flag), retransmit and fault-drop
+        # accumulators, crash-recovery stamps and the switch-side
+        # link-pause mask (crash rebuilds)
+        s["lost"] = z(F)
+        s["rto_t"] = full(0, F, dt=torch.int64)
+        s["rto_k"] = full(0, F, dt=torch.int64)
+        s["gapped"] = flags(F)
+        s["retx"] = z(F)
+        s["flt_drop"] = z()
+        s["crash_rec"] = full(float("inf"), R)
+        s["lpause"] = flags(N_QOS, P)
+        s["deadlock"] = z()
     return s
 
 
@@ -729,6 +878,26 @@ def spray_split(free, tot, ch_oh, zero, tiny):
                        ch_oh)
 
 
+def fault_saltp(f_salt):
+    """The salt term ``(salt + 1) * 9973 % 65536`` of the counter hashes
+    (``faults.fault_hash`` / ``corrupt_hash``), for integer salts."""
+    return (f_salt + 1) * 9973 % 65536
+
+
+def fault_drops(t: int, saltp, thr, cthr):
+    """Drop mask ``[G, P]`` at tick ``t``: the loss hash under ``thr`` or
+    the corruption hash under ``cthr`` (integer tensors).  The tick
+    multipliers are applied as a split modmul: ``(t+1) % 65536`` split
+    into high and low bytes, with 256*40503 % 65536 = 14080 and
+    256*24593 % 65536 = 4352, so no product passes 6.6e8 and the values
+    equal ``fault_hash`` / ``corrupt_hash`` at any tick."""
+    tr = (t + 1) % 65536
+    thi, tlo = tr // 256, tr % 256
+    hl = (saltp + (thi * 14080 + tlo * 40503)) % 65536
+    hc = (saltp + (thi * 4352 + tlo * 24593)) % 65536
+    return (hl < thr) | (hc < cthr)
+
+
 # --------------------------------------------------------------------------- #
 # The per-tick step
 # --------------------------------------------------------------------------- #
@@ -743,10 +912,14 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
     tensor and the two release rings as one ``[G, H, 2, R]`` tensor.
     Per-point constants are hoisted out of the tick.  ``opts`` holds the
     packing's capability flags (see :func:`_opts`); with all of them off
-    the step is the static engine's.
+    the step is the static engine's.  Integer quantities (tick windows,
+    fault hashes, message counts, retransmit timers) stay integer
+    tensors with floor ``%`` and ``//``.
     """
     dyn, wrr, host_tc = opts["dyn"], opts["wrr"], opts["host_tc"]
     Hs, Sn, flap = opts["Hs"], opts["Sn"], opts["flap"]
+    any_cc, any_msg, Lm, flt = opts["cc"], opts["msg"], opts["Lm"], \
+        opts["flt"]
     def c(x):                            # 0-d constant of the engine dtype
         return torch.tensor(x, dtype=dtype, device=device)
 
@@ -800,6 +973,38 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
                                device=device)[:, None]   # [S, 1]
         rmode = p["rmode"][:, None]                      # [G, 1]
         is_spray = (rmode == 3)[..., None]               # [G, 1, 1]
+    if any_cc:
+        # algorithm lanes (CcConfig.code: 0 dcqcn, 1 timely, 2 hpcc)
+        is_dcqcn = p["cc_algo"] == 0
+        timely_m = p["cc_algo"] == 1
+        hpcc_m = p["cc_algo"] == 2
+        inv_brtt = one / p["base_rtt"]                   # [G, F]
+        u_floor, two = c(0.01), c(2.0)
+    if any_msg:
+        arangeL = torch.arange(Lm, device=device)[:, None]            # [L, 1]
+        arangeB = torch.arange(HIST_BUCKETS, device=device)[:, None, None]
+        hist_lo = c(HIST_MIN_US)
+        inv_lr = c(1.0 / np.log(hist_ratio()))
+        eps_m = c(MSG_COUNT_EPS)
+        wbytes = p["m_win"] * p["m_bytes"]               # window, in bytes
+    if flt:
+        # fault layer (repro_torch.fabric.faults): per-flow recovery masks
+        # and the per-port counter-hash salts (see fault_drops)
+        rec_en = p["rec_en"]                             # exact 1.0 / 0.0
+        rec_keep = one - rec_en
+        sel_b = p["rec_sel"] > half
+        gbn_b = (rec_en > half) & ~sel_b
+        saltp = fault_saltp(p["f_salt"])                 # [G, P]
+        rto_f = p["rto_ticks"].to(dtype)
+        n_dl = int(round(float(np.sqrt(st["dl_E"].shape[-1]))))
+
+        def ledger(s, lost_f):
+            """Route per-flow lost bytes [G, F]: the fluid core's instant
+            re-credit, or the recovery ledger where engaged; go-back-N
+            losses gap the receiver window."""
+            s["inj_lo"] = s["inj_lo"] - lost_f * rec_keep
+            s["lost"] = s["lost"] + lost_f * rec_en
+            s["gapped"] = s["gapped"] | (gbn_b & (lost_f > zero))
 
     def qsum(x):
         """Sum over the class axis of [G, Q, N] in class order."""
@@ -883,7 +1088,11 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         take = A * to_flows(scale_q)[:, None]
         lost = (A - take)[:, 0]
         # fluid go-back-N: tail-dropped bytes re-open the sender's tap
-        s["inj_lo"] = s["inj_lo"] - lost.sum(-2)
+        # (or wait in the recovery ledger where it is engaged)
+        if flt:
+            ledger(s, lost.sum(-2))
+        else:
+            s["inj_lo"] = s["inj_lo"] - lost.sum(-2)
         s["sw_dropped"] = s["sw_dropped"] + lost.sum((-1, -2))
         mark_q = ecn_on[:, None, :] & (qtc > kmin_th)
         mark_pf = to_flows(torch.where(mark_q, one, zero))   # [G, P, F]
@@ -904,8 +1113,8 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         fold(s, "injected", "inj_lo")
         fold(s, "delivered", "deliv_lo")
 
-        # ---- 0. link failure / flap events -------------------------------- #
-        upf = None
+        # ---- 0. link failure / flap / crash events ------------------------ #
+        upf = route_oh = None
         if dyn:
             downP, edgeP = link_state(t, p, flap)           # [G, P]
             upf = torch.where(downP, zero, one)
@@ -913,24 +1122,70 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             # in-flight bytes die with the link; fluid go-back-N
             # re-credits them for retransmission
             lostF = (s["qm"][:, 0] * failf[:, :, None]).sum(-2)
-            s["inj_lo"] = s["inj_lo"] - lostF
+            if flt:
+                ledger(s, lostF)
+                s["flt_drop"] = s["flt_drop"] + lostF.sum(-1)
+            else:
+                s["inj_lo"] = s["inj_lo"] - lostF
             s["sw_dropped"] = s["sw_dropped"] + lostF.sum(-1)
             s["qm"] = s["qm"] * (one - failf)[:, None, :, None]
+        if flt:
+            # NIC/host crash: everything queued on the crashed receiver's
+            # access link dies and its admission state zeroes; cumulative
+            # accounting counters and the CNP pacing clock survive
+            crash_now = p["crash_at"] == t                       # [G, R]
+            crashP = crash_now[:, st["owner_clamp"]] & st["owner_valid"]
+            deadQ = torch.where(crashP[:, None, :, None], s["qm"], zero)
+            lostC = deadQ[:, 0].sum(-2)
+            ledger(s, lostC)
+            s["flt_drop"] = s["flt_drop"] + lostC.sum(-1)
+            s["sw_dropped"] = s["sw_dropped"] + lostC.sum(-1)
+            s["qm"] = s["qm"] - deadQ
+            cz = torch.where(crash_now, zero, one)
+            for ck in ("resident", "strag_res", "esc_debt", "repl_debt",
+                       "repl_mem", "ecn_tus"):
+                s[ck] = s[ck] * cz
+            s["qos_q"] = s["qos_q"] * cz[:, None, :]
+            s["ring"] = s["ring"] * cz[:, None, None, :]   # [G, H, 2, R]
+            s["pfc"] = s["pfc"] & ~(crash_now[:, None, :] if host_tc
+                                    else crash_now)
+            s["heavy"] = torch.where(crash_now, -1, s["heavy"])
+            # the cleared RNIC gate unpauses the access link this very
+            # tick; switch-asserted pauses persist via the carried
+            # link-pause mask
+            s["paused"] = torch.where(crashP[:, None, :], s["lpause"],
+                                      s["paused"])
+            # stochastic loss/corruption: when a link's hash fires this
+            # tick, everything it drains is lost on the wire (ECN marks
+            # die with the bytes)
+            dropP = fault_drops(t, saltp, p["f_thr"], p["f_cthr"])
+
+            def kill(s, out):
+                """This tick's stochastic drops of one drained stage
+                [G, 2, P, F], before tx accounting and forwarding."""
+                dead = torch.where(dropP[:, None, :, None], out, zero)
+                lost_k = dead[:, 0].sum(-2)
+                ledger(s, lost_k)
+                s["flt_drop"] = s["flt_drop"] + lost_k.sum(-1)
+                return out - dead
 
         # ---- 1. senders: DCQCN advance + offer ---------------------------- #
         adv = now > p["start"]
-        adv_dt = torch.where(adv, fdt, zero)
+        # the DCQCN timers only move DCQCN-lane flows; the CC block after
+        # forwarding writes the Timely/HPCC rates instead
+        dadv = (adv & is_dcqcn) if any_cc else adv
+        adv_dt = torch.where(dadv, fdt, zero)
         a_tus = s["a_tus"] + adv_dt
-        a_fire = adv & (a_tus >= p["a_tmr"])
+        a_fire = dadv & (a_tus >= p["a_tmr"])
         s["alpha"] = torch.where(a_fire, (1.0 - p["g"]) * s["alpha"],
                                  s["alpha"])
         s["a_tus"] = torch.where(a_fire, zero, a_tus)
         t_us = s["t_us"] + adv_dt
-        byts = torch.where(adv, s["byts"] + s["rc"] * bpt, s["byts"])
-        t_fire = adv & (t_us >= p["r_tmr"])
+        byts = torch.where(dadv, s["byts"] + s["rc"] * bpt, s["byts"])
+        t_fire = dadv & (t_us >= p["r_tmr"])
         s["t_stage"] = s["t_stage"] + t_fire
         s["t_us"] = torch.where(t_fire, zero, t_us)
-        b_fire = adv & (byts >= p["bctr"])
+        b_fire = dadv & (byts >= p["bctr"])
         s["b_stage"] = s["b_stage"] + b_fire
         s["byts"] = torch.where(b_fire, zero, byts)
         fired = t_fire | b_fire
@@ -953,6 +1208,13 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         active = adv & (~onoff | (torch.fmod(now - p["start"], period)
                                   < p["on_us"]))
         offer = torch.where(active, torch.minimum(gbps * bpt, room), zero)
+        if any_msg:
+            # outstanding message window: injection never runs more than
+            # W * msg_bytes ahead of delivery (start-of-tick counters)
+            wroom = torch.maximum(
+                wbytes - (s["injected"] + s["inj_lo"]
+                          - s["delivered"] - s["deliv_lo"]), zero)
+            offer = torch.minimum(offer, wroom)
         # source-side backpressure: the NIC queue never overflows, bytes
         # that don't fit in the flow's class partition stay un-injected
         off_pf = occ[0] * offer[:, None, :]
@@ -998,16 +1260,27 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
                 torch.where(choice != cur, one, zero)
             s["route"] = choice
             ch_oh = torch.where(arangeS == choice[:, None, :], one, zero)
+            route_oh = ch_oh
             W = torch.where(is_spray, spray_split(free, tot, ch_oh, zero,
                                                   tiny), ch_oh)
             D0 = dest[0] + torch.einsum("gsf,sfp->gpf", W, st["upP"])
 
         # ---- 2. tier-ordered forwarding (cut-through within the tick) ---- #
         out = drain(s, 0, upf)
+        if flt:
+            out = kill(s, out)
+        if any_cc:
+            # per-tick drained bytes per port: the txRate leg of the
+            # HPCC-style INT signal
+            txP = out[:, 0].sum(-1)
         fbm = (occ[0] * out).sum(-2)                         # [G, 2, F]
         # cross-leaf stage-0 output follows this tick's routing weights
         enqueue(s, D0[..., None, :, :] * fbm[..., None, :])
         out = drain(s, 1, upf)
+        if flt:
+            out = kill(s, out)
+        if any_cc:
+            txP = txP + out[:, 0].sum(-1)
         if dyn:
             # uplink output keeps its port-level provenance: the [P, F, P]
             # map sends bytes drained at (leaf, spine) to that spine's
@@ -1018,9 +1291,17 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             fbm = (occ[1] * out).sum(-2)
             enqueue(s, dest[1] * fbm[..., None, :])
         out = drain(s, 2, upf)
+        if flt:
+            out = kill(s, out)
+        if any_cc:
+            txP = txP + out[:, 0].sum(-1)
         fbm = (occ[2] * out).sum(-2)
         enqueue(s, dest[2] * fbm[..., None, :])
         out = drain(s, 3, upf)
+        if flt:
+            out = kill(s, out)
+        if any_cc:
+            txP = txP + out[:, 0].sum(-1)
         fbm = (occ[3] * out).sum(-2)
         if Hs > 1:
             # spray reorder settling: arrivals wait `settle` ticks in a
@@ -1032,6 +1313,82 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
                                        1)[:, 0]
         arr_b = fbm[:, 0]
         arr_m = fbm[:, 1]
+        if flt:
+            # crashed receivers discard arrivals until restart, then a
+            # gapped go-back-N window discards the rest as duplicates
+            # (crash first, then duplicate suppression; duplicates go
+            # straight back to the ledger)
+            crashF = ((t >= p["crash_at"])
+                      & (t < p["crash_until"]))[:, recv_of]    # [G, F]
+            dead_b = torch.where(crashF, arr_b, zero)
+            ledger(s, dead_b)
+            s["flt_drop"] = s["flt_drop"] + dead_b.sum(-1)
+            arr_b = arr_b - dead_b
+            arr_m = torch.where(crashF, zero, arr_m)
+            dup_b = torch.where(s["gapped"], arr_b, zero)
+            s["lost"] = s["lost"] + dup_b
+            s["flt_drop"] = s["flt_drop"] + dup_b.sum(-1)
+            arr_b = arr_b - dup_b
+            arr_m = torch.where(s["gapped"], zero, arr_m)
+
+        # ---- 2.2 delay/INT telemetry -> CC zoo updates -------------------- #
+        # end-of-forwarding queue state along each flow's current path,
+        # folded into rtt = base + sum(q/budget) and util = max per-hop
+        # (txRate/B + qlen/(B*T)), as masked lanes
+        if any_cc:
+            qP = s["qm"][:, 0].sum(-1)                       # [G, P]
+            if dyn and Sn:
+                legs = (occ[0],
+                        torch.einsum("gsf,sfp->gpf", route_oh, st["upP"]),
+                        torch.einsum("gsf,sfp->gpf", route_oh, st["dnP"]),
+                        occ[3])
+            elif dyn:
+                legs = (occ[0], occ[3])
+            else:
+                legs = (occ[0], occ[1], occ[2], occ[3])
+            qd = util = zero
+            for leg in legs:
+                # [P, F] (static) or [G, P, F] (routed) one-hot gathers
+                q_l = (leg * qP[:, :, None]).sum(-2)          # [G, F]
+                tx_l = (leg * txP[:, :, None]).sum(-2)
+                b_l = (leg * budget[:, :, None]).sum(-2)
+                ok = b_l > zero
+                qd = qd + torch.where(ok, q_l / torch.maximum(b_l, tiny),
+                                      zero)
+                u_l = torch.where(ok, (tx_l + q_l * (fdt * inv_brtt))
+                                  / torch.maximum(b_l, tiny), zero)
+                util = torch.maximum(util, u_l)
+            rtt = p["base_rtt"] + qd * fdt
+            ctus = s["cc_tus"] + fdt
+            fire = ctus >= p["cc_upd"]
+            s["cc_tus"] = torch.where(fire, zero, ctus)
+            # Timely: the smoothed RTT gradient picks the branch
+            ft = fire & timely_m
+            diff = rtt - s["prev_rtt"]
+            rd_new = (1.0 - p["tl_a"]) * s["rtt_diff"] + p["tl_a"] * diff
+            s["prev_rtt"] = torch.where(ft, rtt, s["prev_rtt"])
+            s["rtt_diff"] = torch.where(ft, rd_new, s["rtt_diff"])
+            grad = rd_new * inv_brtt
+            rc = s["rc"]
+            r_tim = torch.where(
+                rtt < p["t_low"], rc + p["tl_add"],
+                torch.where(rtt > p["t_high"],
+                            rc * (one - p["tl_beta"]
+                                  * (one - p["t_high"] / rtt)),
+                            torch.where(grad <= zero, rc + p["tl_add"],
+                                        rc * torch.maximum(
+                                            zero,
+                                            one - p["tl_beta"] * grad))))
+            rc_tim = torch.minimum(p["line"],
+                                   torch.maximum(p["cc_minr"], r_tim))
+            # HPCC: drive the max per-hop utilization toward eta
+            fh = fire & hpcc_m
+            mult = torch.clamp(p["hp_eta"] / torch.maximum(util, u_floor),
+                               half, two)
+            rc_hp = torch.minimum(p["line"],
+                                  torch.maximum(p["cc_minr"],
+                                                rc * mult + p["hp_ai"]))
+            s["rc"] = torch.where(ft, rc_tim, torch.where(fh, rc_hp, rc))
 
         # ---- 3. receivers advance one tick (HostDatapath, stacked) -------- #
         arr_rb = st["recv_onehot"] * arr_b[:, None, :]       # [G, R, F]
@@ -1045,6 +1402,14 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         accepted = acc_cr[:, 0]
         for q_i in range(1, N_QOS):
             accepted = accepted + acc_cr[:, q_i]
+        if flt:
+            # the first byte accepted after a crash restart stamps the
+            # crash-recovery latency
+            rec_hit = (t >= p["crash_until"]) & (accepted > zero) \
+                & torch.isinf(s["crash_rec"])
+            s["crash_rec"] = torch.where(
+                rec_hit, now - p["crash_at"].to(dtype) * fdt,
+                s["crash_rec"])
         s["rnic_drop"] = s["rnic_drop"] + (arr_tot - accepted)
         s["qos_q"] = s["qos_q"] + acc_cr
 
@@ -1167,8 +1532,11 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
                                acc_cr / torch.maximum(arr_cr, tiny), zero)
         deliv = arr_b * share_cr[:, cls_of, recv_of]
         s["deliv_lo"] = s["deliv_lo"] + deliv
-        # RNIC tail drops are retransmitted too (fluid RC)
-        s["inj_lo"] = s["inj_lo"] - (arr_b - deliv)
+        # RNIC tail drops are retransmitted too (fluid RC / the ledger)
+        if flt:
+            ledger(s, arr_b - deliv)
+        else:
+            s["inj_lo"] = s["inj_lo"] - (arr_b - deliv)
         s["completion"] = torch.where(
             torch.isinf(s["completion"])
             & (s["delivered"] + s["deliv_lo"] >= p["burst_done"]),
@@ -1200,7 +1568,11 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         due = torch.take_along_dim(s["cring"], cidx[:, None, None, :],
                                    1)[:, 0]
         for j in range(3):
-            cut(s, due[:, j] > half)
+            fire_c = due[:, j] > half
+            if any_cc:
+                # Timely/HPCC ignore CNPs (CongestionControl.on_cnp)
+                fire_c = fire_c & is_dcqcn
+            cut(s, fire_c)
 
         # ---- 5. per-priority PFC pause propagation ------------------------ #
         q0 = s["qm"][:, 0]
@@ -1221,11 +1593,85 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s["pause_tc_us"] = s["pause_tc_us"] + \
             torch.where(link_paused, fdt, zero)
         s["ever_paused"] = s["ever_paused"] | link_any
+        if flt:
+            # switch-asserted pause mask, carried so a crash can rebuild
+            # the pause state of its access ports without the RNIC gate
+            s["lpause"] = link_paused
+            # PFC-deadlock watchdog: count a tick whenever the pause graph
+            # of any single class holds a directed cycle
+            cyc = fused.cycle_flags(torch.where(link_paused, one, zero),
+                                    st["dl_E"], n_dl)
+            s["deadlock"] = s["deadlock"] + torch.where(cyc, one, zero)
         # the receiver RNIC gate: the whole access link (broadcast over
         # the class axis) or, per-TC, each admission class's own priority
         rx_gate = s["pfc"][..., st["owner_clamp"]] & st["owner_valid"]
         s["paused"] = link_paused | (rx_gate if host_tc
                                      else rx_gate[:, None, :])
+
+        # ---- 6. message-layer crossings (MessageTracker, stacked) --------- #
+        # end-of-tick byte counters (after re-credit, so go-back-N losses
+        # keep the affected messages open): ceil counts starts, floor
+        # counts completions, both with the MSG_COUNT_EPS slack; the
+        # start-time ring plays the tracker's per-message start list
+        if any_msg:
+            inj_tot = s["injected"] + s["inj_lo"]
+            del_tot = s["delivered"] + s["deliv_lo"]
+            mb = p["m_bytes"]
+            ns = torch.ceil(inj_tot / mb - eps_m).to(torch.int64)
+            hw = s["m_hw"]
+            new_s = torch.clamp(ns - hw, min=0)     # go-back-N: hw grows
+            woff = (arangeL - (hw % Lm)[:, None, :]) % Lm      # [G, L, F]
+            wmask = woff < new_s[:, None, :]
+            s["mring"] = torch.where(wmask, now - fdt, s["mring"])
+            hw = hw + new_s
+            s["m_hw"] = hw
+            nd = torch.minimum(torch.floor(del_tot / mb + eps_m)
+                               .to(torch.int64), hw)
+            done = s["m_done"]
+            new_d = torch.clamp(nd - done, min=0)
+            roff = (arangeL - (done % Lm)[:, None, :]) % Lm
+            rmask = roff < new_d[:, None, :]
+            lat = now - s["mring"] + p["m_extra"][:, None, :]
+            s["m_lat"] = s["m_lat"] + torch.where(rmask, lat, zero).sum(-2)
+            # fixed-bucket log histogram (messages.hist_bucket arithmetic);
+            # latencies above its ceiling land in the overflow counter
+            bi = torch.floor(torch.log(torch.maximum(lat, hist_lo) / hist_lo)
+                             * inv_lr).to(torch.int64)
+            over = bi > HIST_BUCKETS - 1
+            bi = torch.clamp(bi, 0, HIST_BUCKETS - 1)
+            inc = (arangeB == bi[:, None]) & rmask[:, None] \
+                & ~over[:, None]                              # [G, B, L, F]
+            s["m_hist"] = s["m_hist"] + torch.where(inc, one, zero).sum(-2)
+            s["m_over"] = s["m_over"] + torch.where(rmask & over, one,
+                                                    zero).sum(-2)
+            s["m_done"] = done + new_d
+            s["m_last"] = torch.where(new_d > 0, now, s["m_last"])
+
+        # ---- 6.5 retransmit timers ---------------------------------------- #
+        # after the message crossings, so this tick's latencies see the
+        # pre-fire injected count; the re-credit reopens the sender's tap
+        # from the next offer on.  The timer runs while the ledger is
+        # non-empty; go-back-N backs the RTO off (k reset on delivery
+        # progress), selective fires after the fixed NACK delay
+        if flt:
+            prog = deliv > zero
+            k = torch.where(prog, 0, s["rto_k"])
+            has = s["lost"] > zero
+            timer = torch.where(has, s["rto_t"] + 1, 0)
+            kc = torch.minimum(k, p["rto_cap"])
+            dl_gbn = torch.floor(rto_f * torch.pow(p["rto_mult"],
+                                                   kc.to(dtype))) \
+                .to(torch.int64)
+            dl = torch.where(sel_b, p["nack_ticks"], dl_gbn)
+            fire = has & (timer >= dl)
+            credit = torch.where(fire, s["lost"], zero)
+            s["inj_lo"] = s["inj_lo"] - credit
+            s["retx"] = s["retx"] + credit
+            s["lost"] = torch.where(fire, zero, s["lost"])
+            s["gapped"] = s["gapped"] & ~fire
+            s["rto_t"] = torch.where(fire, 0, timer)
+            s["rto_k"] = torch.where(fire & gbn_b,
+                                     torch.minimum(k + 1, p["rto_cap"]), k)
         return s
 
     return step
@@ -1291,11 +1737,47 @@ def _results(s: Dict[str, np.ndarray],
     out["pause_storm"] = np.where(
         n_pausable > 0,
         out["pause_tc_fanout"].max(-1) / np.maximum(n_pausable, 1), 0.0)
-    # layers this engine does not run report their zero outputs
-    for k in ("retransmit_bytes", "dropped_pkts", "deadlock_ticks",
-              "msg_count_total"):
-        out[k] = np.zeros(G)
-    out["has_messages"] = np.zeros(G, bool)
+    if fsp.any_flt:
+        out["retransmit_bytes"] = np.asarray(s["retx"], np.float64).sum(-1)
+        # faults-None points packed f_mtu=inf, so their count is 0
+        out["dropped_pkts"] = np.asarray(s["flt_drop"], np.float64) \
+            / fsp.pvals["f_mtu"]
+        out["crash_recovery_us"] = np.asarray(s["crash_rec"], np.float64)
+        out["deadlock_ticks"] = np.asarray(s["deadlock"], np.float64)
+    else:
+        for k in ("retransmit_bytes", "dropped_pkts", "deadlock_ticks"):
+            out[k] = np.zeros(G)
+    if fsp.any_msg:
+        # per-flow counts, the point's log histogram (summed over flows)
+        # and its percentile estimates; zeros wherever no message
+        # completed
+        mmask = np.isfinite(fsp.pvals["m_bytes"])            # [G, F]
+        cnt = np.where(mmask, np.asarray(s["m_done"], np.float64), 0.0)
+        tot = cnt.sum(-1)
+        hist = np.asarray(s["m_hist"], np.float64).sum(-1)   # [G, B]
+        lat_sum = np.asarray(s["m_lat"], np.float64).sum(-1)
+        mbytes = np.where(mmask, fsp.pvals["m_bytes"], 0.0)
+        # latencies above the histogram's ceiling sit in the overflow
+        # counter; a rank inside that mass reports the ceiling
+        ovf = np.where(mmask, np.asarray(s["m_over"], np.float64), 0.0)
+        ov_tot = ovf.sum(-1)
+        out["msg_count"] = cnt
+        out["msg_count_total"] = tot
+        out["msg_hist"] = hist
+        out["msg_overflow_count"] = ov_tot
+        for q, key in ((50.0, "msg_p50_us"), (99.0, "msg_p99_us"),
+                       (99.9, "msg_p999_us")):
+            out[key] = percentile_from_counts(hist, q, overflow=ov_tot)
+        out["msg_lat_mean_us"] = np.where(
+            tot > 0.0, lat_sum / np.maximum(tot, 1.0), 0.0)
+        out["msg_rate_mops"] = tot / sim_us
+        out["msg_goodput_gbps"] = (cnt * mbytes).sum(-1) * per_gbps
+        out["msg_last_done_us"] = np.where(
+            mmask, np.asarray(s["m_last"], np.float64), 0.0)
+        out["has_messages"] = mmask.any(-1)
+    else:
+        out["msg_count_total"] = np.zeros(G)
+        out["has_messages"] = np.zeros(G, bool)
     if "reroutes" in s:
         rr = np.asarray(s["reroutes"], np.float64)
         out["flow_reroutes"] = rr
@@ -1325,7 +1807,8 @@ def _opts(fsp: FabricSweepParams) -> dict:
     """The packing's capability flags for :func:`_make_step`."""
     return {"dyn": fsp.dyn_route, "wrr": fsp.any_wrr,
             "host_tc": fsp.host_tc, "Hs": fsp.settle_ring,
-            "Sn": fsp.n_spines, "flap": fsp.any_flap}
+            "Sn": fsp.n_spines, "flap": fsp.any_flap, "cc": fsp.any_cc,
+            "msg": fsp.any_msg, "Lm": fsp.msg_ring, "flt": fsp.any_flt}
 
 
 # --------------------------------------------------------------------------- #

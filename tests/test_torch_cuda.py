@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
 bit for bit, and the fabric engines that run them (the dense tick under
-dynamic routing and a link failure within 5e-4 of CPU float64; the
-receiver sweep bit for bit against the CPU); flash attention, the SSD scan, the paged decode attention and
+dynamic routing and a link failure, under the CC zoo with verbs messages,
+and under loss, recovery and a receiver crash, each against CPU float64;
+the receiver sweep bit for bit against the CPU); flash attention, the SSD scan, the paged decode attention and
 the staged matmul within the tolerances of ``tests/test_kernels.py``, each
 flash case on the kernel variant its type and head dim select, each
 SSD case on the variant its widths select, and the staged matmul's
@@ -145,6 +146,66 @@ def test_routing_grid_on_the_card_matches_cpu_float64(card):
         assert np.allclose(a[m], b[m], rtol=5e-4, atol=0.0), k
     assert np.array_equal(got["reroute_count"], want["reroute_count"])
     assert not np.isfinite(got["incast_completion_us"][4])
+
+
+def _held_to_cpu(got, want, keys, tol=5e-4):
+    for k in keys:
+        a, b = got[k], want[k]
+        assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
+        m = np.isfinite(b)
+        assert np.allclose(a[m], b[m], rtol=tol, atol=0.0), k
+
+
+def test_message_grid_on_the_card_matches_cpu_float64(card):
+    """DCQCN, Timely and HPCC x two windows of 16 KB verbs writes, 4
+    senders, 1 ms: message counts within 8 a point, p50/p99/p999 within
+    one histogram bucket + 2 us, goodput within 5e-4 of CPU float64,
+    through 4 grants and 1 admit launch a tick."""
+    from repro_torch.fabric.messages import hist_ratio
+    scens = TSC.message_sweep_grid(msg_kb=(16.0,), window=(4, 16),
+                                   verb=("write",),
+                                   algo=("dcqcn", "timely", "hpcc"),
+                                   n_senders=4, sim_time_s=0.001)[0]
+    fused.reset_launches()
+    got = run_fabric_sweep(scens)
+    assert fused.LAUNCHES == {"priority_grants": 4000,
+                              "priority_admit": 1000}
+    want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    _held_to_cpu(got, want, ("flow_goodput_gbps",))
+    assert np.abs(got["msg_count_total"] - want["msg_count_total"]).max() \
+        <= 8
+    bucket = hist_ratio() - 1.0
+    for k in ("msg_p50_us", "msg_p99_us", "msg_p999_us"):
+        assert (np.abs(got[k] - want[k]) <= bucket * want[k] + 2.0).all(), k
+
+
+def test_lossy_grid_on_the_card_matches_cpu_float64(card):
+    """go-back-N and selective recovery at 0.5 % and 2 % loss plus a
+    receiver crash, 4 senders, 1 ms: dropped packets and retransmitted
+    bytes within 1e-4, message counts within 8, crash recovery within a
+    tick and deadlock ticks equal to CPU float64."""
+    from repro_torch.fabric.faults import FaultConfig
+    scens = TSC.lossy_incast_grid(loss_rate=(0.005, 0.02),
+                                  recovery=("go_back_n", "selective"),
+                                  n_senders=4, sim_time_s=0.001)[0]
+    crash = TSC.lossy_incast(n_senders=4, loss_rate=0.005,
+                             recovery="selective", sim_time_s=0.001)
+    crash.fabric.faults = FaultConfig(0.005, seed=7).crash("h1_0", 100.0,
+                                                          200.0)
+    scens.append(crash)
+    fused.reset_launches()
+    got = run_fabric_sweep(scens)
+    assert fused.LAUNCHES == {"priority_grants": 4000,
+                              "priority_admit": 1000}
+    want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    _held_to_cpu(got, want, ("dropped_pkts", "retransmit_bytes"), 1e-4)
+    _held_to_cpu(got, want, ("flow_goodput_gbps",))
+    assert np.abs(got["msg_count_total"] - want["msg_count_total"]).max() \
+        <= 8
+    a, b = got["crash_recovery_us"], want["crash_recovery_us"]
+    assert np.array_equal(np.isfinite(a), np.isfinite(b))
+    assert np.abs(a[np.isfinite(b)] - b[np.isfinite(b)]).max() <= 1.0
+    assert np.array_equal(got["deadlock_ticks"], want["deadlock_ticks"])
 
 
 # --------------------------------------------------------------------------- #

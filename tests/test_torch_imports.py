@@ -41,7 +41,7 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_covers_the_package_and_the_smoke_script():
     names = {p.name for p in FILES}
     assert {"vector.py", "fused.py", "ops.py", "ssm.py", "engine.py",
-            "chip_smoke.py"} <= names
+            "cc.py", "messages.py", "faults.py", "chip_smoke.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -53,3 +53,20 @@ def test_detector_flags_banned_imports(tmp_path):
     found = [m.split(".")[0] for m in _imports(probe)]
     assert found.count("jax") == 1 and found.count("repro") == 2
     assert "repro_torch" in found
+
+
+@pytest.mark.parametrize("module", ["fabric.cc", "fabric.messages",
+                                    "fabric.faults", "fabric.vector"])
+def test_fabric_layers_load_without_jax(module):
+    """Importing each fabric layer in a fresh interpreter loads neither
+    ``jax`` nor the reference package."""
+    import os
+    import subprocess
+    import sys
+    code = (f"import sys; import repro_torch.{module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr

@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from repro.fabric import scenarios as SC
-from repro.fabric.messages import MessageConfig
 from repro.fabric.vector import FabricSweepParams as RefParams
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.vector import FabricSweepParams
@@ -103,14 +102,17 @@ def test_from_arrays_round_trips_reference_packing(grid):
 
 
 def _dyn_packing():
-    """A dynamic-routing grid whose flows also run the message layer,
-    which the port does not run (a dynamic grid without it packs:
-    ``tests/test_torch_routing.py``)."""
-    scens = SC.routing_grid(modes=("static_ecmp", "adaptive"),
-                            fail_at_us=(150.0,), sim_time_s=0.0005)[0]
+    """A pod fabric whose link fails mid-run: the sparse engine carries
+    the failure window as per-tick link state (``pack_fail``), which the
+    port does not run (a dense dynamic grid with the message layer packs:
+    ``tests/test_torch_messages.py``)."""
+    scens = SC.pod_incast_grid(mode=("jet",), pfc=(False,),
+                               sim_time_s=0.0005)[0]
     for s in scens:
-        s.fabric.msg = MessageConfig()
-    return RefParams.from_scenarios(scens)
+        s.topology.fail_link("p1s0", "ss0", at_us=100.0)
+    ref = RefParams.from_scenarios(scens, sparse=True)
+    assert ref.pack_fail
+    return ref
 
 
 def _sparse_packing():

@@ -161,16 +161,22 @@ def test_engine_forces_full_fp32_matmuls():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: [SC.incast(4, pfc=True), _cc_zoo(SC.incast(4))],
-    lambda: [SC.message_incast(4)],
-    lambda: [SC.lossy_incast(4)],
-    lambda: [SC.pod_incast()],
-    lambda: [_pod_fail(SC.pod_incast())],
+    lambda: ([SC.incast(4, pfc=True), _cc_zoo(SC.incast(4))],
+             {"adaptive_dt": True}),
+    lambda: ([SC.message_incast(4)], {"adaptive_dt": True}),
+    lambda: ([SC.lossy_incast(4)], {"adaptive_dt": True}),
+    lambda: ([SC.pod_incast()], {}),
+    lambda: ([_pod_fail(SC.pod_incast())], {}),
 ], ids=["cc_zoo", "message_incast", "lossy_incast", "pod_incast",
         "pod_incast_fail_link"])
 def test_unsupported_features_raise(make):
+    """What the port does not run raises: the sparse engine's 3-level
+    fabrics, and adaptive dt, here over the CC zoo, message and fault
+    layers, which the fixed-dt tick runs (tests/test_torch_messages.py,
+    tests/test_torch_faults.py)."""
+    scens, kw = make()
     with pytest.raises(NotImplementedError):
-        run_fabric_sweep(make(), device="cpu")
+        run_fabric_sweep(scens, device="cpu", **kw)
 
 
 def _cc_zoo(s):
