@@ -177,6 +177,7 @@ nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -219,8 +220,11 @@ MARGIN = 1e-3               # plain top-2 logit margin below which greedy
                             # tokens may rightly differ
 PAGED_TOL = 2e-4            # paged decode vs the dense ring decode
                             # (tests/test_serving.py, tests/test_kernels.py)
+TIME_LIMIT_S = 1200         # the script's own limit, builds included
 L2_BYTES = 50e6             # H100 L2: smaller inputs are cycled through
                             # copies so that a timed call reads cold data
+PROFILE_PAD_S = 0.5         # idle seconds on each side of a profiler
+                            # session (see :func:`profiled`)
 
 
 class SmokeFailure(Exception):
@@ -441,32 +445,179 @@ def kernel_phase(name: str, shape, seed: int, iters: int,
     return row
 
 
-def main_path() -> dict:
+@contextlib.contextmanager
+def profiled():
+    """A ``torch.profiler`` session (host and card) with PROFILE_PAD_S of
+    idle time before the caller's work and after its last kernel.  The
+    profiler keeps only the device records that it places inside its
+    session, and it places them on the host's clock loosely: a kernel's
+    end can land 14 ms after the host saw the final synchronize return.
+    A session opened right before the first launch, or closed right after
+    that synchronize, lost the kernels at its edge: up to 104 of 2,000
+    replayed ticks of incast48 (PERF.md §6; ``tools/trace_edges.py``
+    measures it).  The caller times its own work inside the block."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def trace_kernels(fn) -> dict:
+    """One call of ``fn`` traced whole by ``torch.profiler``: the card's
+    kernels it ran (every record on the device), their busy µs, and the
+    water-fill kernels counted by name.  Reads the profiler's raw records
+    (about 1 µs each) rather than its aggregated table, which takes ≈ 100
+    µs a record; a trace of 1.05 M records costs a few seconds."""
+    import torch
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = busy_ns = 0
+    by_name = {"priority_grants": 0, "priority_admit": 0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        kernels += 1
+        busy_ns += e.duration_ns()
+        name = e.name()
+        if "grants_kernel" in name:
+            by_name["priority_grants"] += 1
+        elif "admit_kernel" in name:
+            by_name["priority_admit"] += 1
+    return {"wall_s": wall,
+            "parse_s": time.perf_counter() - t0 - wall - PROFILE_PAD_S,
+            "kernels": kernels, "device_busy_us": busy_ns * 1e-3,
+            "waterfill_launches": by_name}
+
+
+def fabric_run(scens, graph="auto", adaptive=None, profiled=False):
+    """One fabric grid on the card through ``FabricRun``: its packing,
+    outputs and timing (the capture apart from the replays:
+    ``capture_s``, ``run_s``, ms/tick with and without the capture).  The
+    launch counters are zeroed after the set-up (capture and warm-up) and
+    read after the run (a replay's launches added on the card), with the
+    launches captured for an iteration x iterations beside them.  With
+    ``profiled`` the run itself is traced whole (:func:`trace_kernels`):
+    the water-fill kernels it executed, counted by name
+    (``launches_by_name``), its kernels and busy share (its timing then
+    includes the tracing)."""
     from repro_torch.fabric import fused
-    from repro_torch.fabric.vector import (FabricSweepParams,
-                                           run_fabric_sweep)
-    scens = incast_grid(SIM_TIME_S)
+    from repro_torch.fabric.vector import FabricRun, FabricSweepParams
     fsp = FabricSweepParams.from_scenarios(scens)
-    ticks = fsp.ticks
-    # warm-up on the same grid shape (CUDA context, cuBLAS handles)
-    run_fabric_sweep(incast_grid(20e-6))
+    t0 = time.perf_counter()
+    run = FabricRun(fsp, graph=graph, adaptive=adaptive)
     fused.reset_launches()
+    t1 = time.perf_counter()
+    if profiled:
+        out = []
+        prof = trace_kernels(lambda: out.append(run.run()))
+        res = out[0]
+    else:
+        res = run.run()
+    t2 = time.perf_counter()
+    n = run.iterations
+    head = {"points": fsp.n_points, "flows": fsp.n_flows,
+            "ports": fsp.n_ports, "receivers": fsp.n_recv,
+            "ticks": fsp.ticks, "graph": graph == "auto",
+            "capture_s": run.capture_s, "run_s": t2 - t1,
+            "wall_s": t2 - t0, "ms_per_tick": (t2 - t1) / fsp.ticks * 1e3,
+            "ms_per_tick_with_capture": (t2 - t0) / fsp.ticks * 1e3,
+            "launches": fused.LAUNCHES.read(),
+            "launches_captured": run.launches_captured()}
+    if profiled:
+        head.update(profiled=True,
+                    launches_by_name=prof["waterfill_launches"],
+                    kernels_per_iteration=prof["kernels"] / n,
+                    device_busy_us_per_iteration=prof["device_busy_us"] / n,
+                    device_busy_share_profiled=prof["device_busy_us"]
+                    * 1e-6 / prof["wall_s"],
+                    profiled_run_s=prof["wall_s"],
+                    profile_parse_s=prof["parse_s"])
+    if adaptive is not None:
+        head.update(iterations=n, batches=run.batches)
+    return fsp, res, head
+
+
+def same(a, b) -> bool:
+    """Element for element, NaN and inf in the same places."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f")
+
+
+def differing(got: dict, want: dict) -> list:
+    return sorted(set(got) ^ set(want)) + [
+        k for k in want if k in got and not same(got[k], want[k])]
+
+
+def launches_per_tick(head: dict, n: int) -> bool:
+    """4 grants and 1 admit for each of ``n`` ticks (or iterations): in
+    the counts the wrappers keep (a replay's added on the card), in the
+    launches captured for an iteration x iterations (graph runs), and,
+    where the run was profiled, in the kernels the profiler saw by
+    name."""
+    want = {"priority_grants": 4 * n, "priority_admit": n}
+    return head["launches"] == want \
+        and head["launches_captured"] in ({}, want) \
+        and head.get("launches_by_name", want) == want
+
+
+def graph_eager(label: str, scens) -> dict:
+    """The first ``GRAPH_EAGER_TICKS`` ticks of a grid through the
+    captured graph and through the eager loop: every output equal, 4 +
+    1 water-fill launches a tick counted both ways, ms/tick both ways."""
+    fsp, got, g = fabric_run(scens)
+    _, want, e = fabric_run(scens, graph=False)
+    diff = differing(got, want)
+    keys = ("capture_s", "ms_per_tick", "ms_per_tick_with_capture",
+            "launches")
+    out = {"grid": label, "points": fsp.n_points, "ticks": fsp.ticks,
+           "equal": not diff, "differ": diff,
+           "graph": {k: g[k] for k in keys},
+           "eager": {k: e[k] for k in ("ms_per_tick", "launches")}}
+    emit("graph_eager", **out)
+    check(not diff, f"{label}: the graph differs from the eager loop in "
+          f"{diff}")
+    check(launches_per_tick(g, fsp.ticks) and launches_per_tick(e, fsp.ticks),
+          f"{label}: launches graph {g['launches']}, eager {e['launches']}")
+    return out
+
+
+def main_path() -> dict:
+    """incast48 at 2000 ticks through the captured graph, and the
+    same-call pair: the same ticks through the eager loop, timed, every
+    output equal; then the CPU float64 reference.  The main path's
+    launches by kernel name come from :func:`main_path_traced`."""
+    import numpy as np
+    scens = incast_grid(SIM_TIME_S)
+    graph_eager("incast48", incast_grid(GRAPH_EAGER_TICKS * 1e-6))
+    fsp, res, head = fabric_run(scens)
+    ticks = fsp.ticks
+    _, eager, e = fabric_run(scens, graph=False)
     t0 = time.perf_counter()
-    res = run_fabric_sweep(scens, impl="auto")
-    wall = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
-    t0 = time.perf_counter()
-    oracle = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    oracle = run_fabric_sweep_cpu(scens)
     cpu_wall = time.perf_counter() - t0
     G, F = fsp.n_points, fsp.n_flows
     dev = {k: rel(res[k], oracle[k]) for k in
            ("flow_goodput_gbps", "incast_completion_us",
             "victim_goodput_gbps", "flow_delivered_bytes")}
-    out = {"points": G, "flows": F, "ports": fsp.n_ports,
-           "receivers": fsp.n_recv, "ticks": ticks,
-           "sim_time_s": SIM_TIME_S, "wall_s": wall,
-           "ms_per_tick": wall / ticks * 1e3, "launches": launches,
+    diff = differing(res, eager)
+    out = {**head, "sim_time_s": SIM_TIME_S,
+           "eager_ms_per_tick": e["ms_per_tick"],
+           "graph_vs_eager": e["ms_per_tick"] / head["ms_per_tick"],
+           "graph_with_capture_vs_eager":
+               e["ms_per_tick"] / head["ms_per_tick_with_capture"],
+           "graph_equals_eager": not diff,
+           "launches_eager": e["launches"],
            "cpu_float64_wall_s": cpu_wall,
            "dev_goodput": dev["flow_goodput_gbps"],
            "dev_incast_fct": dev["incast_completion_us"],
@@ -475,16 +626,16 @@ def main_path() -> dict:
            "incast_finite": int(sum(
                math.isfinite(x) for x in res["incast_completion_us"])),
            "pause_fanout_max": int(res["pause_fanout"].max()),
-           "cnps_total": float(res["recv_cnp_count"].sum())}
+           "cnps_total": float(res["recv_cnp_count"].sum()),
+           "nvidia_smi": card_line()}
     emit("main_path", **out)
-    check(launches["priority_grants"] == 4 * ticks,
-          f"grants launched {launches['priority_grants']}x, want "
-          f"{4 * ticks}")
-    check(launches["priority_admit"] == ticks,
-          f"admit launched {launches['priority_admit']}x, want {ticks}")
+    check(launches_per_tick(head, ticks) and launches_per_tick(e, ticks),
+          f"launches graph {head['launches']} (captured "
+          f"{head['launches_captured']}), eager {e['launches']}; want "
+          f"{4 * ticks} / {ticks}")
+    check(not diff, f"incast48: the graph differs from eager in {diff}")
     check(res["flow_goodput_gbps"].shape == (G, F), "goodput shape")
     check(res["incast_completion_us"].shape == (G,), "completion shape")
-    import numpy as np
     check(bool(np.isfinite(res["flow_goodput_gbps"]).all()),
           "non-finite goodput")
     check(dev["flow_goodput_gbps"] <= TOL,
@@ -492,42 +643,209 @@ def main_path() -> dict:
     check(dev["incast_completion_us"] <= TOL,
           f"incast completion deviates {dev['incast_completion_us']} > "
           f"{TOL} (inf = finite masks differ)")
+    out["result"] = res
     return out
 
 
-def profile_phase() -> None:
-    """Kernel launches per tick and device busy share over a short run."""
+def main_path_traced(want: dict) -> dict:
+    """The main path once more, traced whole by ``torch.profiler``
+    (:func:`trace_kernels`): its water-fill kernels counted by name, equal
+    to the device-counted launches and to captured × ticks, and every
+    output equal to the untraced run's (``want``)."""
+    fsp, res, head = fabric_run(incast_grid(SIM_TIME_S), profiled=True)
+    diff = differing(res, want)
+    keep = ("ticks", "capture_s", "launches", "launches_captured",
+            "launches_by_name", "kernels_per_iteration",
+            "device_busy_us_per_iteration", "device_busy_share_profiled",
+            "profiled_run_s", "profile_parse_s")
+    out = {**{k: head[k] for k in keep},
+           "profiled_ms_per_tick": head["profiled_run_s"] / fsp.ticks * 1e3,
+           "equals_untraced": not diff}
+    emit("main_path_traced", **out)
+    check(launches_per_tick(head, fsp.ticks),
+          f"main path traced: launches {head['launches']}, by name "
+          f"{head['launches_by_name']}, captured "
+          f"{head['launches_captured']}; want {4 * fsp.ticks} / "
+          f"{fsp.ticks}")
+    check(not diff, f"main path traced: differs from the untraced run in "
+          f"{diff}")
+    return out
+
+
+def run_fabric_sweep_cpu(scens):
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.fabric.vector import run_fabric_sweep
-    scens = incast_grid(50e-6)
-    ticks = 50
-    run_fabric_sweep(scens)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_fabric_sweep(scens)
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0) > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    launches = sum(e.count for e in rows)
-    busy_us = sum(e.device_time_total for e in rows)
-    top = sorted(rows, key=lambda e: -e.device_time_total)[:8]
-    # device time per launch of the port's own kernels on the main path
-    own = {name: [e for e in rows if f"{name}_kernel" in e.key]
-           for name in ("grants", "admit")}
-    emit("profile", ticks=ticks, wall_s=wall,
-         kernels_per_tick=launches / ticks,
-         device_busy_us_per_tick=busy_us / ticks,
-         device_busy_share=busy_us * 1e-6 / wall if wall else None,
-         own_kernels={name: {
-             "count": sum(e.count for e in es),
-             "device_us_per_launch": sum(e.device_time_total for e in es)
-             / max(1, sum(e.count for e in es))}
-             for name, es in own.items()},
-         top=[{"kernel": e.key[:80], "count": e.count,
-               "device_us": e.device_time_total} for e in top])
+    return run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+
+
+def profile_phase() -> None:
+    """Kernel launches per tick and device busy share over a short run,
+    under the graph (replays only) and eager; the water-fills' device
+    time a launch and the top kernels under the graph."""
+    prof = fabric_profile(incast_grid(50e-6), 50, top=8)
+    emit("profile", **prof)
+    check(prof["waterfills_per_tick"] == 5
+          and prof["eager"]["waterfills_per_tick"] == 5,
+          f"profile: {prof['waterfills_per_tick']} / "
+          f"{prof['eager']['waterfills_per_tick']} water-fills a tick")
+
+
+# --------------------------------------------------------------------------- #
+# Adaptive dt: the bench's own grid, fixed dt against adaptive, both captured
+# --------------------------------------------------------------------------- #
+ADAPTIVE_TIME_S = 0.02      # bench_fabric.py's adaptive depth, kept whole
+ADAPTIVE_FLOORS = {"coarsen_ratio": 7.0, "dev_delivered_vs_fixed": 0.01,
+                   "max_completion_shift_us": 20.0}   # bench_floors.json
+SPEEDUP_FLOOR = 5.0         # bench_floors.json speedup_warm_vs_fixed: the
+                            # reference's jax floor, recorded, not gated
+ADAPTIVE_TRACED_S = 0.002   # adaptive8's depth in its whole trace
+
+
+def adaptive_scens(sim_time_s: float):
+    """``benchmarks/bench_fabric.py:run_adaptive_bench``'s grid: the
+    victimless 8-sender incast, receiver mode x PFC x bursts 0.25 / 0.5
+    MB."""
+    from repro_torch.fabric import fabric_grid, incast
+    scens, _ = fabric_grid(
+        lambda mode, pfc, burst_mb: incast(
+            n_senders=8, mode=mode, pfc=pfc, burst_mb=burst_mb,
+            with_victim=False, sim_time_s=sim_time_s),
+        mode=["ddio", "jet"], pfc=[False, True], burst_mb=[0.25, 0.5])
+    return scens
+
+
+def adaptive_phase():
+    """``adaptive8`` at its full 20 ms through the captured fixed-dt tick
+    and the captured adaptive iteration, and the same grid at 2 ms
+    adaptive, traced whole (its water-fills counted by name, its kernels
+    and busy µs an iteration; a trace of the full run would hold ≈ 2.0 M
+    kernel records).  Runs the card now; returns
+    its packing and the function that, given the CPU references, checks
+    coarsening, delivered bytes and completion shift against the
+    fixed-dt run (the bench's gates), 4 + 1 water-fills an iteration,
+    and holds the adaptive run to the CPU float64 adaptive run: delivered
+    bytes and goodput within TOL, completion times within a stride and a
+    tick (finite masks equal), iterations within ``max_stride`` (a stride
+    decision that float32 and float64 take differently moves the count
+    by less than one stride)."""
+    import numpy as np
+    from repro_torch.fabric import fused
+    cfg = fused.AdaptiveConfig()
+    scens = adaptive_scens(ADAPTIVE_TIME_S)
+    fsp, fine, hf = fabric_run(scens)
+    _, ad, ha = fabric_run(scens, adaptive=cfg)
+    _, _, hs = fabric_run(adaptive_scens(ADAPTIVE_TRACED_S), adaptive=cfg,
+                          profiled=True)
+    iters = int(ad["adaptive_iterations"][0])
+    db_a, db_f = ad["flow_delivered_bytes"], fine["flow_delivered_bytes"]
+    ca, cf = ad["flow_completion_us"], fine["flow_completion_us"]
+    both = np.isfinite(ca) & np.isfinite(cf)
+    traced = ("ticks", "iterations", "launches", "launches_captured",
+              "launches_by_name", "kernels_per_iteration",
+              "device_busy_us_per_iteration", "device_busy_share_profiled",
+              "profiled_run_s", "profile_parse_s")
+    out = {"points": fsp.n_points, "ticks": fsp.ticks,
+           "sim_time_s": ADAPTIVE_TIME_S, "max_stride": cfg.max_stride,
+           "adaptive_iterations": iters, "batches": ha["batches"],
+           "coarsen_ratio": fsp.ticks / max(iters, 1),
+           "dev_delivered_vs_fixed": float(np.max(
+               np.abs(db_a - db_f) / np.maximum(db_f, 1.0))),
+           "max_completion_shift_us": float(
+               np.abs(ca[both] - cf[both]).max()) if both.any() else 0.0,
+           "completion_finite_equal": bool(np.array_equal(
+               np.isfinite(ca), np.isfinite(cf))),
+           "fixed": {k: hf[k] for k in ("capture_s", "run_s", "wall_s",
+                                        "ms_per_tick", "launches",
+                                        "launches_captured")},
+           "adaptive": {k: ha[k] for k in ("capture_s", "run_s", "wall_s",
+                                           "launches",
+                                           "launches_captured")},
+           "adaptive_traced": {k: hs[k] for k in traced},
+           "ms_per_iteration": ha["run_s"] / max(iters, 1) * 1e3,
+           "speedup_vs_fixed": hf["run_s"] / ha["run_s"],
+           "speedup_vs_fixed_with_capture": hf["wall_s"] / ha["wall_s"],
+           "speedup_floor_reference": SPEEDUP_FLOOR,
+           "floors": ADAPTIVE_FLOORS,
+           "profile": fabric_profile(adaptive_scens(50e-6), 50)}
+
+    def finish(oracles) -> dict:
+        want, cpu_wall = oracles["adaptive"]
+        iters_cpu = int(want["adaptive_iterations"][0])
+        cc = want["flow_completion_us"]
+        fin = np.isfinite(cc)
+        out.update(
+            iterations_cpu_float64=iters_cpu,
+            cpu_float64_wall_s=cpu_wall,
+            dev_delivered_vs_cpu_float64=rel(db_a,
+                                             want["flow_delivered_bytes"]),
+            dev_goodput_vs_cpu_float64=rel(ad["flow_goodput_gbps"],
+                                           want["flow_goodput_gbps"]),
+            completion_finite_equal_cpu=bool(np.array_equal(
+                np.isfinite(ca), fin)),
+            max_completion_shift_vs_cpu_us=float(
+                np.abs(ca[fin] - cc[fin]).max()) if fin.any() else 0.0,
+            completion_shift_limit_us=(cfg.max_stride + 1) * fsp.dt_us)
+        emit("adaptive", **out)
+        check(out["coarsen_ratio"] >= ADAPTIVE_FLOORS["coarsen_ratio"],
+              f"adaptive8: coarsen ratio {out['coarsen_ratio']}")
+        check(out["dev_delivered_vs_fixed"]
+              <= ADAPTIVE_FLOORS["dev_delivered_vs_fixed"],
+              f"adaptive8: delivered bytes deviate "
+              f"{out['dev_delivered_vs_fixed']} from fixed dt")
+        check(out["max_completion_shift_us"]
+              <= ADAPTIVE_FLOORS["max_completion_shift_us"],
+              "adaptive8: completion shift "
+              f"{out['max_completion_shift_us']}")
+        check(out["completion_finite_equal"],
+              "adaptive8: a completion one run sees and the other does not")
+        check(launches_per_tick(hf, fsp.ticks)
+              and launches_per_tick(ha, iters)
+              and launches_per_tick(hs, hs["iterations"]),
+              f"adaptive8: launches fixed {hf['launches']}, adaptive "
+              f"{ha['launches']} ({iters} iterations), traced at "
+              f"{ADAPTIVE_TRACED_S * 1e3:g} ms {hs['launches']} (by name "
+              f"{hs['launches_by_name']}, {hs['iterations']} iterations)")
+        check(out["profile"]["waterfills_per_tick"] == 5,
+              f"adaptive8 profile: {out['profile']['waterfills_per_tick']} "
+              "water-fills a tick")
+        check(abs(iters - iters_cpu) <= cfg.max_stride,
+              f"adaptive8: {iters} iterations, CPU float64 {iters_cpu}")
+        check(out["dev_delivered_vs_cpu_float64"] <= TOL
+              and out["dev_goodput_vs_cpu_float64"] <= TOL,
+              f"adaptive8: delivered bytes / goodput deviate "
+              f"{out['dev_delivered_vs_cpu_float64']} / "
+              f"{out['dev_goodput_vs_cpu_float64']} from CPU float64")
+        check(out["completion_finite_equal_cpu"]
+              and out["max_completion_shift_vs_cpu_us"]
+              <= out["completion_shift_limit_us"],
+              f"adaptive8: completion times shift "
+              f"{out['max_completion_shift_vs_cpu_us']} us from CPU "
+              "float64 (or their finite masks differ)")
+        return out
+    return fsp, finish
+
+
+def unit_stride_phase(fixed: dict) -> dict:
+    """Adaptive dt with ``max_stride=1`` on incast48 (2000 ticks): every
+    output equal to the fixed-dt graph run of the main path, one
+    iteration a tick."""
+    from repro_torch.fabric import fused
+    fsp, res, head = fabric_run(incast_grid(SIM_TIME_S),
+                                adaptive=fused.AdaptiveConfig(max_stride=1))
+    iters = res.pop("adaptive_iterations")
+    diff = differing(res, fixed)
+    out = {"ticks": fsp.ticks, "iterations": head["iterations"],
+           "batches": head["batches"], "equal_fixed_dt": not diff,
+           "differ": diff, "ms_per_iteration": head["ms_per_tick"],
+           "launches": head["launches"],
+           "launches_captured": head["launches_captured"]}
+    emit("adaptive_unit_stride", **out)
+    check(not diff and (iters == fsp.ticks).all(),
+          f"max_stride=1 differs from fixed dt in {diff} "
+          f"({head['iterations']} iterations)")
+    check(launches_per_tick(head, fsp.ticks),
+          f"max_stride=1: launches {head['launches']}")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -544,6 +862,7 @@ COUNT_SLACK = 8             # messages a point: tests/test_messages.py's
 P99_SLACK_US = 2.0          # + one histogram bucket: its JAX_SLACK_US
 FAULT_TOL = 1e-4            # dropped / retransmitted: tests/test_faults.py
 ORACLE_WORKERS = 4          # CPU reference runs, after the card runs
+GRAPH_EAGER_TICKS = 500     # graph == eager, element for element, per grid
 ROUTING_MODES = ("static_ecmp", "weighted_ecmp", "adaptive", "spray")
 CLASS_JOBS = ("qos_mixed", "wrr", "host_gate")
 
@@ -640,9 +959,12 @@ def oracle(job: str, threads: int):
             scens = message_scens(MESSAGES_TIME_S)[0]
         elif job == "faults":
             scens = fault_scens(FAULTS_TIME_S)[0]
+        elif job == "adaptive":
+            scens = adaptive_scens(ADAPTIVE_TIME_S)
         else:
             scens = class_scens(job, CLASSES_TIME_S)
-        out = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+        out = run_fabric_sweep(scens, device="cpu", dtype=torch.float64,
+                               adaptive_dt=job == "adaptive")
     return out, time.perf_counter() - t0
 
 
@@ -655,7 +977,8 @@ def run_oracles() -> dict:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     jobs = {"sweep_dense": 2, "messages": 1, "routing": 1, "faults": 1,
-            "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1}
+            "adaptive": 1, "sweep": 1, "qos_mixed": 1, "wrr": 1,
+            "host_gate": 1}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=ORACLE_WORKERS,
@@ -668,15 +991,17 @@ def run_oracles() -> dict:
     return out
 
 
-def profile_window(fn, ticks: int) -> dict:
+def profile_window(fn, ticks: int, warm: bool = True, top: int = 0) -> dict:
     """Kernels launched per tick and the device's busy share over one
-    call of ``fn`` (``ticks`` ticks) under ``torch.profiler``."""
+    call of ``fn`` (``ticks`` ticks) under ``torch.profiler`` (after a
+    warm-up call of ``fn`` where ``warm``); the water-fill kernels it
+    executed, by name; the ``top`` kernels by device time and the
+    water-fills' device time a launch where ``top``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -684,15 +1009,60 @@ def profile_window(fn, ticks: int) -> dict:
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_time_total", 0) > 0
             and e.device_type == torch.autograd.DeviceType.CUDA]
+    parse = time.perf_counter() - t0 - wall - PROFILE_PAD_S
     launches = sum(e.count for e in rows)
     busy_us = sum(e.device_time_total for e in rows)
     own = [e for e in rows if "grants_kernel" in e.key
            or "admit_kernel" in e.key]
-    return {"ticks": ticks, "wall_s": wall,
-            "kernels_per_tick": launches / ticks,
-            "device_busy_us_per_tick": busy_us / ticks,
-            "device_busy_share": busy_us * 1e-6 / wall if wall else None,
-            "waterfills_per_tick": sum(e.count for e in own) / ticks}
+    by_name = {f"priority_{name}": sum(e.count for e in own
+                                       if f"{name}_kernel" in e.key)
+               for name in ("grants", "admit")}
+    out = {"ticks": ticks, "wall_s": wall, "parse_s": parse,
+           "kernels_per_tick": launches / ticks,
+           "device_busy_us_per_tick": busy_us / ticks,
+           "device_busy_share": busy_us * 1e-6 / wall if wall else None,
+           "waterfills_per_tick": sum(e.count for e in own) / ticks,
+           "waterfill_launches": by_name}
+    if top:
+        out["own_kernels"] = {name: {
+            "count": sum(e.count for e in es),
+            "device_us_per_launch": sum(e.device_time_total for e in es)
+            / max(1, sum(e.count for e in es))}
+            for name in ("grants", "admit")
+            for es in [[e for e in own if f"{name}_kernel" in e.key]]}
+        rows = sorted(rows, key=lambda e: -e.device_time_total)
+        out["top"] = [{"kernel": e.key[:80], "count": e.count,
+                       "device_us": e.device_time_total} for e in rows[:top]]
+    return out
+
+
+def fabric_profile(scens, ticks: int, top: int = 0) -> dict:
+    """:func:`profile_window` of a fabric grid's run under the graph
+    (captured before the window opens, so it holds replays only, with the
+    capture's seconds beside it) and, under ``eager``, of the eager
+    loop.  The profiler slows the replays more than the eager loop, so
+    each also has its busy share over the wall of the same run without
+    the profiler (``device_busy_share_unprofiled``)."""
+    import torch
+    from repro_torch.fabric.vector import FabricRun, FabricSweepParams
+    fsp = FabricSweepParams.from_scenarios(scens)
+    out = {}
+    for mode in (False, "auto"):
+        run = FabricRun(fsp, graph=mode)
+        prof = profile_window(run.run, ticks, warm=False,
+                              top=top if mode else 0)
+        run = FabricRun(fsp, graph=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run()
+        wall = time.perf_counter() - t0
+        prof.update(wall_unprofiled_s=wall,
+                    device_busy_share_unprofiled=prof[
+                        "device_busy_us_per_tick"] * ticks * 1e-6 / wall)
+        if mode:
+            prof["capture_s"] = run.capture_s
+        out[mode] = prof
+    return {**out["auto"], "eager": out[False]}
 
 
 def sweep_phase(label: str, dense: bool):
@@ -740,25 +1110,6 @@ def sweep_phase(label: str, dense: bool):
     return finish
 
 
-def fabric_card_run(scens):
-    """One fabric grid on the card with the launch counters zeroed just
-    before: its packing, outputs and timing."""
-    from repro_torch.fabric import fused
-    from repro_torch.fabric.vector import (FabricSweepParams,
-                                           run_fabric_sweep)
-    fsp = FabricSweepParams.from_scenarios(scens)
-    fused.reset_launches()
-    t0 = time.perf_counter()
-    res = run_fabric_sweep(scens, impl="auto")
-    wall = time.perf_counter() - t0
-    head = {"points": fsp.n_points, "flows": fsp.n_flows,
-            "ports": fsp.n_ports, "receivers": fsp.n_recv,
-            "ticks": fsp.ticks, "wall_s": wall,
-            "ms_per_tick": wall / fsp.ticks * 1e3,
-            "launches": dict(fused.LAUNCHES)}
-    return fsp, res, head
-
-
 def fabric_vs_cpu(job: str, fsp, res, head: dict, oracles):
     """Hold a card run against its CPU float64 reference: adds the
     deviations to ``head``; returns the reference's outputs and the
@@ -771,12 +1122,11 @@ def fabric_vs_cpu(job: str, fsp, res, head: dict, oracles):
     head.update(cpu_float64_wall_s=cpu_wall, dev=dev,
                 pause_fanout=res["pause_fanout"].tolist(),
                 pause_fanout_cpu=want["pause_fanout"].tolist())
-    launches = head["launches"]
 
     def held():
-        check(launches["priority_grants"] == 4 * fsp.ticks
-              and launches["priority_admit"] == fsp.ticks,
-              f"{job}: launches {launches}, want {4 * fsp.ticks} / "
+        check(launches_per_tick(head, fsp.ticks),
+              f"{job}: launches {head['launches']} (captured "
+              f"{head['launches_captured']}), want {4 * fsp.ticks} / "
               f"{fsp.ticks}")
         check(all(v <= TOL for v in dev.values()),
               f"{job}: deviates from CPU float64: {dev} (inf = finite "
@@ -792,11 +1142,9 @@ def routing_phase():
     references, holds it within TOL of CPU float64 with reroute counts
     equal and 4 grants + 1 admit a tick, and checks that under the
     failure static ECMP never finishes while adaptive and spray do."""
-    from repro_torch.fabric.vector import run_fabric_sweep
-    run_fabric_sweep(routing_scens(20e-6))          # warm-up
-    fsp, res, head = fabric_card_run(routing_scens(ROUTING_TIME_S))
-    prof = profile_window(lambda: run_fabric_sweep(routing_scens(50e-6)),
-                          50)
+    graph_eager("routing8", routing_scens(GRAPH_EAGER_TICKS * 1e-6))
+    fsp, res, head = fabric_run(routing_scens(ROUTING_TIME_S))
+    prof = fabric_profile(routing_scens(50e-6), 50)
 
     def finish(oracles) -> dict:
         import numpy as np
@@ -839,13 +1187,11 @@ def classes_phase():
     that WRR keeps LOW above 15 Gbps where strict priority starves it
     below 1, and that the per-class host gate keeps HIGH at 0.95 Gbps or
     more where the whole-link gate holds it at 0.85 or less."""
-    from repro_torch.fabric.vector import run_fabric_sweep
     runs = {}
     for job in CLASS_JOBS:
-        run_fabric_sweep(class_scens(job, 20e-6))   # warm-up
-        fsp, res, head = fabric_card_run(class_scens(job, CLASSES_TIME_S))
-        head["profile"] = profile_window(
-            lambda: run_fabric_sweep(class_scens(job, 50e-6)), 50)
+        graph_eager(job, class_scens(job, GRAPH_EAGER_TICKS * 1e-6))
+        fsp, res, head = fabric_run(class_scens(job, CLASSES_TIME_S))
+        head["profile"] = fabric_profile(class_scens(job, 50e-6), 50)
         runs[job] = (fsp, res, head)
 
     def finish(oracles) -> dict:
@@ -865,6 +1211,9 @@ def classes_phase():
         emit("classes", **out)
         for held in checks:
             held()
+        for job in CLASS_JOBS:
+            w = out[job]["profile"]["waterfills_per_tick"]
+            check(w == 5, f"{job} profile: {w} water-fills a tick")
         low = out["wrr"]["low_gbps"]
         check(low[0] < 1.0 and low[1] > 15.0,
               f"LOW under strict / WRR: {low}")
@@ -888,12 +1237,10 @@ def messages_phase():
     the percentiles within one histogram bucket + P99_SLACK_US and
     goodput within TOL of CPU float64, with 4 grants + 1 admit a tick."""
     from repro_torch.fabric.messages import hist_ratio
-    from repro_torch.fabric.vector import run_fabric_sweep
-    run_fabric_sweep(message_scens(20e-6)[0])            # warm-up
+    graph_eager("messages18", message_scens(GRAPH_EAGER_TICKS * 1e-6)[0])
     scens, pts = message_scens(MESSAGES_TIME_S)
-    fsp, res, head = fabric_card_run(scens)
-    prof = profile_window(
-        lambda: run_fabric_sweep(message_scens(50e-6)[0]), 50)
+    fsp, res, head = fabric_run(scens)
+    prof = fabric_profile(message_scens(50e-6)[0], 50)
 
     def finish(oracles) -> dict:
         import numpy as np
@@ -938,12 +1285,10 @@ def faults_phase():
     COUNT_SLACK, crash recovery within a tick and deadlock ticks equal
     to CPU float64, and checks the lossless selective point drops
     nothing and selective beats go-back-N at 5 % loss."""
-    from repro_torch.fabric.vector import run_fabric_sweep
-    run_fabric_sweep(fault_scens(20e-6)[0])              # warm-up
+    graph_eager("lossy9", fault_scens(GRAPH_EAGER_TICKS * 1e-6)[0])
     scens, pts = fault_scens(FAULTS_TIME_S)
-    fsp, res, head = fabric_card_run(scens)
-    prof = profile_window(
-        lambda: run_fabric_sweep(fault_scens(50e-6)[0]), 50)
+    fsp, res, head = fabric_run(scens)
+    prof = fabric_profile(fault_scens(50e-6)[0], 50)
 
     def finish(oracles) -> dict:
         import numpy as np
@@ -965,7 +1310,6 @@ def faults_phase():
         sel0 = at(0.0, "selective")
         g5, s5 = at(0.05, "go_back_n"), at(0.05, "selective")
         retx, cnt = res["retransmit_bytes"], res["msg_count_total"]
-        launches = head["launches"]
         out = {**head, "sim_time_s": FAULTS_TIME_S, "points_axes": pts,
                "cpu_float64_wall_s": cpu_wall, "dev": dev,
                "dropped_pkts": res["dropped_pkts"].tolist(),
@@ -979,9 +1323,9 @@ def faults_phase():
                "deadlock_ticks_cpu": want["deadlock_ticks"].tolist(),
                "profile": prof}
         emit("faults", **out)
-        check(launches["priority_grants"] == 4 * fsp.ticks
-              and launches["priority_admit"] == fsp.ticks,
-              f"faults: launches {launches}, want {4 * fsp.ticks} / "
+        check(launches_per_tick(head, fsp.ticks),
+              f"faults: launches {head['launches']} (captured "
+              f"{head['launches_captured']}), want {4 * fsp.ticks} / "
               f"{fsp.ticks}")
         check(dev["dropped_pkts"] <= FAULT_TOL
               and dev["retransmit_bytes"] <= FAULT_TOL,
@@ -1323,16 +1667,13 @@ def device_us(fn, names, calls: int = 5, tries: int = 3) -> dict:
     the demangled name), from ``torch.profiler`` over ``calls`` calls of
     ``fn``: what a call costs the card, apart from the host's issue time
     that CUDA events over back-to-back calls include.  A window that
-    records no time for one of the kernels (the profiler now and then
-    loses a window's device records) is profiled again, up to ``tries``
-    windows."""
+    records no time for one of the kernels is profiled again, up to
+    ``tries`` windows."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1966,7 +2307,6 @@ def profile_serve(cfg, dev) -> None:
     profiler."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
     params = api.init_params(
         cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
@@ -1980,8 +2320,7 @@ def profile_serve(cfg, dev) -> None:
     torch.cuda.synchronize()
     out = {}
     for name, steps in (("prefill", 1), ("decode", 8)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 if name == "prefill":
@@ -2025,6 +2364,7 @@ def profile_serve(cfg, dev) -> None:
 
 def run() -> int:
     import torch
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA card", file=sys.stderr)
@@ -2167,6 +2507,9 @@ def run() -> int:
         wgmma_widths_phase(iters=20)
         main = main_path()
         profile_phase()
+        main_result = main.pop("result")
+        unit_stride_phase(main_result)
+        adaptive_fsp, adaptive_finish = adaptive_phase()
         from repro_torch.configs import get_arch
         zamba2 = get_arch("zamba2-1.2b")
         serve = serve_phase(zamba2, torch.device("cuda"))
@@ -2181,13 +2524,16 @@ def run() -> int:
         msg_fsp, messages_finish = messages_phase()
         flt_fsp, faults_finish = faults_phase()
         waterfill_path_rows({"routing8": routing_fsp, **class_fsps,
-                             "messages18": msg_fsp, "lossy9": flt_fsp}, 40)
+                             "messages18": msg_fsp, "lossy9": flt_fsp,
+                             "adaptive8": adaptive_fsp}, 40)
         oracles = run_oracles()
         for done in finish + [routing_finish, classes_finish,
-                              messages_finish, faults_finish]:
+                              messages_finish, faults_finish,
+                              adaptive_finish]:
             done(oracles)
+        traced = main_path_traced(main_result)
         # each kernel's launches on the path that runs it
-        launches = {**main["launches"],
+        launches = {**traced["launches_by_name"],
                     "flash_attention": serve["launches"]["flash_attention"],
                     "ssd_scan": serve["launches"]["ssd_scan"],
                     "decode_attention_paged":
@@ -2199,6 +2545,9 @@ def run() -> int:
         check(sorted(launches) == sorted(rows) == sorted(SOURCES)
               and all(n > 0 for n in launches.values()),
               f"a kernel was launched on no path: {launches}")
+        total = time.perf_counter() - start
+        emit("total", wall_s=total, limit_s=TIME_LIMIT_S)
+        check(total < TIME_LIMIT_S, f"the script took {total} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -75,8 +75,51 @@ def resolve_impl(impl: str, device: torch.device) -> str:
 
 class LaunchCounts(dict):
     """Launches per kernel name: a wrapper adds one where it launches its
-    kernel, and nowhere else."""
+    kernel, and nowhere else.
+
+    A wrapper whose kernel may be captured into a CUDA graph adds through
+    :meth:`add`.  A launch on a capturing stream only records the kernel
+    into the graph, which runs it at every replay; so there :meth:`add`
+    records, right after the kernel, one increment of a device counter
+    into the same graph, and every replay adds one on the card.
+    :meth:`read` returns the host counts with those device counts folded
+    in; ``captured`` tallies the launches recorded into graphs."""
+
+    def __init__(self, **counts):
+        super().__init__(**counts)
+        self.captured = dict.fromkeys(counts, 0)
+        self._device = {}       # (name, device) -> 0-d int64 counter
+
+    def add(self, name: str, device: torch.device) -> None:
+        key = (name, device)
+        if device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            if key not in self._device:
+                # made in the graph's pool, the counter would be zeroed
+                # by every replay
+                raise RuntimeError(
+                    f"{name}: launch the kernel once on {device} before "
+                    "capturing it, so that its device counter exists")
+            self._device[key].add_(1)
+            self.captured[name] += 1
+            return
+        self[name] += 1
+        if device.type == "cuda" and key not in self._device:
+            self._device[key] = torch.zeros((), dtype=torch.int64,
+                                            device=device)
+
+    def read(self) -> dict:
+        """The counts, with the replays' device counts folded in (waits
+        for the card)."""
+        out = dict(self)
+        for (name, _), c in self._device.items():
+            out[name] += int(c)
+        return out
 
     def reset(self) -> None:
         for k in self:
             self[k] = 0
+        for k in self.captured:
+            self.captured[k] = 0
+        for c in self._device.values():
+            c.zero_()

@@ -16,18 +16,23 @@ implementations:
 
 The PFC-deadlock watchdog's helpers (:func:`pause_pair_onehot`,
 :func:`cycle_flags`) are plain tensor code in both packages: {0,1}
-matrix products, exact in float32 with TF32 off.
+matrix products, exact in float32 with TF32 off.  So is adaptive
+time-stepping (:class:`AdaptiveConfig`, :func:`make_stride_fn`,
+:func:`macro_advance`): the reference computes the stride and the macro
+advance in plain array code outside any kernel, and so does the port.
 
 Dispatch (``_device.resolve_impl``, shared with the model kernels):
 ``impl="auto"`` launches the kernel on a CUDA tensor and runs the plain
 version on a CPU one; ``impl="cuda"`` on a CPU tensor raises; ``"ref"``
 forces the plain version.  Nothing falls back: a build or launch failure
 propagates.  Each kernel launch adds one to :data:`LAUNCHES` under the
-kernel's name.
+kernel's name; a launch captured into a CUDA graph adds one on the card
+at every replay (read the counts with ``LAUNCHES.read()``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -134,7 +139,7 @@ def _grants_cuda(demand, can, budget, crumb):
             demand.data_ptr(), can.data_ptr(), budget.data_ptr(),
             crumb.data_ptr(), out.data_ptr(), rows, nq, n, stream),
             "priority_grants")
-        LAUNCHES["priority_grants"] += 1
+        LAUNCHES.add("priority_grants", dev)
     return out
 
 
@@ -147,7 +152,7 @@ def _admit_cuda(demand, space):
         _raise_on(_lib().priority_admit_f32(
             demand.data_ptr(), space.data_ptr(), out.data_ptr(), rows, nq,
             n, stream), "priority_admit")
-        LAUNCHES["priority_admit"] += 1
+        LAUNCHES.add("priority_admit", dev)
     return out
 
 
@@ -199,3 +204,250 @@ def cycle_flags(lp, E, n: int):
         C = torch.minimum(C + torch.matmul(C, C), one)
     diag = torch.diagonal(C, dim1=-2, dim2=-1)
     return diag.sum((-1, -2)) > 0.0          # any TC, any node
+
+
+# --------------------------------------------------------------------------- #
+# Adaptive time-stepping (the reference's fused.py, in torch)
+# --------------------------------------------------------------------------- #
+_BIG = 1 << 30          # "no event" sentinel for integer gaps
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveConfig:
+    """Macro-tick coarsening knobs + the documented equivalence bound.
+
+    ``max_stride`` caps a single macro window (``k * dt``);
+    ``guard_frac`` is the watermark guard band: a jet pool within
+    ``guard_frac`` of its ``cache_safe`` spill fraction is treated as
+    near-event and keeps fine ticks.  ``resident_eps_bytes`` is the
+    steady-pool test (float accumulators jitter at ~1e-7 relative).
+
+    The contract: per-flow delivered bytes within ``rel_bytes_bound`` of
+    the fine run, timestamps (completion, message latency) within
+    ``(max_stride + 1) * dt`` per crossed macro window.
+    """
+    max_stride: int = 16
+    guard_frac: float = 0.05
+    resident_eps_bytes: float = 1.0
+    rel_bytes_bound: float = 0.01
+
+    def key(self):
+        return (self.max_stride, self.guard_frac,
+                self.resident_eps_bytes)
+
+
+# accumulators advanced in closed form over a macro window: the paired
+# hi/lo split counters scale via the *sum* delta applied to the lo part
+# (a fold between the two fine steps must not double), plain linear
+# byte counters, and the us/byte timers (finite-delta guarded: pace_tus
+# idles at +inf, and inf - inf must not poison the carry)
+_SCALE_PAIRS = (("injected", "inj_lo"), ("delivered", "deliv_lo"))
+_SCALE_SINGLE = ("drained", "miss_sum", "pool_sum", "nic_dram",
+                 "mem_fb", "esc_dram", "tx", "resident", "strag_res")
+_SCALE_TIMERS = ("t_us", "byts", "a_tus", "cnp_tus", "ecn_tus",
+                 "pace_tus", "cc_tus")
+
+
+def zero_of(a):
+    """The zero of ``a``'s kind, as a Python scalar (keeps its dtype in
+    ``torch.where``)."""
+    return 0.0 if a.is_floating_point() else 0
+
+
+def macro_advance(s, s1, km1):
+    """Extrapolate the fine step ``s -> s1`` over ``km1`` further ticks
+    (``km1 = k - 1``, a float or a 0-d tensor of the engine dtype).
+    Everything not listed scales by construction of the quiet predicate
+    (its delta is zero) or is a discrete carry the next fine step catches
+    up exactly: message counts re-derive from the cumulative byte totals,
+    completion stamps land on the next fine boundary, rings hold a steady
+    value.
+
+    The keys of one shape are stacked and advanced together (the same
+    elementwise arithmetic, in a few kernels for all of them); the
+    advanced values are views of that stack."""
+    s2 = dict(s1)
+    for hi, lo in _SCALE_PAIRS:
+        d = (s1[hi] + s1[lo]) - (s[hi] + s[lo])
+        s2[lo] = s1[lo] + km1 * d
+    groups = {}
+    for key in _SCALE_SINGLE + _SCALE_TIMERS:
+        if key in s1:
+            groups.setdefault((s1[key].shape, s1[key].dtype), []).append(key)
+    for keys in groups.values():
+        a1 = torch.stack([s1[k] for k in keys])
+        a0 = torch.stack([s[k] for k in keys])
+        # masked subtract: idle timers park at +inf and inf - inf must
+        # not poison the carry
+        ok = torch.isfinite(a1) & torch.isfinite(a0)
+        z = zero_of(a1)
+        d = torch.where(ok, a1, z) - torch.where(ok, a0, z)
+        s2.update(zip(keys, torch.where(ok, a1 + km1 * d, a1).unbind(0)))
+    # the peak tracker follows the (sub-eps) extrapolated pool drift, but
+    # only where the step tracks residency at all (jet points; ddio
+    # points keep pool_peak at zero)
+    z = zero_of(s1["pool_peak"])
+    s2["pool_peak"] = torch.where(s1["pool_peak"] > z,
+                                  torch.maximum(s1["pool_peak"],
+                                                s2["resident"]),
+                                  s1["pool_peak"])
+    return s2
+
+
+def make_stride_fn(fsp, p, opts, cfg: AdaptiveConfig, dtype):
+    """Build ``stride(s, s1, t) -> k`` for one packed sweep.
+
+    Returns the whole-grid macro stride after the fine step ``s -> s1``
+    at tick ``t`` (a 0-d integer tensor): a 0-d int32 tensor on the
+    parameters' device, 1 unless every point is quiet, else
+    the largest ``k <= min(max_stride, ticks - t)`` that stays short of
+    the next event.  Nothing is read back to the host, so a captured
+    iteration can compute it.
+    """
+    o = opts or {}
+    dyn, flap, flt = o.get("dyn", False), o.get("flap", False), \
+        o.get("flt", False)
+    any_cc, any_msg = o.get("cc", False), o.get("msg", False)
+    Sn = o.get("Sn", 0)
+    dev = p["burst"].device
+
+    def c(x):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    zero, one, tiny, bigf = c(0.0), c(1.0), c(1e-30), c(float(_BIG))
+    dt = fsp.dt_us
+    ticks = fsp.ticks
+    unit = torch.ones((), dtype=torch.int32, device=dev)
+    # static plan: on/off trains are per-tick duty cycles, with no closed
+    # form that preserves the phase, so any such flow disables macros
+    any_onoff = bool((fsp.pvals["off_us"] > 0).any())
+    start_tick = torch.as_tensor(
+        np.floor(fsp.pvals["start"] / dt).astype(np.int64), device=dev)
+    if flt:
+        thr_any = torch.as_tensor(
+            ((fsp.pvals["f_thr"] > 0) | (fsp.pvals["f_cthr"] > 0))
+            .any(-1), device=dev)                            # [G]
+    max_stride = cfg.max_stride
+    eps_res = c(cfg.resident_eps_bytes)
+    guard = c(cfg.guard_frac)
+    bias = c(1e-3)
+    fdt = c(dt)
+
+    def gap(live, ticks_to):
+        """The nearest integer event gap where ``live`` holds."""
+        return torch.where(live, ticks_to, _BIG).min()
+
+    def fgap(live, gapf):
+        """The nearest float tick gap where ``live`` holds (folded into
+        the integer bound after the ``_BIG`` clamp, as the reference)."""
+        return torch.where(live, gapf, bigf).min()
+
+    def fire_gap(t0, t1, thr, rate):
+        # exact fire landing: a window may end ON the tick a rate timer
+        # fires, so the next fine step performs the fire with the state
+        # the fine run had; ceil lands integral quotients on the right
+        # tick and the small down-bias eats float noise in the division
+        run = t1 > t0          # this timer advanced this fine step
+        q = (thr - t1) / torch.maximum(rate, tiny)
+        return fgap(run, torch.maximum(torch.ceil(q - bias), one))
+
+    def stride(s, s1, t):
+        if any_onoff or max_stride <= 1:
+            return unit
+        inj1 = s1["injected"] + s1["inj_lo"]
+        dinj = inj1 - (s["injected"] + s["inj_lo"])
+        del1 = s1["delivered"] + s1["deliv_lo"]
+        ddel = del1 - (s["delivered"] + s["deliv_lo"])
+        moving = dinj > zero
+        # ---- quiet: every queue steady, nothing paused or mid-fire ---- #
+        # a constant port/admission queue integrates in closed form
+        # exactly like an empty one: every per-tick drain/admission
+        # fraction repeats, the rings hold a constant value and the byte
+        # accumulators advance linearly.  Each term is a 0-d bool; quiet
+        # is their conjunction
+        quiet = [(s1["qm"] - s["qm"]).abs().max() <= eps_res,
+                 (s1["qos_q"] - s["qos_q"]).abs().max() <= eps_res,
+                 ~s1["paused"].any(), ~s1["asserted"].any(),
+                 ~s1["pfc"].any(), s1["backlog"].sum() == zero,
+                 # ECN marking / switch drops accrue per tick against the
+                 # live queue: only coarsen while neither made progress
+                 (s1["ecn_marked"] == s["ecn_marked"]).all(),
+                 (s1["sw_dropped"] == s["sw_dropped"]).all(),
+                 s1["cring"].sum() == zero,
+                 s1["esc_debt"].sum() == zero,
+                 s1["repl_debt"].sum() == zero,
+                 # per-flow rate balance: while a rate step is still in
+                 # flight through the transit rings, injection and delivery
+                 # deltas differ
+                 (dinj - ddel).abs().max() <= eps_res,
+                 # pool residency is a sliding-window sum of the delayed
+                 # drain ring: quiet requires the pools steady too
+                 (s1["resident"] - s["resident"]).abs().max() <= eps_res,
+                 (s1["strag_res"] - s["strag_res"]).abs().max() <= eps_res]
+        jet = p["jet"] > 0.5
+        avail = torch.maximum(zero, p["pool"] - s1["resident"]) \
+            / torch.maximum(p["pool"], tiny)
+        quiet.append((~jet | (avail >= p["safe"] + guard)).all())
+        # no timer fired during the fine step (a fire's reset makes the
+        # step non-representative of the window it would be scaled over)
+        quiet += [(s1[tk] >= s[tk]).all() for tk in _SCALE_TIMERS
+                  if tk in s1]
+        if flt:
+            quiet += [s1["lost"].sum() == zero, ~s1["gapped"].any(),
+                      # stochastic loss draws once per (link, tick): points
+                      # with a live threshold may only coarsen while
+                      # nothing is moving
+                      ~(thr_any & moving.any(-1)).any()]
+        # ---- stride: distance to the next event ----------------------- #
+        # integer gaps (ticks to the next event) and float gaps, each
+        # folded to its minimum
+        gaps = [torch.clamp(ticks - t, max=max_stride),
+                gap(start_tick > t, start_tick - t)]
+        if dyn:
+            gaps += [gap(p["fail_at"] > t, p["fail_at"] - t),
+                     gap(p["fail_until"] > t, p["fail_until"] - t)]
+            if flap:
+                st_, per = p["flap_start"], p["flap_period"]
+                dn = p["flap_down"]
+                phase = (t - st_) % per
+                nxt = torch.minimum(per - phase,
+                                    torch.where(phase < dn, dn - phase,
+                                                _BIG))
+                gaps.append(torch.where(st_ > t, st_ - t, nxt).min())
+        if flt:
+            gaps += [gap(p["crash_at"] > t, p["crash_at"] - t),
+                     gap(p["crash_until"] > t, p["crash_until"] - t)]
+        # finite bursts: scaled injection must not overshoot the tap
+        room = p["burst"] - inj1
+        fgaps = [fgap(moving & torch.isfinite(room),
+                      torch.floor(torch.maximum(room, zero)
+                                  / torch.maximum(dinj, tiny)) + one)]
+        if any_msg:
+            # message-window room shrinks while injection outruns
+            # delivery; never let a macro jam the window shut
+            dout = torch.maximum(dinj - ddel, zero)
+            wroom = p["m_win"] * p["m_bytes"] - (inj1 - del1)
+            fgaps.append(fgap((dout > tiny) & torch.isfinite(wroom),
+                              torch.floor(torch.maximum(wroom, zero)
+                                          / torch.maximum(dout, tiny))
+                              + one))
+        if dyn and Sn:
+            # weighted-ECMP flowlet bookkeeping gaps by k ticks under a
+            # macro; keep k at or below the idle gap
+            wec_move = (p["rmode"][..., None] == 1) & moving
+            gaps.append(gap(wec_move, p["flet"][..., None]))
+        fgaps += [fire_gap(s["t_us"], s1["t_us"], p["r_tmr"], fdt),
+                  fire_gap(s["a_tus"], s1["a_tus"], p["a_tmr"], fdt),
+                  fire_gap(s["byts"], s1["byts"], p["bctr"],
+                           s1["byts"] - s["byts"])]
+        if any_cc:
+            fgaps.append(fire_gap(s["cc_tus"], s1["cc_tus"], p["cc_upd"],
+                                  fdt))
+        quiet = torch.stack(quiet).all()
+        g = torch.minimum(torch.stack(gaps).min(),
+                          torch.minimum(torch.stack(fgaps).min(), bigf)
+                          .to(torch.int64))
+        k = torch.clamp(g, min=1)
+        return torch.where(quiet, k, 1).to(torch.int32)
+
+    return stride

@@ -39,16 +39,26 @@ PFC pause propagation.  The tick's two priority water-fills go through
 rounds that follow the strict grants are plain tensor code, as in the
 reference.
 
-The grid axis is written out (no vmap) and the tick loop runs eagerly
-from the host with the tick index a Python int: nothing in the loop
-reads a device value back, so the host only waits at the end.
+The grid axis is written out (no vmap).  The step takes the simulated
+tick ``t`` and the ring iteration ``it`` as Python ints or as 0-d
+integer tensors on the device.  On CUDA, :class:`FabricRun` keeps the
+state in static buffers and captures a chain of steps, tick counter
+included, as a CUDA graph that it replays to the end
+(:mod:`repro_torch.fabric.tickgraph`): the counterpart of the
+reference's compiled ``lax.scan``.  On the CPU the same static-buffer
+chains run without capture; ``graph=False`` runs the eager loop with a
+Python tick.  Adaptive dt (:class:`repro_torch.fabric.fused.AdaptiveConfig`)
+captures one iteration of the reference's ``lax.while_loop`` body (fine
+step, whole-grid stride, macro advance) and replays batches of it,
+reading the tick back once a batch.
 
-Grids that need the reference's 3-level (sparse) fabrics or adaptive dt
-raise ``NotImplementedError`` naming the feature.
+Grids that need the reference's 3-level (sparse) fabrics raise
+``NotImplementedError`` naming the feature.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,6 +72,7 @@ from .cc import CcConfig
 from .faults import link_salt, loss_threshold
 from .messages import (HIST_BUCKETS, HIST_MIN_US, MSG_COUNT_EPS, hist_ratio,
                        percentile_from_counts)
+from .tickgraph import TickChain, adaptive_batches
 from .topology import NEVER_TICK
 
 _STAGES = 4          # NIC egress, leaf uplink, spine, leaf downlink
@@ -818,8 +829,9 @@ def _init_state(fsp: FabricSweepParams, p, dtype, device):
 # and the routing.* helpers of the scalar engine over [G, P] and
 # [G, S, F] tensors (the tests hold each to its scalar twin)
 # --------------------------------------------------------------------------- #
-def link_state(t: int, p, flap: bool):
-    """Down and falling-edge masks ``[G, P]`` at tick ``t`` from the
+def link_state(t, p, flap: bool):
+    """Down and falling-edge masks ``[G, P]`` at tick ``t`` (a Python int
+    or a 0-d integer tensor) from the
     per-point failure windows (down while ``fail_at <= t < fail_until``)
     and, with ``flap``, the periodic flaps folded into the same masks:
     down for the first ``flap_down`` ticks of each ``flap_period`` from
@@ -884,8 +896,9 @@ def fault_saltp(f_salt):
     return (f_salt + 1) * 9973 % 65536
 
 
-def fault_drops(t: int, saltp, thr, cthr):
-    """Drop mask ``[G, P]`` at tick ``t``: the loss hash under ``thr`` or
+def fault_drops(t, saltp, thr, cthr):
+    """Drop mask ``[G, P]`` at tick ``t`` (a Python int or a 0-d integer
+    tensor): the loss hash under ``thr`` or
     the corruption hash under ``cthr`` (integer tensors).  The tick
     multipliers are applied as a split modmul: ``(t+1) % 65536`` split
     into high and low bytes, with 256*40503 % 65536 = 14080 and
@@ -898,13 +911,24 @@ def fault_drops(t: int, saltp, thr, cthr):
     return (hl < thr) | (hc < cthr)
 
 
+def _slot_write(ring, slot, v):
+    """``ring[:, slot] = v`` for a Python-int slot, or for a 0-d index
+    tensor on the ring's device (``index_copy_``, which reads the slot on
+    the device)."""
+    if isinstance(slot, int):
+        ring[:, slot] = v
+    else:
+        ring.index_copy_(1, slot.reshape(1), v.unsqueeze(1))
+
+
 # --------------------------------------------------------------------------- #
 # The per-tick step
 # --------------------------------------------------------------------------- #
 def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
                dtype: torch.dtype, device: torch.device, impl: str,
                opts: dict):
-    """Build ``step(state, t) -> state`` over ``[G, ...]`` tensors.
+    """Build ``step(state, t, it=None) -> state`` over ``[G, ...]``
+    tensors.
 
     ``st`` holds the static structure tensors (no grid axis), ``p`` the
     per-point parameters ``[G, ...]``, both on ``device``.  Queued bytes
@@ -930,7 +954,7 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
     eps_q = c(1e-9)
     fold_at = c(65536.0)
     # simulated end-of-tick time of every tick, (t + 1) * dt in the
-    # engine dtype, so the loop indexes it with the Python tick
+    # engine dtype, indexed by the tick
     nows = (torch.arange(ticks, device=device).to(dtype) + one) * fdt
     arangeF = torch.arange(st["recv_of"].shape[0], dtype=torch.int32,
                            device=device)
@@ -973,6 +997,7 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
                                device=device)[:, None]   # [S, 1]
         rmode = p["rmode"][:, None]                      # [G, 1]
         is_spray = (rmode == 3)[..., None]               # [G, 1, 1]
+        flet_scale = c(65536.0)                          # flowlet hash
     if any_cc:
         # algorithm lanes (CcConfig.code: 0 dcqcn, 1 timely, 2 hpcc)
         is_dcqcn = p["cc_algo"] == 0
@@ -1107,9 +1132,16 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s[hi] = s[hi] + torch.where(full, s[lo], zero)
         s[lo] = torch.where(full, zero, s[lo])
 
-    def step(s, t: int):
+    def step(s, t, it=None):
+        # ``t`` is the simulated tick (timers, event windows, fault
+        # hashes), ``it`` the iteration that indexes the slot-major rings;
+        # fixed dt passes it = t, adaptive dt advances t by the stride and
+        # it by one.  Either is a Python int or a 0-d integer tensor.
+        if it is None:
+            it = t
         s = dict(s)
-        now = nows[t]
+        now = nows[t] if isinstance(t, int) \
+            else nows.index_select(0, t.reshape(1)).reshape(())
         fold(s, "injected", "inj_lo")
         fold(s, "delivered", "deliv_lo")
 
@@ -1250,7 +1282,7 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             up_cur = (upS & cur_oh).any(-2)
             adapt = adaptive_choice(occS, upS, cur, cur_oh, up_cur, hystF,
                                     one, zero, inf)
-            hsh = flowlet_hashes(arangeF, k_new, c(65536.0))  # [G, F]
+            hsh = flowlet_hashes(arangeF, k_new, flet_scale)  # [G, F]
             pick, tot = weighted_choice(free, hsh, one, zero)
             repick = boundary | ~up_cur
             wec = torch.where(repick & (tot > zero), pick, cur)
@@ -1307,8 +1339,8 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             # spray reorder settling: arrivals wait `settle` ticks in a
             # slot-major ring before receiver admission (settle 0 reads
             # the slot just written: pass-through)
-            s["sring"][:, t % Hs] = fbm
-            sidx = (t - p["settle"]) % Hs                    # [G, F]
+            _slot_write(s["sring"], it % Hs, fbm)
+            sidx = (it - p["settle"]) % Hs                    # [G, F]
             fbm = torch.take_along_dim(s["sring"], sidx[:, None, None, :],
                                        1)[:, 0]
         arr_b = fbm[:, 0]
@@ -1450,14 +1482,14 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         parts = torch.stack([pool_drained * (1.0 - strag_share),
                              strag_part], -2)
         # release ring [G, H, 2, R]: an in-place slot write
-        s["ring"][:, t % H] = parts
+        _slot_write(s["ring"], it % H, parts)
         s["resident"] = s["resident"] + pool_drained
         s["strag_res"] = s["strag_res"] + strag_part
         s["drained"] = s["drained"] + drained
 
-        idx = (t - p["d2"]) % H                              # [G, 2, R]
+        idx = (it - p["d2"]) % H                             # [G, 2, R]
         r2 = torch.take_along_dim(s["ring"], idx[:, None], 1)[:, 0]
-        r2 = torch.where(t >= p["d2"], r2, zero)
+        r2 = torch.where(it >= p["d2"], r2, zero)
         for j, is_strag in ((0, False), (1, True)):
             r = r2[:, j]
             void = torch.minimum(r, s["esc_debt"])
@@ -1558,13 +1590,14 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s["pace_tus"] = torch.where(pace_fire, zero, pace_tus)
         s["backlog"] = torch.where(pace_fire, zero, s["backlog"])
         # CNP propagation ring [G, Hc, 3, F]: notifications generated this
-        # tick (slot t % Hc) cut their sender its own cnp_delay ticks
-        # later (a per-flow gather; unwritten slots still hold zero)
+        # iteration (slot it % Hc) cut their sender its own cnp_delay
+        # iterations later (a per-flow gather; unwritten slots still hold
+        # zero)
         fires = torch.stack([torch.where(f_esc, one, zero),
                              torch.where(f_wm, one, zero),
                              torch.where(pace_fire, one, zero)], -2)
-        s["cring"][:, t % Hc] = fires
-        cidx = (t - p["cnp_dly"]) % Hc                       # [G, F]
+        _slot_write(s["cring"], it % Hc, fires)
+        cidx = (it - p["cnp_dly"]) % Hc                       # [G, F]
         due = torch.take_along_dim(s["cring"], cidx[:, None, None, :],
                                    1)[:, 0]
         for j in range(3):
@@ -1814,30 +1847,143 @@ def _opts(fsp: FabricSweepParams) -> dict:
 # --------------------------------------------------------------------------- #
 # Entry points
 # --------------------------------------------------------------------------- #
+CHAIN = 8           # ticks (iterations) a captured graph chains
+
+
+class FabricRun:
+    """A packed grid set up on a device; :meth:`run` advances it to
+    ``fsp.ticks`` and returns the results (once).
+
+    ``graph="auto"`` keeps the state in static buffers and runs chains of
+    ``chain`` steps through a :class:`~repro_torch.fabric.tickgraph.TickChain`:
+    on CUDA the constructor captures them as CUDA graphs (warm-up and
+    capture take ``capture_s`` seconds) and :meth:`run` replays them; on
+    the CPU they run without capture.  ``graph=False`` runs the eager
+    loop with a Python tick.  ``adaptive`` (an :class:`AdaptiveConfig`,
+    with ``graph="auto"`` only) runs the reference's adaptive loop: one
+    iteration is a fine step, the whole-grid stride ``k`` and the macro
+    advance over ``k - 1`` more ticks, as the reference's ``while_loop``
+    body does (at ``k == 1`` the advance leaves the state as it is, so
+    this equals its numpy loop, which skips it); the host reads the tick
+    once a batch of iterations (``batches``).
+
+    The water-fill launch counts (``fused.LAUNCHES.read()``) hold the
+    warm-up's launches (two iterations on a scratch copy, set-up) and
+    then, on CUDA, one for each launch a replay executes, added on the
+    card.  ``launches_captured()`` is the arithmetic beside them: the
+    launches captured for one iteration times the iterations run.
+    """
+
+    def __init__(self, fsp: FabricSweepParams, device=None,
+                 dtype: Optional[torch.dtype] = None, impl: str = "auto",
+                 graph="auto", chain: int = CHAIN,
+                 adaptive: Optional[fused.AdaptiveConfig] = None):
+        if graph not in ("auto", False):
+            raise ValueError(f"graph must be 'auto' or False, got {graph!r}")
+        if graph is False and adaptive is not None:
+            raise ValueError("adaptive dt runs on the static-buffer body "
+                             "(graph='auto'); graph=False is the fixed-dt "
+                             "eager loop")
+        dev = resolve_device(device)
+        dt = resolve_dtype(dev, dtype)
+        fused.resolve_impl(impl, dev)        # reject a bad impl up front
+        cuda = dev.type == "cuda"
+        np_dt = np.float32 if dt == torch.float32 else np.float64
+        p = {k: _to_device(v, dt, dev)
+             for k, v in _np_params(fsp, np_dt).items()}
+        st = {k: _to_device(v, dt, dev) for k, v in _static(fsp).items()}
+        self.fsp, self.device, self.dtype = fsp, dev, dt
+        self.adaptive = adaptive
+        self.step = _make_step(st, p, fsp.dt_us, fsp.ring_len, fsp.cnp_ring,
+                               fsp.ticks, dt, dev, impl, _opts(fsp))
+        self.stride = None if adaptive is None else fused.make_stride_fn(
+            fsp, p, _opts(fsp), adaptive, dt)
+        self.iterations = self.batches = 0
+        self.capture_s = 0.0
+        self.chain = None
+        state = _init_state(fsp, p, dt, dev)
+        if graph is False:
+            self.state = state
+            return
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        if adaptive is None:
+            counters = (self.t,)
+            body = self._fixed_body
+        else:
+            self.it = torch.zeros((), dtype=torch.int64, device=dev)
+            counters = (self.t, self.it)
+            body = self._adaptive_body
+        t0 = time.perf_counter()
+        self.chain = TickChain(body, state, counters, chain, capture=cuda,
+                               counts=fused.LAUNCHES)
+        self.capture_s = time.perf_counter() - t0
+        self.state = self.chain.state
+
+    def launches_captured(self) -> Dict[str, int]:
+        """The launches captured for one iteration times the iterations
+        run (empty unless the tick was captured)."""
+        per = self.chain.per_iteration if self.chain is not None else {}
+        return {k: n * self.iterations for k, n in per.items()}
+
+    def _fixed_body(self, s):
+        s = self.step(s, self.t, self.t)
+        self.t.add_(1)
+        return s
+
+    def _adaptive_body(self, s):
+        """One adaptive iteration: the reference's ``while_loop`` body."""
+        s1 = self.step(s, self.t, self.it)
+        k = self.stride(s, s1, self.t)
+        s1 = fused.macro_advance(s, s1, k.to(self.dtype) - 1.0)
+        self.t.add_(k)
+        self.it.add_(1)
+        return s1
+
+    def _batch(self, n: int) -> int:
+        self.chain.run(n)
+        return int(self.t)
+
+    def run(self) -> Dict[str, np.ndarray]:
+        fsp = self.fsp
+        if self.chain is not None:
+            if self.adaptive is None:
+                self.chain.run(fsp.ticks)
+                self.iterations = fsp.ticks
+            else:
+                self.iterations, self.batches = adaptive_batches(
+                    fsp.ticks, self.adaptive.max_stride, self._batch)
+        else:
+            s = self.state
+            for t in range(fsp.ticks):
+                s = self.step(s, t)
+            self.state, self.iterations = s, fsp.ticks
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        res = _results({k: v.cpu().numpy() for k, v in self.state.items()},
+                       fsp)
+        if self.adaptive is not None:
+            res["adaptive_iterations"] = np.full(fsp.n_points,
+                                                 self.iterations)
+        return res
+
+
 def run_packed(fsp: FabricSweepParams, device=None,
                dtype: Optional[torch.dtype] = None,
-               impl: str = "auto") -> Dict[str, np.ndarray]:
-    """Advance a packed grid (see :func:`run_fabric_sweep`)."""
-    dev = resolve_device(device)
-    dt = resolve_dtype(dev, dtype)
-    fused.resolve_impl(impl, dev)            # reject a bad impl up front
-    np_dt = np.float32 if dt == torch.float32 else np.float64
-    p = {k: _to_device(v, dt, dev) for k, v in _np_params(fsp, np_dt).items()}
-    st = {k: _to_device(v, dt, dev) for k, v in _static(fsp).items()}
-    step = _make_step(st, p, fsp.dt_us, fsp.ring_len, fsp.cnp_ring,
-                      fsp.ticks, dt, dev, impl, _opts(fsp))
-    s = _init_state(fsp, p, dt, dev)
-    for t in range(fsp.ticks):
-        s = step(s, t)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return _results({k: v.cpu().numpy() for k, v in s.items()}, fsp)
+               impl: str = "auto", graph="auto",
+               adaptive: Optional[fused.AdaptiveConfig] = None
+               ) -> Dict[str, np.ndarray]:
+    """Advance a packed grid (see :func:`run_fabric_sweep` and
+    :class:`FabricRun`)."""
+    return FabricRun(fsp, device=device, dtype=dtype, impl=impl,
+                     graph=graph, adaptive=adaptive).run()
 
 
 def run_fabric_sweep(scenarios: Sequence, device=None,
                      dtype: Optional[torch.dtype] = None,
-                     impl: str = "auto",
-                     adaptive_dt: bool = False) -> Dict[str, np.ndarray]:
+                     impl: str = "auto", graph="auto",
+                     adaptive_dt: bool = False,
+                     adaptive: Optional[fused.AdaptiveConfig] = None
+                     ) -> Dict[str, np.ndarray]:
     """Advance a grid of fabric scenarios through the full multi-host
     recurrence at once; returns ``{metric: array}`` aligned with the input
     order (arrays are ``[G]``, ``[G, F]`` or ``[G, R]`` — flow order is the
@@ -1848,11 +1994,23 @@ def run_fabric_sweep(scenarios: Sequence, device=None,
     pass ``device="cpu"`` for the CPU.  ``dtype`` defaults to float32
     (the only CUDA dtype); float64 on the CPU is the oracle mode.
     ``impl="auto"`` launches the CUDA water-fill kernels on the card and
-    runs their plain versions on the CPU.  ``adaptive_dt`` macro-ticking
-    is not part of this port and raises ``NotImplementedError``.
+    runs their plain versions on the CPU.  ``graph="auto"`` replays the
+    tick as captured CUDA graphs on the card (the same static-buffer
+    chains, uncaptured, on the CPU); ``graph=False`` runs the eager
+    fixed-dt loop (see :class:`FabricRun`).
+
+    ``adaptive_dt=True`` (or an explicit :class:`AdaptiveConfig` via
+    ``adaptive=``) turns on macro-tick coarsening: quiet stretches of the
+    whole grid advance ``k * dt`` per iteration in closed form, with fine
+    ticks near every event; the result gains ``adaptive_iterations``
+    (``[G]``, the iteration count).  It is dense-engine only: a grid that
+    needs the sparse (3-level) engine raises ``ValueError``.
     """
-    if adaptive_dt:
-        raise NotImplementedError("adaptive_dt macro-ticking is not part "
-                                  "of the PyTorch fabric engine yet")
+    cfg = adaptive if adaptive is not None \
+        else (fused.AdaptiveConfig() if adaptive_dt else None)
+    if cfg is not None and unsupported_features(scenarios):
+        raise ValueError("adaptive_dt macro-ticking is dense-engine only; "
+                         "run sparse grids at the fine tick")
     return run_packed(FabricSweepParams.from_scenarios(scenarios),
-                      device=device, dtype=dtype, impl=impl)
+                      device=device, dtype=dtype, impl=impl, graph=graph,
+                      adaptive=cfg)

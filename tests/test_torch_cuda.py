@@ -2,7 +2,9 @@
 bit for bit, and the fabric engines that run them (the dense tick under
 dynamic routing and a link failure, under the CC zoo with verbs messages,
 and under loss, recovery and a receiver crash, each against CPU float64;
-the receiver sweep bit for bit against the CPU); flash attention, the SSD scan, the paged decode attention and
+its captured CUDA graphs equal to the eager loop, and adaptive dt within
+its bound of the CPU run; the receiver sweep bit for bit against the
+CPU); flash attention, the SSD scan, the paged decode attention and
 the staged matmul within the tolerances of ``tests/test_kernels.py``, each
 flash case on the kernel variant its type and head dim select, each
 SSD case on the variant its widths select, and the staged matmul's
@@ -25,7 +27,8 @@ import torch
 from repro_torch.configs import get_arch, tiny_config
 from repro_torch.fabric import fused
 from repro_torch.fabric import scenarios as TSC
-from repro_torch.fabric.vector import run_fabric_sweep
+from repro_torch.fabric.vector import (FabricRun, FabricSweepParams,
+                                       run_fabric_sweep)
 from repro_torch._device import full_fp32_matmul
 from repro_torch.kernels import jet_decode_attention as jda
 from repro_torch.kernels import jet_flash_attention as jfa
@@ -63,6 +66,17 @@ def _inputs(seed, shape, dev):
                                                   crumb)]
 
 
+def _counted(scens, **kw):
+    """A run on the card with the water-fill launch counts zeroed after
+    its set-up (the capture and its warm-up) and read after it: the
+    results, the counts (a replay's launches added on the card) and the
+    launches captured for one iteration times the iterations run."""
+    run = FabricRun(FabricSweepParams.from_scenarios(scens), **kw)
+    fused.reset_launches()
+    res = run.run()
+    return res, fused.LAUNCHES.read(), run.launches_captured()
+
+
 def _same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -95,9 +109,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
 def test_engine_runs_through_the_kernels(card):
     scens = [TSC.incast(4, mode=m, burst_mb=1.0, pfc=p, sim_time_s=0.0002)
              for m in ("jet", "ddio") for p in (False, True)]
-    fused.reset_launches()
-    got = run_fabric_sweep(scens)
-    assert fused.LAUNCHES == {"priority_grants": 800, "priority_admit": 200}
+    got, launches, captured = _counted(scens)
+    assert launches == captured == {"priority_grants": 800,
+                                    "priority_admit": 200}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     for k in ("flow_goodput_gbps", "flow_completion_us"):
         a, b = got[k], want[k]
@@ -133,10 +147,9 @@ def test_routing_grid_on_the_card_matches_cpu_float64(card):
         modes=("static_ecmp", "weighted_ecmp", "adaptive", "spray"),
         fail_at_us=(math.inf, 50.0), burst_mb=1.0, n_senders=4,
         sim_time_s=0.002)[0]
-    fused.reset_launches()
-    got = run_fabric_sweep(scens)
-    assert fused.LAUNCHES == {"priority_grants": 8000,
-                              "priority_admit": 2000}
+    got, launches, captured = _counted(scens)
+    assert launches == captured == {"priority_grants": 8000,
+                                    "priority_admit": 2000}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     for k in ("flow_goodput_gbps", "flow_completion_us",
               "incast_completion_us", "uplink_util_max"):
@@ -166,10 +179,9 @@ def test_message_grid_on_the_card_matches_cpu_float64(card):
                                    verb=("write",),
                                    algo=("dcqcn", "timely", "hpcc"),
                                    n_senders=4, sim_time_s=0.001)[0]
-    fused.reset_launches()
-    got = run_fabric_sweep(scens)
-    assert fused.LAUNCHES == {"priority_grants": 4000,
-                              "priority_admit": 1000}
+    got, launches, captured = _counted(scens)
+    assert launches == captured == {"priority_grants": 4000,
+                                    "priority_admit": 1000}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     _held_to_cpu(got, want, ("flow_goodput_gbps",))
     assert np.abs(got["msg_count_total"] - want["msg_count_total"]).max() \
@@ -193,10 +205,9 @@ def test_lossy_grid_on_the_card_matches_cpu_float64(card):
     crash.fabric.faults = FaultConfig(0.005, seed=7).crash("h1_0", 100.0,
                                                           200.0)
     scens.append(crash)
-    fused.reset_launches()
-    got = run_fabric_sweep(scens)
-    assert fused.LAUNCHES == {"priority_grants": 4000,
-                              "priority_admit": 1000}
+    got, launches, captured = _counted(scens)
+    assert launches == captured == {"priority_grants": 4000,
+                                    "priority_admit": 1000}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     _held_to_cpu(got, want, ("dropped_pkts", "retransmit_bytes"), 1e-4)
     _held_to_cpu(got, want, ("flow_goodput_gbps",))
@@ -206,6 +217,114 @@ def test_lossy_grid_on_the_card_matches_cpu_float64(card):
     assert np.array_equal(np.isfinite(a), np.isfinite(b))
     assert np.abs(a[np.isfinite(b)] - b[np.isfinite(b)]).max() <= 1.0
     assert np.array_equal(got["deadlock_ticks"], want["deadlock_ticks"])
+
+
+def _incast48(sim_time_s, with_victim=True, bursts=(0.25, 0.5, 0.75, 1.0,
+                                                   1.5, 2.0, 2.5, 3.0, 3.5,
+                                                   4.0, 5.0, 6.0)):
+    """``benchmarks/bench_fabric.py``'s incast grid (8 senders, receiver
+    mode x PFC x burst sizes)."""
+    return TSC.fabric_grid(
+        lambda mode, pfc, burst_mb: TSC.incast(
+            n_senders=8, mode=mode, pfc=pfc, burst_mb=burst_mb,
+            with_victim=with_victim, sim_time_s=sim_time_s),
+        mode=["ddio", "jet"], pfc=[False, True], burst_mb=list(bursts))[0]
+
+
+def _lossy9(sim_time_s):
+    """The bench's faults grid and its crash case."""
+    from repro_torch.fabric.faults import FaultConfig
+    scens = TSC.lossy_incast_grid(loss_rate=(0.0, 0.002, 0.01, 0.05),
+                                  recovery=("go_back_n", "selective"),
+                                  sim_time_s=sim_time_s)[0]
+    crash = TSC.lossy_incast(loss_rate=0.005, recovery="selective",
+                             sim_time_s=sim_time_s)
+    crash.fabric.faults = FaultConfig(0.005, seed=7).crash(
+        "h1_0", at_us=40.0, restart_us=120.0)
+    return scens + [crash]
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f")
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_trace_sees_every_replayed_water_fill(card):
+    """``chip_smoke.py``'s trace of a 2,000-tick incast48 run through the
+    graph counts every water-fill a replay executed by name: 8,000 grants
+    and 2,000 admits, as the counts kept on the card say.  A session
+    without idle time at its edges lost up to 104 ticks' kernels."""
+    cs = _chip_smoke()
+    run = FabricRun(FabricSweepParams.from_scenarios(_incast48(0.002)))
+    fused.reset_launches()
+    prof = cs.trace_kernels(run.run)
+    want = {"priority_grants": 8000, "priority_admit": 2000}
+    assert fused.LAUNCHES.read() == run.launches_captured() == want
+    assert prof["waterfill_launches"] == want
+
+
+@pytest.mark.parametrize("grid", ["incast48", "lossy9"])
+def test_graph_equals_eager_on_the_card(card, grid):
+    """The captured chains replay the eager loop's kernels on the same
+    shapes in the same order: every output equal, 200 ticks, with 4
+    grants and 1 admit counted a tick both ways (the replays' counted on
+    the card, equal to the launches captured for a tick x ticks)."""
+    scens = (_incast48 if grid == "incast48" else _lossy9)(0.0002)
+    want_launches = {"priority_grants": 800, "priority_admit": 200}
+    got, launches, captured = _counted(scens)
+    assert launches == captured == want_launches
+    want, launches, _ = _counted(scens, graph=False)
+    assert launches == want_launches
+    assert got.keys() == want.keys()
+    for k in want:
+        assert _same(got[k], want[k]), k
+
+
+def test_adaptive_graph_within_bound_of_cpu_float32(card):
+    """The adaptive bench grid (victimless incast, 2 bursts) at 2 ms: the
+    captured iteration against the port's CPU float32 run of the same
+    iteration.  Both are float32, so delivered bytes and goodput agree
+    within 5e-4 (the float32 tier), completion times within one stride
+    and a tick, and the iteration counts within max_stride (a stride
+    decision the two devices' roundings take differently changes the
+    count by less than one stride)."""
+    cfg = fused.AdaptiveConfig()
+    scens = _incast48(0.002, with_victim=False, bursts=(0.25, 0.5))
+    got, launches, captured = _counted(scens, adaptive=cfg)
+    iters = int(got["adaptive_iterations"][0])
+    assert iters < 1000
+    assert launches == captured == {"priority_grants": 4 * iters,
+                                    "priority_admit": iters}
+    want = run_fabric_sweep(scens, device="cpu", adaptive_dt=True)
+    assert abs(iters - int(want["adaptive_iterations"][0])) \
+        <= cfg.max_stride
+    _held_to_cpu(got, want, ("flow_delivered_bytes", "flow_goodput_gbps"))
+    a, b = got["flow_completion_us"], want["flow_completion_us"]
+    assert np.array_equal(np.isfinite(a), np.isfinite(b))
+    m = np.isfinite(b)
+    dt_us = FabricSweepParams.from_scenarios(scens).dt_us
+    assert (np.abs(a[m] - b[m]) <= (cfg.max_stride + 1) * dt_us).all()
+
+
+def test_adaptive_max_stride_one_equals_fixed_dt_on_the_card(card):
+    scens = _incast48(0.0002)
+    fixed = run_fabric_sweep(scens)
+    adap = run_fabric_sweep(scens,
+                            adaptive=fused.AdaptiveConfig(max_stride=1))
+    assert (adap.pop("adaptive_iterations") == 200).all()
+    for k in fixed:
+        assert _same(adap[k], fixed[k]), k
 
 
 # --------------------------------------------------------------------------- #

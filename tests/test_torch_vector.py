@@ -160,29 +160,45 @@ def test_engine_forces_full_fp32_matmuls():
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize("make", [
-    lambda: ([SC.incast(4, pfc=True), _cc_zoo(SC.incast(4))],
-             {"adaptive_dt": True}),
-    lambda: ([SC.message_incast(4)], {"adaptive_dt": True}),
-    lambda: ([SC.lossy_incast(4)], {"adaptive_dt": True}),
-    lambda: ([SC.pod_incast()], {}),
-    lambda: ([_pod_fail(SC.pod_incast())], {}),
-], ids=["cc_zoo", "message_incast", "lossy_incast", "pod_incast",
-        "pod_incast_fail_link"])
-def test_unsupported_features_raise(make):
+@pytest.mark.parametrize("make,exc", [
+    (lambda: ([SC.pod_incast()], {}), NotImplementedError),
+    (lambda: ([_pod_fail(SC.pod_incast())], {}), NotImplementedError),
+    (lambda: ([SC.pod_incast()], {"adaptive_dt": True}), ValueError),
+], ids=["pod_incast", "pod_incast_fail_link", "pod_incast_adaptive"])
+def test_unsupported_features_raise(make, exc):
     """What the port does not run raises: the sparse engine's 3-level
-    fabrics, and adaptive dt, here over the CC zoo, message and fault
-    layers, which the fixed-dt tick runs (tests/test_torch_messages.py,
-    tests/test_torch_faults.py)."""
+    fabrics (``NotImplementedError``), and adaptive dt on them
+    (``ValueError``, as the reference: adaptive dt is dense-only)."""
     scens, kw = make()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         run_fabric_sweep(scens, device="cpu", **kw)
 
 
-def _cc_zoo(s):
+@pytest.mark.parametrize("make", [
+    lambda M, cc: [M.incast(4, pfc=True, sim_time_s=0.001),
+                   _cc_zoo(M.incast(4, sim_time_s=0.001), cc)],
+    lambda M, cc: [M.message_incast(4, sim_time_s=0.001)],
+    lambda M, cc: [M.lossy_incast(4, sim_time_s=0.001)],
+], ids=["cc_zoo", "message_incast", "lossy_incast"])
+def test_adaptive_dt_runs_over_the_dense_layers(make):
+    """Adaptive dt over the CC zoo, message and fault layers (which it
+    refused before it was ported): CPU float64 equals the reference's
+    numpy adaptive run, iterations included."""
+    from repro.fabric.cc import CcConfig as RCc
+    from repro_torch.fabric.cc import CcConfig as TCc
+    want = ref_sweep(make(SC, RCc), backend="numpy", adaptive_dt=True)
+    got = run_fabric_sweep(make(TSC, TCc), device="cpu",
+                           dtype=torch.float64, adaptive_dt=True)
+    assert np.array_equal(got["adaptive_iterations"],
+                          want["adaptive_iterations"])
+    for k in COMPARED:
+        assert rel(got[k], want[k]) <= 1e-9, k
+
+
+def _cc_zoo(s, cc=CcConfig):
     """Flows under a non-DCQCN controller (the CC zoo), no messages."""
     for f in s.flows:
-        f.cc = CcConfig(algo="timely")
+        f.cc = cc(algo="timely")
     return s
 
 
@@ -193,8 +209,11 @@ def _pod_fail(s):
 
 
 def test_adaptive_dt_raises():
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        run_fabric_sweep(_grid(TSC, False), device="cpu", adaptive_dt=True)
+    """Adaptive dt runs on the static-buffer body only (captured on the
+    card); the eager loop (``graph=False``) is fixed-dt and refuses it."""
+    with pytest.raises(ValueError, match="adaptive"):
+        run_fabric_sweep(_grid(TSC, False), device="cpu", graph=False,
+                         adaptive_dt=True)
 
 
 def test_cpu_run_launches_no_kernel():
