@@ -131,13 +131,38 @@ Each phase prints one JSON line:
     point, and at 5 % loss selective retransmitting less than half of
     go-back-N's bytes and completing more messages; 4 grants and 1 admit
     a tick; a 50-tick profiler window.
+14. ``pods``: the sparse-incidence engine on pod-scale (3-level Clos)
+    grids, each at dt 1 µs through the captured graph: ``pod64`` and
+    ``pod256`` (``benchmarks/bench_fabric.py:run_scale_bench``'s 2 x 2 x
+    16 and 4 x 4 x 16 hosts: cross-pod incast, receiver mode x PFC, 0.2
+    MB bursts, 4 ms), ``pod1024`` (4 x 16 x 16 hosts, 4 ms, a timing row
+    with no CPU reference) and ``pod_storm3`` (``pod_storm_grid`` at its
+    defaults: 32/64/128 KB buffers, per-TC lossless PFC, 5 ms).  pod64
+    and pod_storm3 first run 500 ticks through the graph and the eager
+    loop (``graph_eager`` lines, every output equal).  Every cell counts
+    6 grants, 1 admit and 22 segment sums a tick on the card, equal to
+    the launches captured x ticks, and records ms a tick with and
+    without the capture, kernels a tick and the busy share (a 50-tick
+    profile); pod64, pod256 and pod_storm3 are within 5e-4 of CPU
+    float64 on the reference's pod outputs and ``uplink_util_max``, with
+    identical finite masks.  Before it, an ``incast48_sparse`` line: the
+    main path's grid on the sparse engine (4 grants, 1 admit, 15 segment
+    sums a tick) within 5e-4 of the dense graph run.  After it, a
+    ``scale`` line: busy device µs and ms a tick at 64, 256 and 1,024
+    hosts, ``growth_exponent`` = log(busy256 / busy64) / log 4 and its
+    ms a tick twin, both <= 1.6 (``bench_floors.json``), and the 256 ->
+    1,024 exponent, recorded.
 
-The card runs of phases 9-13 come first, then ``kernel`` rows of both
+The card runs of phases 9-14 come first, then ``kernel`` rows of both
 water-fills at every shape those fabric grids gave them (grants at each
-grid's [G, Q, P], admit at its [G, Q, R]; bit for bit), then the CPU
-references of phases 9-13 in spawned worker processes (an ``oracles``
-line: workers, host cores, wall of each), so that no reference competes
-with a timed card run for the host; the lines of phases 9-13 follow.
+grid's [G, Q, P], admit at its [G, Q, R]; bit for bit) and of the
+segment sum at pod256's and pod1024's three shapes and at [4096, 24576]
+values into 12,291 bins (bit for bit against its plain version run on
+the CPU in float32 and over a second launch, with one ``index_add_`` on
+the card, atomic, as its yardstick), then the CPU references of phases
+9-14 in spawned worker processes (an ``oracles`` line: workers, host
+cores, wall of each), so that no reference competes with a timed card
+run for the host; the lines of phases 9-14 follow.
 
 The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
 attention, a length-0 row that must give o == 0, danube-1.8b,
@@ -163,8 +188,10 @@ must have run the variant its shape selects; one ``torch.matmul`` as the
 yardstick) against their plain versions.  The ``kernels`` line lists the
 staged matmul twice: its float32 kernel and its bfloat16 wgmma kernel,
 each at zamba2's up-projection with its launches in the ``staged``
-phase.  Inputs smaller than the L2 cache are timed over copies that the calls
-cycle through.
+phase; and the segment sum at pod256's [4, 1158] -> 693 bins with its
+launches in pod256's run.  Inputs smaller than the L2 cache are timed
+over copies that the calls cycle through (not the segment sum's: at the
+path's shapes its calls are launch-bound).
 
 A ``wgmma_widths`` line records both tile widths of the wgmma kernel,
 timed in turns on the same inputs, at shapes on either side of the rule
@@ -202,7 +229,8 @@ SOURCES = {"priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
                "src/repro_torch/csrc/decode_attention.cu",
            "staged_matmul": "src/repro_torch/csrc/staged_matmul.cu",
            "staged_matmul_wgmma_bf16":
-               "src/repro_torch/csrc/staged_matmul.cu"}
+               "src/repro_torch/csrc/staged_matmul.cu",
+           "seg_sum": "src/repro_torch/csrc/seg_sum.cu"}
 REPLACES = {"priority_grants": "src/repro/fabric/fused.py:99",
             "priority_admit": "src/repro/fabric/fused.py:142",
             "flash_attention": "src/repro/kernels/jet_flash_attention.py:77",
@@ -211,7 +239,8 @@ REPLACES = {"priority_grants": "src/repro/fabric/fused.py:99",
                 "src/repro/kernels/jet_decode_attention.py:73",
             "staged_matmul": "src/repro/kernels/jet_staged_matmul.py:53",
             "staged_matmul_wgmma_bf16":
-                "src/repro/kernels/jet_staged_matmul.py:53"}
+                "src/repro/kernels/jet_staged_matmul.py:53",
+            "seg_sum": "src/repro/fabric/vector.py:1768"}
 LARGE = (4096, 3, 4096)
 SERVE_PROMPTS = [64, 128, 256, 512, 1024, 256]
 SERVE_NEW = 16
@@ -225,6 +254,18 @@ L2_BYTES = 50e6             # H100 L2: smaller inputs are cycled through
                             # copies so that a timed call reads cold data
 PROFILE_PAD_S = 0.5         # idle seconds on each side of a profiler
                             # session (see :func:`profiled`)
+# the fabric tick's own kernels, by a piece of their device name
+FABRIC_KERNELS = {"priority_grants": "grants_kernel",
+                  "priority_admit": "admit_kernel",
+                  "seg_sum": "seg_sum_kernel"}
+# launches of each a tick: the dense tick, the 3-level sparse tick (a
+# grants a slot; segment sums: injection 2, a drain a slot 6, enqueue
+# 5 x 2, the uplink tx of slots 1-2, PFC 2) and the 2-tier sparse tick
+# (slots 2-3 empty: 2 + 4 + 3 x 2 + 1 + 2)
+DENSE_LAUNCHES = {"priority_grants": 4, "priority_admit": 1, "seg_sum": 0}
+POD_LAUNCHES = {"priority_grants": 6, "priority_admit": 1, "seg_sum": 22}
+SPARSE_2TIER_LAUNCHES = {"priority_grants": 4, "priority_admit": 1,
+                         "seg_sum": 15}
 
 
 class SmokeFailure(Exception):
@@ -469,7 +510,8 @@ def profiled():
 def trace_kernels(fn) -> dict:
     """One call of ``fn`` traced whole by ``torch.profiler``: the card's
     kernels it ran (every record on the device), their busy µs, and the
-    water-fill kernels counted by name.  Reads the profiler's raw records
+    fabric tick's own kernels (the water-fills, the segment sum) counted
+    by name.  Reads the profiler's raw records
     (about 1 µs each) rather than its aggregated table, which takes ≈ 100
     µs a record; a trace of 1.05 M records costs a few seconds."""
     import torch
@@ -481,24 +523,24 @@ def trace_kernels(fn) -> dict:
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     kernels = busy_ns = 0
-    by_name = {"priority_grants": 0, "priority_admit": 0}
+    by_name = dict.fromkeys(FABRIC_KERNELS, 0)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             continue
         kernels += 1
         busy_ns += e.duration_ns()
         name = e.name()
-        if "grants_kernel" in name:
-            by_name["priority_grants"] += 1
-        elif "admit_kernel" in name:
-            by_name["priority_admit"] += 1
+        for k, tag in FABRIC_KERNELS.items():
+            if tag in name:
+                by_name[k] += 1
     return {"wall_s": wall,
             "parse_s": time.perf_counter() - t0 - wall - PROFILE_PAD_S,
             "kernels": kernels, "device_busy_us": busy_ns * 1e-3,
             "waterfill_launches": by_name}
 
 
-def fabric_run(scens, graph="auto", adaptive=None, profiled=False):
+def fabric_run(scens, graph="auto", adaptive=None, profiled=False,
+               sparse=False):
     """One fabric grid on the card through ``FabricRun``: its packing,
     outputs and timing (the capture apart from the replays:
     ``capture_s``, ``run_s``, ms/tick with and without the capture).  The
@@ -508,10 +550,11 @@ def fabric_run(scens, graph="auto", adaptive=None, profiled=False):
     ``profiled`` the run itself is traced whole (:func:`trace_kernels`):
     the water-fill kernels it executed, counted by name
     (``launches_by_name``), its kernels and busy share (its timing then
-    includes the tracing)."""
+    includes the tracing).  ``sparse`` packs the grid for the
+    sparse-incidence engine."""
     from repro_torch.fabric import fused
     from repro_torch.fabric.vector import FabricRun, FabricSweepParams
-    fsp = FabricSweepParams.from_scenarios(scens)
+    fsp = FabricSweepParams.from_scenarios(scens, sparse=sparse)
     t0 = time.perf_counter()
     run = FabricRun(fsp, graph=graph, adaptive=adaptive)
     fused.reset_launches()
@@ -559,24 +602,26 @@ def differing(got: dict, want: dict) -> list:
         k for k in want if k in got and not same(got[k], want[k])]
 
 
-def launches_per_tick(head: dict, n: int) -> bool:
-    """4 grants and 1 admit for each of ``n`` ticks (or iterations): in
-    the counts the wrappers keep (a replay's added on the card), in the
-    launches captured for an iteration x iterations (graph runs), and,
-    where the run was profiled, in the kernels the profiler saw by
-    name."""
-    want = {"priority_grants": 4 * n, "priority_admit": n}
+def launches_per_tick(head: dict, n: int, per=None) -> bool:
+    """``per`` launches of each fabric kernel for each of ``n`` ticks (or
+    iterations); by default the dense tick's 4 grants, 1 admit and no
+    segment sum: in the counts the wrappers keep (a replay's added on the
+    card), in the launches captured for an iteration x iterations (graph
+    runs), and, where the run was profiled, in the kernels the profiler
+    saw by name."""
+    want = {k: c * n for k, c in (per or DENSE_LAUNCHES).items()}
     return head["launches"] == want \
         and head["launches_captured"] in ({}, want) \
         and head.get("launches_by_name", want) == want
 
 
-def graph_eager(label: str, scens) -> dict:
+def graph_eager(label: str, scens, per=None, sparse=False) -> dict:
     """The first ``GRAPH_EAGER_TICKS`` ticks of a grid through the
-    captured graph and through the eager loop: every output equal, 4 +
-    1 water-fill launches a tick counted both ways, ms/tick both ways."""
-    fsp, got, g = fabric_run(scens)
-    _, want, e = fabric_run(scens, graph=False)
+    captured graph and through the eager loop: every output equal, the
+    tick's launches (``per``: by default 4 + 1 water-fills) counted both
+    ways, ms/tick both ways."""
+    fsp, got, g = fabric_run(scens, sparse=sparse)
+    _, want, e = fabric_run(scens, graph=False, sparse=sparse)
     diff = differing(got, want)
     keys = ("capture_s", "ms_per_tick", "ms_per_tick_with_capture",
             "launches")
@@ -587,7 +632,8 @@ def graph_eager(label: str, scens) -> dict:
     emit("graph_eager", **out)
     check(not diff, f"{label}: the graph differs from the eager loop in "
           f"{diff}")
-    check(launches_per_tick(g, fsp.ticks) and launches_per_tick(e, fsp.ticks),
+    check(launches_per_tick(g, fsp.ticks, per)
+          and launches_per_tick(e, fsp.ticks, per),
           f"{label}: launches graph {g['launches']}, eager {e['launches']}")
     return out
 
@@ -961,6 +1007,8 @@ def oracle(job: str, threads: int):
             scens = fault_scens(FAULTS_TIME_S)[0]
         elif job == "adaptive":
             scens = adaptive_scens(ADAPTIVE_TIME_S)
+        elif job in POD_TIMES:
+            scens = pod_scens(job, POD_TIMES[job])
         else:
             scens = class_scens(job, CLASSES_TIME_S)
         out = run_fabric_sweep(scens, device="cpu", dtype=torch.float64,
@@ -977,8 +1025,8 @@ def run_oracles() -> dict:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     jobs = {"sweep_dense": 2, "messages": 1, "routing": 1, "faults": 1,
-            "adaptive": 1, "sweep": 1, "qos_mixed": 1, "wrr": 1,
-            "host_gate": 1}
+            "adaptive": 1, "pod256": 1, "pod64": 1, "pod_storm3": 1,
+            "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=ORACLE_WORKERS,
@@ -1017,12 +1065,14 @@ def profile_window(fn, ticks: int, warm: bool = True, top: int = 0) -> dict:
     by_name = {f"priority_{name}": sum(e.count for e in own
                                        if f"{name}_kernel" in e.key)
                for name in ("grants", "admit")}
+    seg = sum(e.count for e in rows if FABRIC_KERNELS["seg_sum"] in e.key)
     out = {"ticks": ticks, "wall_s": wall, "parse_s": parse,
            "kernels_per_tick": launches / ticks,
            "device_busy_us_per_tick": busy_us / ticks,
            "device_busy_share": busy_us * 1e-6 / wall if wall else None,
            "waterfills_per_tick": sum(e.count for e in own) / ticks,
-           "waterfill_launches": by_name}
+           "waterfill_launches": by_name,
+           "seg_sums_per_tick": seg / ticks}
     if top:
         out["own_kernels"] = {name: {
             "count": sum(e.count for e in es),
@@ -1036,7 +1086,8 @@ def profile_window(fn, ticks: int, warm: bool = True, top: int = 0) -> dict:
     return out
 
 
-def fabric_profile(scens, ticks: int, top: int = 0) -> dict:
+def fabric_profile(scens, ticks: int, top: int = 0,
+                   sparse: bool = False) -> dict:
     """:func:`profile_window` of a fabric grid's run under the graph
     (captured before the window opens, so it holds replays only, with the
     capture's seconds beside it) and, under ``eager``, of the eager
@@ -1045,7 +1096,7 @@ def fabric_profile(scens, ticks: int, top: int = 0) -> dict:
     the profiler (``device_busy_share_unprofiled``)."""
     import torch
     from repro_torch.fabric.vector import FabricRun, FabricSweepParams
-    fsp = FabricSweepParams.from_scenarios(scens)
+    fsp = FabricSweepParams.from_scenarios(scens, sparse=sparse)
     out = {}
     for mode in (False, "auto"):
         run = FabricRun(fsp, graph=mode)
@@ -1348,6 +1399,213 @@ def faults_phase():
               f"profile: {prof['waterfills_per_tick']} water-fills a tick")
         return out
     return fsp, finish
+
+
+# --------------------------------------------------------------------------- #
+# The sparse-incidence engine: pod-scale (3-level Clos) cells
+# --------------------------------------------------------------------------- #
+POD_HOSTS = {"pod64": (2, 2), "pod256": (4, 4), "pod1024": (4, 16)}
+                            # (pods, leaves a pod), 16 hosts a leaf:
+                            # bench_fabric.py:run_scale_bench's points
+                            # (64, 256) and a 1,024-host timing row
+POD_TIMES = {"pod64": 0.004, "pod256": 0.004, "pod1024": 0.004,
+             "pod_storm3": 0.005}   # the scale bench's 4 ms, kept whole;
+                                    # pod_storm_grid's own 5 ms
+SCALE_CEILING = 1.6         # bench_floors.json scale.growth_exponent
+# the reference's pod outputs (tests/test_topology_pods.py KEYS) and the
+# uplinks' utilization, spine -> super-spine tier included
+POD_KEYS = ("flow_goodput_gbps", "flow_completion_us",
+            "incast_completion_us", "victim_goodput_gbps", "pause_fanout",
+            "ecn_marked_bytes", "switch_dropped_bytes", "uplink_util_max")
+SEG_LARGE = (4096, 24576, 3 * 4097)     # rows, values a row, bins
+
+
+def pod_scens(job: str, sim_time_s: float):
+    """A pod cell's grid: ``pod_incast_grid`` (receiver mode x PFC, 0.2
+    MB bursts, 16 hosts a leaf) at the cell's size, or ``pod_storm_grid``
+    at the reference's defaults (buffers 32/64/128 KB, per-TC PFC,
+    lossless, 2 x 2 x 4 hosts)."""
+    from repro_torch.fabric import pod_incast_grid, pod_storm_grid
+    if job == "pod_storm3":
+        return pod_storm_grid(sim_time_s=sim_time_s)[0]
+    pods, leaves = POD_HOSTS[job]
+    return pod_incast_grid(pods=pods, leaves_per_pod=leaves,
+                           hosts_per_leaf=16, burst_mb=0.2,
+                           sim_time_s=sim_time_s)[0]
+
+
+def seg_sum_phase(label: str, rows: int, idx, size: int, seed: int,
+                  iters: int) -> dict:
+    """The segment-sum kernel at ``[rows, len(idx)]`` values into
+    ``size`` bins at the bin index ``idx``: bit for bit against its plain
+    version run on the CPU in float32, and against itself over a second
+    launch; per-call time of the kernel, of the plain version on the card
+    and of one ``index_add_`` into a zeroed output (the same function,
+    atomic: the yardstick), beside the bound (bytes once over the memory
+    rate).  Values whose sums depend on the order (1e8, 1, -1e8)."""
+    import numpy as np
+    import torch
+    from repro_torch.fabric import fused
+    rng = np.random.default_rng(seed)
+    idx = np.asarray(idx, np.int64)
+    n = idx.size
+    vals_cpu = torch.from_numpy(rng.choice(
+        np.array([1e8, 1.0, -1e8, 0.3, -2.5, 0.0], np.float32),
+        size=(rows, n)))
+    vals = vals_cpu.cuda()
+    plan = fused.seg_plan(idx, size, "cuda")
+    want = fused.seg_sum_ref(vals_cpu, torch.from_numpy(idx), size)
+    got = fused.seg_sum(vals, plan)
+    again = fused.seg_sum(vals, plan)
+    torch.cuda.synchronize()
+    equal = bitwise_equal(got.cpu(), want)
+    repeat = bitwise_equal(again, got)
+    out = torch.zeros((rows, size), device="cuda")
+    nbytes = rows * n * 4 + n * 4 + (size + 1) * 4 + rows * size * 4
+    bound_ms, bound_by = bound(nbytes, rows * n, FP32_OPS_PER_S)
+    row = {"name": "seg_sum", "case": label, "shape": [rows, n],
+           "bins": size, "staged": bool(fused._seg_lib().seg_sum_staged(n)),
+           "bitwise_equal": equal, "repeat_equal": repeat,
+           "max_abs_err": float((got.cpu() - want).abs().max().item()),
+           "ms": cuda_ms(lambda: fused.seg_sum(vals, plan), iters),
+           "plain_ms": cuda_ms(lambda: fused.seg_sum_ref(vals, plan.idx,
+                                                         size), iters),
+           "library_ms": cuda_ms(lambda: out.index_add_(1, plan.idx, vals),
+                                 iters),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    emit("kernel", **row)
+    check(equal, f"seg_sum {label}: the card != the CPU plain version")
+    check(repeat, f"seg_sum {label}: two launches differ")
+    return row
+
+
+def seg_sum_rows() -> dict:
+    """The segment sum at the pod path's shapes (pod256's and pod1024's
+    three: a slot row into the (TC, port) bins, every slot entry into
+    them, a slot row into the ports) and at a large one; returns the row
+    of pod256's largest shape, every slot entry into the (TC, port)
+    bins, for the ``kernels`` line."""
+    import numpy as np
+    from repro_torch.fabric.vector import FabricSweepParams, _seg_plans
+    main = None
+    for i, job in enumerate(("pod256", "pod1024")):
+        fsp = FabricSweepParams.from_scenarios(pod_scens(job, 1e-5),
+                                               sparse=True)
+        plans = _seg_plans(fsp, "cpu")
+        for j, (what, pl) in enumerate((("slot row -> (TC, port)",
+                                         plans["qp_k"][1]),
+                                        ("all slots -> (TC, port)",
+                                         plans["qp_flat"]),
+                                        ("slot row -> port",
+                                         plans["po_k"][1]))):
+            row = seg_sum_phase(f"{job} {what}", fsp.n_points,
+                                pl.idx.numpy(), pl.size, 50 + 3 * i + j,
+                                iters=2000)
+            if job == "pod256" and pl is plans["qp_flat"]:
+                main = row
+    rows, n, size = SEG_LARGE
+    idx = np.random.default_rng(60).integers(0, size, n)
+    seg_sum_phase("large", rows, idx, size, 61, iters=20)
+    return main
+
+
+def pods_phase(dense: dict):
+    """The pod cells on the card, every one at dt 1 µs through the
+    captured graph: pod64 and pod_storm3 also graph == eager at 500
+    ticks; pod64, pod256, pod1024 (the timing row) and pod_storm3 with
+    their launches a tick (6 grants, 1 admit, 22 segment sums,
+    device-counted, equal to captured x ticks), ms a tick with and
+    without the capture and a 50-tick profile (kernels a tick, busy
+    share); and incast48_sparse, the main path's grid on the sparse
+    engine, against the dense graph run ``dense`` (within TOL, finite
+    masks identical: cuBLAS sums the dense one-hot products in its own
+    order).  Runs the card now; returns the packings and the function
+    that, given the CPU references, holds pod64, pod256 and pod_storm3
+    within TOL of CPU float64 on ``POD_KEYS`` and prints the ``scale``
+    line (busy µs a tick at 64 -> 256 hosts, exponent <= 1.6)."""
+    for job in ("pod64", "pod_storm3"):
+        graph_eager(job, pod_scens(job, GRAPH_EAGER_TICKS * 1e-6),
+                    per=POD_LAUNCHES, sparse=True)
+    runs = {}
+    for job, t in POD_TIMES.items():
+        fsp, res, head = fabric_run(pod_scens(job, t), sparse=True)
+        head["profile"] = fabric_profile(pod_scens(job, 50e-6), 50,
+                                         sparse=True)
+        runs[job] = (fsp, res, head)
+    fsp2, sp, h2 = fabric_run(incast_grid(SIM_TIME_S), sparse=True)
+    dev2 = {k: rel(sp[k], dense[k]) for k in
+            ("flow_goodput_gbps", "flow_completion_us",
+             "incast_completion_us", "victim_goodput_gbps",
+             "flow_delivered_bytes")}
+    out2 = {**h2, "sim_time_s": SIM_TIME_S, "dev_vs_dense_graph": dev2}
+    emit("incast48_sparse", **out2)
+    check(launches_per_tick(h2, fsp2.ticks, SPARSE_2TIER_LAUNCHES),
+          f"incast48_sparse: launches {h2['launches']} (captured "
+          f"{h2['launches_captured']})")
+    check(all(v <= TOL for v in dev2.values()),
+          f"incast48_sparse: deviates from the dense graph run: {dev2} "
+          "(inf = finite masks differ)")
+
+    def finish(oracles) -> dict:
+        import numpy as np
+        out = {}
+        for job, (fsp, res, head) in runs.items():
+            prof = head["profile"]
+            row = {**head, "sim_time_s": POD_TIMES[job],
+                   "kernels_per_tick": prof["kernels_per_tick"],
+                   "device_busy_us_per_tick":
+                       prof["device_busy_us_per_tick"],
+                   "device_busy_share": prof["device_busy_share_unprofiled"],
+                   "pause_fanout": res["pause_fanout"].tolist(),
+                   "pause_storm": res["pause_storm"].tolist(),
+                   "incast_fct_us": res["incast_completion_us"].tolist(),
+                   "uplink_util_max": res["uplink_util_max"].tolist()}
+            if job in oracles:
+                want, cpu_wall = oracles[job]
+                row.update(cpu_float64_wall_s=cpu_wall, dev={
+                    k: rel(res[k], want[k]) for k in POD_KEYS})
+            out[job] = row
+        emit("pods", **out)
+        busy = {j: out[j]["device_busy_us_per_tick"] for j in POD_HOSTS}
+        ms = {j: out[j]["ms_per_tick"] for j in POD_HOSTS}
+        scale = {
+            "hosts": [64, 256, 1024], "busy_us_per_tick": busy,
+            "ms_per_tick": ms,
+            "kernels_per_tick": {j: out[j]["kernels_per_tick"]
+                                 for j in POD_HOSTS},
+            "growth_exponent": math.log(busy["pod256"] / busy["pod64"])
+            / math.log(4.0),
+            "warm_growth_exponent": math.log(ms["pod256"] / ms["pod64"])
+            / math.log(4.0),
+            "growth_exponent_256_1024":
+                math.log(busy["pod1024"] / busy["pod256"]) / math.log(4.0),
+            "ceiling": SCALE_CEILING, "nvidia_smi": card_line()}
+        emit("scale", **scale)
+        for job, (fsp, res, head) in runs.items():
+            check(launches_per_tick(head, fsp.ticks, POD_LAUNCHES),
+                  f"{job}: launches {head['launches']} (captured "
+                  f"{head['launches_captured']}), want {POD_LAUNCHES} a "
+                  "tick")
+            prof = head["profile"]
+            check(prof["waterfills_per_tick"] == 7
+                  and prof["seg_sums_per_tick"] == 22,
+                  f"{job} profile: {prof['waterfills_per_tick']} "
+                  f"water-fills, {prof['seg_sums_per_tick']} segment sums "
+                  "a tick")
+            check(bool(np.isfinite(res["flow_goodput_gbps"]).all()),
+                  f"{job}: non-finite goodput")
+            if "dev" in out[job]:
+                dev = out[job]["dev"]
+                check(all(v <= TOL for v in dev.values()),
+                      f"{job}: deviates from CPU float64: {dev} (inf = "
+                      "finite masks differ)")
+        check(scale["growth_exponent"] <= SCALE_CEILING
+              and scale["warm_growth_exponent"] <= SCALE_CEILING,
+              f"scale: growth exponents {scale['growth_exponent']} / "
+              f"{scale['warm_growth_exponent']} > {SCALE_CEILING}")
+        return out
+    return {job: r[0] for job, r in runs.items()}, runs["pod256"][2], \
+        finish
 
 
 def waterfill_path_rows(grids: dict, seed: int) -> None:
@@ -2523,13 +2781,15 @@ def run() -> int:
         class_fsps, classes_finish = classes_phase()
         msg_fsp, messages_finish = messages_phase()
         flt_fsp, faults_finish = faults_phase()
+        pod_fsps, pod256, pods_finish = pods_phase(main_result)
         waterfill_path_rows({"routing8": routing_fsp, **class_fsps,
                              "messages18": msg_fsp, "lossy9": flt_fsp,
-                             "adaptive8": adaptive_fsp}, 40)
+                             "adaptive8": adaptive_fsp, **pod_fsps}, 40)
+        rows["seg_sum"] = seg_sum_rows()
         oracles = run_oracles()
         for done in finish + [routing_finish, classes_finish,
                               messages_finish, faults_finish,
-                              adaptive_finish]:
+                              adaptive_finish, pods_finish]:
             done(oracles)
         traced = main_path_traced(main_result)
         # each kernel's launches on the path that runs it
@@ -2541,7 +2801,8 @@ def run() -> int:
                     "staged_matmul": staged["variants"]["simt_f32"],
                     "staged_matmul_wgmma_bf16":
                         staged["variants"]["wgmma_bf16"]
-                        + staged["variants"]["wgmma_bf16_n256"]}
+                        + staged["variants"]["wgmma_bf16_n256"],
+                    "seg_sum": pod256["launches"]["seg_sum"]}
         check(sorted(launches) == sorted(rows) == sorted(SOURCES)
               and all(n > 0 for n in launches.values()),
               f"a kernel was launched on no path: {launches}")

@@ -1,4 +1,5 @@
-"""Fused priority water-fills of the vector fabric tick.
+"""Fused priority water-fills and the segment sum of the vector fabric
+tick.
 
 The two innermost sequential loops of the tick — the switch drain's
 strict-priority budget grants and the receiver RNIC's QoS admission —
@@ -13,6 +14,18 @@ implementations:
   the reference's Pallas TPU kernels ``_grants_call`` / ``_admit_call``:
   one launch for the whole grid, one thread per (grid point, column),
   the class loop in registers.  It is bitwise equal to the plain version.
+
+The sparse-incidence tick (3-level pod fabrics) reduces per-flow values
+into (class, port) bins with a batched segment sum at static indices
+(:func:`seg_sum`).  The reference writes it as an XLA scatter-add
+(``_make_step_sparse.seg_sum``), not a Pallas kernel; on the card
+PyTorch's float scatter-adds are atomic and change their summation order
+from run to run, so the port sums through a hand-written deterministic
+kernel (``csrc/seg_sum.cu``) over a plan built once at set-up
+(:func:`seg_plan`: a stable sort of the entries by bin and CSR offsets).
+Each bin adds its entries in entry order, as ``np.add.at`` and the CPU
+``index_add_`` of the plain version (:func:`seg_sum_ref`) do, so the
+kernel is bitwise equal to the plain version run on the CPU in float32.
 
 The PFC-deadlock watchdog's helpers (:func:`pause_pair_onehot`,
 :func:`cycle_flags`) are plain tensor code in both packages: {0,1}
@@ -41,7 +54,8 @@ from .._build import library
 from .._device import LaunchCounts, resolve_impl
 
 _SOURCE = "fused_waterfill"
-LAUNCHES = LaunchCounts(priority_grants=0, priority_admit=0)
+_SEG_SOURCE = "seg_sum"
+LAUNCHES = LaunchCounts(priority_grants=0, priority_admit=0, seg_sum=0)
 reset_launches = LAUNCHES.reset
 
 
@@ -81,6 +95,52 @@ def priority_admit_ref(demand, space):
         space = space - a
         rows.append(a)
     return torch.stack(rows, -2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegPlan:
+    """A static segment-sum index, set up once (:func:`seg_plan`): each
+    entry's bin ``idx`` [N] (int64, the plain version's index), the
+    entries stably sorted by bin ``perm`` [N] and the bins' CSR offsets
+    into it ``offsets`` [size + 1] (both int32, the kernel's), and the
+    number of bins ``size``."""
+    idx: torch.Tensor
+    perm: torch.Tensor
+    offsets: torch.Tensor
+    size: int
+
+
+def seg_plan(idx, size: int, device=None) -> SegPlan:
+    """The plan of a segment sum of ``[.., N]`` values into ``size`` bins
+    at the static bin index ``idx`` [N] (numpy or a tensor), on
+    ``device`` (default: ``idx``'s).  ``perm`` is a *stable* sort of the
+    entries by bin, so each bin's entries keep their order."""
+    if device is None:
+        device = idx.device if isinstance(idx, torch.Tensor) else "cpu"
+    a = (idx.cpu().numpy() if isinstance(idx, torch.Tensor)
+         else np.asarray(idx)).astype(np.int64).reshape(-1)
+    if a.size and (a.min() < 0 or a.max() >= size):
+        raise ValueError(f"segment index out of range [0, {size})")
+    perm = np.argsort(a, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(a,
+                                                         minlength=size))])
+    return SegPlan(
+        idx=torch.as_tensor(a, device=device),
+        perm=torch.as_tensor(perm.astype(np.int32), device=device),
+        offsets=torch.as_tensor(offsets.astype(np.int32), device=device),
+        size=int(size))
+
+
+def seg_sum_ref(vals, idx, size: int):
+    """Batched segment sum: ``vals`` [.., N] added at the bin index
+    ``idx`` [N] into zeros [.., size] (``index_add_`` along the last
+    axis).  On the CPU each bin adds its entries in entry order, as
+    ``np.add.at`` does."""
+    lead = vals.shape[:-1]
+    v = vals.reshape(-1, vals.shape[-1])
+    out = v.new_zeros((v.shape[0], size))
+    out.index_add_(1, idx, v)
+    return out.reshape(lead + (size,))
 
 
 # --------------------------------------------------------------------------- #
@@ -154,6 +214,49 @@ def _admit_cuda(demand, space):
             n, stream), "priority_admit")
         LAUNCHES.add("priority_admit", dev)
     return out
+
+
+def _seg_lib():
+    lib = library(_SEG_SOURCE)
+    if not getattr(lib, "_typed", False):
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.seg_sum_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
+        lib.seg_sum_f32.restype = ctypes.c_int
+        lib.seg_sum_staged.argtypes = [i32]
+        lib.seg_sum_staged.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _seg_sum_cuda(vals, plan: SegPlan):
+    dev = vals.device
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {dev} but the current CUDA device "
+                         f"is {torch.cuda.current_device()}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals must be torch.float32, got {vals.dtype}")
+    n = vals.shape[-1] if vals.dim() else 0
+    _check("perm", plan.perm, (n,), torch.int32, dev)
+    _check("offsets", plan.offsets, (plan.size + 1,), torch.int32, dev)
+    v = vals.reshape(-1, n).contiguous()
+    out = torch.empty(vals.shape[:-1] + (plan.size,), dtype=torch.float32,
+                      device=dev)
+    if out.numel():
+        _raise_on(_seg_lib().seg_sum_f32(
+            v.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
+            out.data_ptr(), v.shape[0], n, plan.size,
+            torch.cuda.current_stream(dev).cuda_stream), "seg_sum")
+        LAUNCHES.add("seg_sum", dev)
+    return out
+
+
+def seg_sum(vals, plan: SegPlan, impl: str = "auto"):
+    """Deterministic batched segment sum (see :func:`seg_sum_ref`) at a
+    plan from :func:`seg_plan`: the CUDA kernel for CUDA tensors, the
+    plain version for CPU ones."""
+    if resolve_impl(impl, vals.device) == "cuda":
+        return _seg_sum_cuda(vals, plan)
+    return seg_sum_ref(vals, plan.idx, plan.size)
 
 
 def priority_grants(demand, can, budget, crumb, impl: str = "auto"):

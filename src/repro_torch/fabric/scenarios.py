@@ -3,8 +3,9 @@
 plus an optional open-loop victim flow), HPC all-to-all, the QoS-mixed
 storage fleet, the OLAP shuffle, incast under a link failure, the
 strict/WRR and whole-link/per-class host-gate pairs, the message incast
-under the CC zoo and its lossy twin, and the grid functions that feed
-:func:`repro_torch.fabric.vector.run_fabric_sweep`."""
+under the CC zoo and its lossy twin, the pod-scale (3-level Clos)
+incast, shuffle and PFC-storm scenarios, and the grid functions that
+feed :func:`repro_torch.fabric.vector.run_fabric_sweep`."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,7 +21,7 @@ from .faults import FaultConfig
 from .messages import MessageConfig
 from .routing import RoutingConfig
 from .switch import SwitchConfig
-from .topology import Topology, clos, incast_fabric
+from .topology import Topology, clos, incast_fabric, make_pod_clos
 
 
 @dataclasses.dataclass
@@ -380,3 +381,123 @@ def lossy_incast_grid(loss_rate: Sequence[float] = (0.002, 0.01, 0.05),
         lambda loss_rate, recovery: lossy_incast(
             loss_rate=loss_rate, recovery=recovery, **kw),
         loss_rate=list(loss_rate), recovery=list(recovery))
+
+
+# --------------------------------------------------------------------------- #
+# Pod-scale (3-level Clos) scenarios
+# --------------------------------------------------------------------------- #
+def pod_incast(pods: int = 2, leaves_per_pod: int = 2,
+               hosts_per_leaf: int = 4, mode: str = "jet",
+               burst_mb: float = 1.0, pfc: bool = False,
+               with_victim: bool = True,
+               sim_time_s: float = 0.005) -> Scenario:
+    """Cross-pod incast: every host of pods 1..P-1 bursts into one
+    receiver in pod 0, so the fan-in crosses two oversubscription
+    points (pod spine, then super-spine) before hitting the last-mile
+    receiver bottleneck the paper studies — the hundreds-of-senders
+    regime where the cache/PFC cascade differs in kind from the
+    single-leaf testbed.  An optional victim inside the destination
+    pod measures cross-tier HoL collateral.  Super-spine topologies run
+    on the sparse-incidence engine (``run_fabric_sweep`` picks it
+    automatically)."""
+    topo = make_pod_clos(pods, leaves_per_pod, hosts_per_leaf)
+    flows = [Flow(src=f"p{pi}h{li}_{hi}", dst="p0h0_0",
+                  burst_bytes=burst_mb * 1e6, tag="incast")
+             for pi in range(1, pods)
+             for li in range(leaves_per_pod)
+             for hi in range(hosts_per_leaf)]
+    if with_victim and hosts_per_leaf > 1:
+        flows.append(Flow(src=f"p0h{leaves_per_pod - 1}_0",
+                          dst="p0h0_1", tag="victim"))
+    sw = SwitchConfig(pfc_enabled=pfc)
+    return Scenario(
+        name=f"pod_incast{pods}x{leaves_per_pod}x{hosts_per_leaf}"
+             f"_{mode}{'_pfc' if pfc else ''}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory(mode, pfc)))
+
+
+def pod_incast_grid(mode: Sequence[str] = ("jet", "ddio"),
+                    pfc: Sequence[bool] = (False, True),
+                    **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Receiver mode x PFC grid over :func:`pod_incast` — one sparse
+    vector program covers the whole pod-scale comparison."""
+    return fabric_grid(
+        lambda mode, pfc: pod_incast(mode=mode, pfc=pfc, **kw),
+        mode=list(mode), pfc=list(pfc))
+
+
+def pod_shuffle(pods: int = 2, leaves_per_pod: int = 2,
+                hosts_per_leaf: int = 2, shuffle_mb: float = 1.0,
+                mode: str = "ddio", pfc: bool = False,
+                sim_time_s: float = 0.005) -> Scenario:
+    """Pod-wide OLAP shuffle (:func:`olap_shuffle` at pod scale): every
+    host of pod ``i`` streams one partition to every host of pod
+    ``i+1 mod P`` — an all-to-all *across the super-spine tier*, so
+    completion time is decided by the plane-aligned uplink choice and
+    the per-tier oversubscription, not one congested receiver.
+    ``pods=1`` degenerates to the 2-tier intra-pod shuffle."""
+    topo = make_pod_clos(pods, leaves_per_pod, hosts_per_leaf)
+
+    def hosts_of(pi: int) -> List[str]:
+        return [f"p{pi}h{li}_{hi}" for li in range(leaves_per_pod)
+                for hi in range(hosts_per_leaf)]
+
+    n_red = leaves_per_pod * hosts_per_leaf
+    flows = [Flow(src=src, dst=dst,
+                  burst_bytes=shuffle_mb * 1e6 / n_red,
+                  qos=QoS.NORMAL, tag="shuffle")
+             for pi in range(pods)
+             for src in hosts_of(pi)
+             for dst in hosts_of((pi + 1) % pods)
+             if src != dst]
+    sw = SwitchConfig(pfc_enabled=pfc)
+    return Scenario(
+        name=f"pod_shuffle{pods}x{leaves_per_pod}x{hosts_per_leaf}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory(mode, pfc)))
+
+
+def pod_pfc_storm(pods: int = 2, leaves_per_pod: int = 2,
+                  hosts_per_leaf: int = 4, buffer_kb: float = 64.0,
+                  per_tc: bool = True,
+                  sim_time_s: float = 0.005) -> Scenario:
+    """Cross-tier PFC-storm study: a lossless (PFC everywhere) cross-pod
+    incast with deliberately small switch buffers, so xoff cascades from
+    the destination leaf back through its pod spine to the super-spine
+    tier and out into every source pod.  ``pause_tc_fanout`` /
+    ``pause_storm`` measure the blast radius — the pause-propagation
+    failure mode that only appears beyond one tier.
+    Open-loop senders (no burst cap) keep the cascade fed for the whole
+    window."""
+    topo = make_pod_clos(pods, leaves_per_pod, hosts_per_leaf)
+    flows = [Flow(src=f"p{pi}h{li}_{hi}", dst="p0h0_0",
+                  qos=QoS.NORMAL, tag="incast")
+             for pi in range(1, pods)
+             for li in range(leaves_per_pod)
+             for hi in range(hosts_per_leaf)]
+    if hosts_per_leaf > 1:
+        # cross-pod victim sharing only the paused tiers (collateral)
+        flows.append(Flow(src="p1h0_1", dst=f"p0h{leaves_per_pod - 1}_1",
+                          qos=QoS.HIGH, tag="victim"))
+    sw = SwitchConfig(pfc_enabled=True, per_tc=per_tc,
+                      port_buffer_bytes=int(buffer_kb * 1024))
+    return Scenario(
+        name=f"pod_storm{pods}x{leaves_per_pod}x{hosts_per_leaf}"
+             f"_b{buffer_kb:g}k",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory("ddio", True)))
+
+
+def pod_storm_grid(buffer_kb: Sequence[float] = (32.0, 64.0, 128.0),
+                   **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Buffer-size sweep over :func:`pod_pfc_storm`: smaller per-port
+    buffers assert xoff earlier and push the pause frontier deeper into
+    the fabric — ``pause_storm`` vs buffer size is the cross-tier
+    cascade curve."""
+    return fabric_grid(
+        lambda buffer_kb: pod_pfc_storm(buffer_kb=buffer_kb, **kw),
+        buffer_kb=list(buffer_kb))

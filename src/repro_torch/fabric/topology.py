@@ -1,18 +1,30 @@
-"""Two-tier leaf–spine Clos topologies for the multi-host RDCA fabric.
+"""Leaf–spine and pod-scale Clos topologies for the multi-host RDCA fabric.
 
-A topology is a set of hosts, leaf switches and spine switches joined by
-unidirectional capacity-annotated links.  :meth:`Topology.route` gives
-the *static ECMP* path: a cross-leaf flow hashes onto one of the spines
-wired to both of its leaves (``spines[flow_id % n]`` on a fully wired
-Clos), an intra-leaf flow turns at its leaf.
+A topology is a set of hosts, leaf switches, spine switches and, at pod
+scale, super-spine switches, joined by unidirectional
+capacity-annotated links.  :meth:`Topology.route` gives the *static
+ECMP* path: a flow hashes onto one of its wired candidate paths
+(cross-leaf pairs transit a common spine, cross-pod pairs climb to a
+super-spine), an intra-leaf flow turns at its leaf.  The candidate
+structure (:meth:`Topology.candidate_spines` /
+:meth:`Topology.candidate_paths`) feeds the dynamic routing modes, and
+links carry scheduled failure windows (:meth:`Topology.fail_link`) and
+periodic flap schedules (:meth:`Topology.flap_link`) on any tier, which
+the engine turns into per-tick link state.
+
+Two preset families:
+
+* :func:`clos`: the 2-tier leaf–spine fabric (every leaf wired to every
+  spine);
+* :func:`make_pod_clos`: a 3-level fabric of ``pods`` pods, each of
+  ``leaves_per_pod`` leaves and ``spines_per_pod`` pod-local spines,
+  under a super-spine *plane* per pod-spine index (pod spine ``i`` of
+  every pod wires to the plane-``i`` super-spines), with per-tier link
+  speeds and hence per-tier oversubscription.
 
 Candidate sets are wiring-restricted: a spine is a candidate for a host
 pair only if it has links to both endpoints' leaves, and an unroutable
-pair raises a clear ``ValueError``.  Links carry scheduled failure
-windows (:meth:`Topology.fail_link`) and periodic flap schedules
-(:meth:`Topology.flap_link`), which the engine turns into per-tick
-reroutes under load.  The 3-level pod fabrics of the reference are not
-part of this port.
+pair raises a clear ``ValueError``.
 """
 from __future__ import annotations
 
@@ -44,16 +56,23 @@ class Topology:
     spines: List[str]
     links: Dict[LinkKey, Link]             # both directions present
     host_leaf: Dict[str, str]              # host -> its leaf
+    # 3-level fabrics only: super-spine tier above the pod spines.  A
+    # 2-tier fabric leaves this empty and nothing else changes.
+    super_spines: List[str] = dataclasses.field(default_factory=list)
+    # pod index per leaf/spine (presets fill this; purely informational
+    # for single-pod fabrics)
+    pod_of: Dict[str, int] = dataclasses.field(default_factory=dict)
     # scheduled failure windows: link key -> (down_at_us, restore_us);
     # a link is down while down_at_us <= t < restore_us
     link_down: Dict[LinkKey, Tuple[float, float]] = \
         dataclasses.field(default_factory=dict)
-    # periodic flap schedules: link key -> (start_us, period_us, down_us);
-    # from start_us the link repeats a period_us cycle, down for the
-    # first down_us of each cycle
+    # periodic flap schedules (generalized fail_link): link key ->
+    # (start_us, period_us, down_us); from start_us the link repeats a
+    # period_us cycle — down for the first down_us of each cycle
     link_flaps: Dict[LinkKey, Tuple[float, float, float]] = \
         dataclasses.field(default_factory=dict)
 
+    # -- queries ------------------------------------------------------------
     def link(self, src: str, dst: str) -> Link:
         return self.links[(src, dst)]
 
@@ -64,25 +83,98 @@ class Topology:
         return [l for l in self.links.values()
                 if l.src == leaf and l.dst in self.spines]
 
+    def super_uplinks(self, spine: str) -> List[Link]:
+        """Spine -> super-spine links (empty on 2-tier fabrics)."""
+        ss = set(self.super_spines)
+        return [l for l in self.links.values()
+                if l.src == spine and l.dst in ss]
+
+    def fabric_uplinks(self) -> List[Link]:
+        """All upward-facing fabric links: leaf->spine on every fabric
+        plus spine->super-spine on 3-level fabrics — the link set the
+        engines track for uplink utilization/imbalance."""
+        out = [l for leaf in self.leaves for l in self.uplinks(leaf)]
+        if self.super_spines:
+            out += [l for s in self.spines for l in self.super_uplinks(s)]
+        return out
+
+    def hosts_on(self, leaf: str) -> List[str]:
+        return [h for h in self.hosts if self.host_leaf[h] == leaf]
+
+    def oversubscription(self, leaf: str) -> float:
+        """Host-facing bandwidth / spine-facing bandwidth (1.0 = rearrange-
+        ably non-blocking, >1 = oversubscribed)."""
+        down = sum(self.links[(h, leaf)].gbps for h in self.hosts_on(leaf))
+        up = sum(l.gbps for l in self.uplinks(leaf))
+        return down / up if up else float("inf")
+
+    def spine_oversubscription(self, spine: str) -> float:
+        """Leaf-facing bandwidth / super-spine-facing bandwidth of a pod
+        spine — the tier-2 analogue of :meth:`oversubscription`."""
+        ss = set(self.super_spines)
+        down = sum(l.gbps for l in self.links.values()
+                   if l.src == spine and l.dst in self.leaves)
+        up = sum(l.gbps for l in self.links.values()
+                 if l.src == spine and l.dst in ss)
+        return down / up if up else float("inf")
+
+    def bisection_gbps(self) -> float:
+        """Aggregate leaf->spine capacity (the fabric's bisection)."""
+        return sum(l.gbps for leaf in self.leaves for l in self.uplinks(leaf))
+
     def candidate_paths(self, src_host: str, dst_host: str) \
             -> List[List[str]]:
-        """Interior (leaf..leaf) candidate node paths of a host pair over
-        wired links: ``[]`` for an intra-leaf pair, ``[sl, spine, dl]``
-        triples otherwise; raises ``ValueError`` when no spine connects
-        the two leaves."""
+        """Interior (leaf..leaf) candidate node paths for a host pair,
+        restricted to wired links.  ``[]`` for intra-leaf pairs;
+        ``[sl, spine, dl]`` triples when a common spine exists;
+        ``[sl, spineA, ss, spineB, dl]`` five-tuples through the
+        super-spine tier otherwise.  Raises a clear ``ValueError`` when
+        the pair is unroutable (no common spine and no super-spine
+        path)."""
         sl, dl = self.host_leaf[src_host], self.host_leaf[dst_host]
         if sl == dl:
             return []
-        common = self.candidate_spines(src_host, dst_host)
-        if not common:
-            raise ValueError(f"no spine connects {sl} and {dl} (pair "
-                             f"{src_host}->{dst_host} is unroutable)")
-        return [[sl, s, dl] for s in common]
+        common = [s for s in self.spines
+                  if (sl, s) in self.links and (s, dl) in self.links]
+        if common:
+            return [[sl, s, dl] for s in common]
+        out: List[List[str]] = []
+        for ss in self.super_spines:
+            ups = [s for s in self.spines
+                   if (sl, s) in self.links and (s, ss) in self.links]
+            dns = [s for s in self.spines
+                   if (ss, s) in self.links and (s, dl) in self.links]
+            out += [[sl, sa, ss, sb, dl] for sa in ups for sb in dns]
+        if not out:
+            raise ValueError(
+                f"no spine or super-spine path connects {sl} and {dl} "
+                f"(pair {src_host}->{dst_host} is unroutable)")
+        return out
+
+    def route(self, src_host: str, dst_host: str, flow_id: int) -> List[str]:
+        """Node path for a flow; ECMP picks among the wired candidate
+        paths by flow-id hash (on a fully-wired 2-tier Clos this is the
+        classic spine = spines[flow_id % n_spines] pick)."""
+        if src_host == dst_host:
+            raise ValueError("flow endpoints must differ")
+        sl = self.host_leaf[src_host]
+        if sl == self.host_leaf[dst_host]:
+            return [src_host, sl, dst_host]
+        paths = self.candidate_paths(src_host, dst_host)
+        return [src_host] + paths[flow_id % len(paths)] + [dst_host]
+
+    def route_links(self, src_host: str, dst_host: str,
+                    flow_id: int) -> List[Link]:
+        nodes = self.route(src_host, dst_host, flow_id)
+        return [self.links[(a, b)] for a, b in zip(nodes, nodes[1:])]
 
     def candidate_spines(self, src_host: str, dst_host: str) -> List[str]:
-        """Spines that can carry this pair's traffic, restricted to
-        spines with wired links to *both* endpoints' leaves; empty for
-        intra-leaf pairs (which never transit a spine)."""
+        """Spines that can carry this pair's traffic (the ECMP candidate
+        set a dynamic routing mode chooses from), restricted to spines
+        with wired links to *both* endpoints' leaves; empty for
+        intra-leaf pairs (which never transit a spine) and for
+        cross-pod pairs (whose candidates are super-spine paths — see
+        :meth:`candidate_paths`)."""
         sl = self.host_leaf[src_host]
         dl = self.host_leaf[dst_host]
         if sl == dl:
@@ -90,27 +182,14 @@ class Topology:
         return [s for s in self.spines
                 if (sl, s) in self.links and (s, dl) in self.links]
 
-    def route(self, src_host: str, dst_host: str, flow_id: int) -> List[str]:
-        """Node path for a flow; ECMP picks among the wired candidate
-        spines by flow-id hash."""
-        if src_host == dst_host:
-            raise ValueError("flow endpoints must differ")
-        sl, dl = self.host_leaf[src_host], self.host_leaf[dst_host]
-        if sl == dl:
-            return [src_host, sl, dst_host]
-        spines = self.candidate_spines(src_host, dst_host)
-        if not spines:
-            raise ValueError(f"no spine connects {sl} and {dl} (pair "
-                             f"{src_host}->{dst_host} is unroutable)")
-        return [src_host, sl, spines[flow_id % len(spines)], dl, dst_host]
-
     # -- link failure schedule ----------------------------------------------
     def fail_link(self, src: str, dst: str, at_us: float,
                   restore_us: float = math.inf,
                   bidi: bool = True) -> "Topology":
         """Schedule a link failure: ``(src, dst)`` goes down at ``at_us``
         and comes back at ``restore_us`` (default: never).  ``bidi``
-        fails the reverse direction too.  Returns ``self``."""
+        fails the reverse direction too — the physical-link semantics.
+        Returns ``self`` for chaining."""
         if (src, dst) not in self.links:
             raise ValueError(f"no link {src}->{dst} to fail")
         if at_us < 0.0 or restore_us <= at_us:
@@ -124,9 +203,9 @@ class Topology:
                   period_us: float, down_us: float,
                   bidi: bool = True) -> "Topology":
         """Schedule a periodic link flap: from ``start_us`` the link
-        repeats a ``period_us`` cycle, down for the first ``down_us`` of
-        each cycle (in-flight bytes drop on every falling edge).
-        Returns ``self``."""
+        repeats a ``period_us`` cycle, down for the first ``down_us``
+        of each cycle (in-flight bytes drop on every falling edge).
+        Returns ``self`` for chaining."""
         if (src, dst) not in self.links:
             raise ValueError(f"no link {src}->{dst} to flap")
         if start_us < 0.0 or not 0.0 < down_us < period_us:
@@ -149,8 +228,9 @@ class Topology:
 
     def failure_ticks(self, dt_us: float) -> Dict[LinkKey,
                                                   Tuple[int, int]]:
-        """Failure windows as integer ticks (down while ``at <= t <
-        until``); ``NEVER_TICK`` stands for +inf."""
+        """Failure windows as integer tick indices (down while
+        ``at <= t < until``); ``NEVER_TICK`` encodes +inf so every
+        engine compares the same int32-safe values."""
         out = {}
         for key, (a, u) in self.link_down.items():
             at = max(0, int(round(a / dt_us)))
@@ -162,8 +242,9 @@ class Topology:
     def flap_ticks(self, dt_us: float) -> Dict[LinkKey,
                                                Tuple[int, int, int]]:
         """Flap schedules as integer tick triples ``(start, period,
-        down)``: down while ``t >= start and (t - start) % period <
-        down``."""
+        down)``; down while ``t >= start and (t - start) % period <
+        down`` — the contract every engine shares (see
+        :func:`repro_torch.fabric.faults.flap_down_now`)."""
         out = {}
         for key, (s, p, d) in self.link_flaps.items():
             start = max(0, int(round(s / dt_us)))
@@ -172,8 +253,9 @@ class Topology:
             out[key] = (start, period, down)
         return out
 
+    # -- invariants ----------------------------------------------------------
     def validate(self) -> None:
-        names = self.hosts + self.leaves + self.spines
+        names = self.hosts + self.leaves + self.spines + self.super_spines
         if len(set(names)) != len(names):
             raise ValueError("node names must be unique")
         for h in self.hosts:
@@ -190,10 +272,22 @@ class Topology:
                 raise ValueError(f"link {src}->{dst} has non-positive rate")
             if (dst, src) not in self.links:
                 raise ValueError(f"link {src}->{dst} has no reverse link")
+        # Partial leaf<->spine wiring is legal (the normal case in
+        # multi-pod fabrics) — candidate sets are wiring-restricted and
+        # route() raises on unroutable pairs.  Structurally we only
+        # require each fabric switch to be wired at all.
+        spine_set, ss_set = set(self.spines), set(self.super_spines)
         for s in self.spines:
             if not any(l.dst == s and l.src in self.leaves
                        for l in self.links.values()):
                 raise ValueError(f"spine {s} not connected to any leaf")
+        for ss in self.super_spines:
+            if not any(l.dst == ss and l.src in spine_set
+                       for l in self.links.values()):
+                raise ValueError(f"super-spine {ss} not connected to any "
+                                 "spine")
+        if ss_set and not spine_set:
+            raise ValueError("super-spines require a spine tier")
         if len(self.leaves) > 1 and not self.spines:
             raise ValueError("multi-leaf topology requires spines")
         for key in self.link_down:
@@ -211,6 +305,9 @@ def _bidi(links: Dict[LinkKey, Link], a: str, b: str, gbps: float) -> None:
     links[(b, a)] = Link(b, a, gbps)
 
 
+# --------------------------------------------------------------------------- #
+# Presets
+# --------------------------------------------------------------------------- #
 def clos(n_leaves: int = 2, hosts_per_leaf: int = 4, n_spines: int = 2,
          host_gbps: float = 200.0, uplink_gbps: float = 400.0) -> Topology:
     """Generic two-tier Clos: ``n_leaves`` leaves x ``hosts_per_leaf`` hosts,
@@ -254,3 +351,64 @@ def incast_fabric(n_senders: int, host_gbps: float = 200.0,
     return clos(n_leaves=2, hosts_per_leaf=max(n_senders,
                                                1 + extra_receivers),
                 n_spines=2, host_gbps=host_gbps, uplink_gbps=uplink_gbps)
+
+
+def make_pod_clos(pods: int, leaves_per_pod: int, hosts_per_leaf: int,
+                  spines_per_pod: int = 2, sspines_per_plane: int = 1,
+                  host_gbps: float = 100.0, leaf_spine_gbps: float = 200.0,
+                  spine_sspine_gbps: float = 400.0) -> Topology:
+    """Pod-scale 3-level Clos.
+
+    Each pod is a fully-wired 2-tier Clos of ``leaves_per_pod`` leaves
+    (``hosts_per_leaf`` hosts each) and ``spines_per_pod`` pod-local
+    spines.  Above the pods sit super-spine *planes*: pod spine ``i``
+    of every pod wires to the ``sspines_per_plane`` super-spines of
+    plane ``i`` — the standard plane-aligned wiring, which means
+    choosing the source pod's spine chooses the plane, and the rest of
+    a cross-pod path is determined.  Per-tier link speeds give per-tier
+    oversubscription (:meth:`Topology.oversubscription` at the leaf,
+    :meth:`Topology.spine_oversubscription` at the pod spine).
+
+    Node naming: host ``p{pod}h{leaf}_{i}``, leaf ``p{pod}l{leaf}``,
+    spine ``p{pod}s{i}``, super-spine ``ss{plane}`` (or
+    ``ss{plane}_{k}`` when ``sspines_per_plane > 1``).
+
+    ``pods == 1`` builds a plain 2-tier pod (no super-spine tier).
+    """
+    if pods < 1 or leaves_per_pod < 1 or hosts_per_leaf < 1 \
+            or spines_per_pod < 1 or sspines_per_plane < 1:
+        raise ValueError("invalid pod-Clos dimensions")
+    hosts, leaves, spines, sspines = [], [], [], []
+    links: Dict[LinkKey, Link] = {}
+    host_leaf: Dict[str, str] = {}
+    pod_of: Dict[str, int] = {}
+    for pi in range(pods):
+        pod_leaves = []
+        for li in range(leaves_per_pod):
+            leaf = f"p{pi}l{li}"
+            leaves.append(leaf)
+            pod_leaves.append(leaf)
+            pod_of[leaf] = pi
+            for hi in range(hosts_per_leaf):
+                h = f"p{pi}h{li}_{hi}"
+                hosts.append(h)
+                host_leaf[h] = leaf
+                _bidi(links, h, leaf, host_gbps)
+        for si in range(spines_per_pod):
+            spine = f"p{pi}s{si}"
+            spines.append(spine)
+            pod_of[spine] = pi
+            for leaf in pod_leaves:
+                _bidi(links, leaf, spine, leaf_spine_gbps)
+    if pods > 1:
+        for plane in range(spines_per_pod):
+            for k in range(sspines_per_plane):
+                ss = f"ss{plane}" if sspines_per_plane == 1 \
+                    else f"ss{plane}_{k}"
+                sspines.append(ss)
+                for pi in range(pods):
+                    _bidi(links, f"p{pi}s{plane}", ss, spine_sspine_gbps)
+    topo = Topology(hosts, leaves, spines, links, host_leaf,
+                    super_spines=sspines, pod_of=pod_of)
+    topo.validate()
+    return topo

@@ -1,6 +1,6 @@
 """Vectorized fabric engine in PyTorch: whole-grid multi-host simulation.
 
-The port of ``repro.fabric.vector``'s dense engine: DCQCN, Timely or
+The port of ``repro.fabric.vector``.  Its dense engine: DCQCN, Timely or
 HPCC senders, strict-priority or WRR switches, whole-link or per-class
 receiver PFC, static ECMP or per-tick dynamic routing (weighted ECMP,
 adaptive, spray) under link failure and flap schedules, verbs messages
@@ -52,8 +52,17 @@ captures one iteration of the reference's ``lax.while_loop`` body (fine
 step, whole-grid stride, macro advance) and replays batches of it,
 reading the tick back once a batch.
 
-Grids that need the reference's 3-level (sparse) fabrics raise
-``NotImplementedError`` naming the feature.
+The sparse-incidence engine (``FabricSweepParams.from_scenarios(...,
+sparse=True)``, which ``run_fabric_sweep`` picks for 3-level pod
+fabrics) runs the same tick over ``[G, 2, 6, F]`` slot entries: a flow's
+bytes at each of up to six tier-ordered hops (NIC egress, leaf uplink,
+spine uplink, super-spine, spine downlink, leaf downlink).  Per-(TC,
+port) totals are deterministic segment sums at static indices
+(:func:`repro_torch.fabric.fused.seg_sum`, a CUDA kernel on the card)
+and per-port decisions come back to the flows as gathers, so its cost
+grows with flows x hops, not flows x ports.  It takes static ECMP with
+failure/flap windows, strict/WRR drain, per-TC switch and host PFC and
+the CC zoo; on a 2-tier grid it equals the dense engine.
 """
 from __future__ import annotations
 
@@ -76,6 +85,10 @@ from .tickgraph import TickChain, adaptive_batches
 from .topology import NEVER_TICK
 
 _STAGES = 4          # NIC egress, leaf uplink, spine, leaf downlink
+# sparse-incidence stage slots (3-level pod fabrics): NIC egress, leaf
+# uplink, spine uplink (-> super-spine), super-spine, spine downlink,
+# leaf downlink.  A 2-tier flow leaves slots 2-3 empty.
+_STAGES_SP = 6
 
 # pvals entries that stay integer (tick indices, codes, ring offsets)
 _INT_KEYS = frozenset(["d_base", "d_strag", "cnp_dly", "fail_at",
@@ -147,24 +160,8 @@ _SWITCH_TC = [
     ("sw_xon", lambda s, tc: s.xon_frac(tc)),
 ]
 
-# Fields of the reference's packing that belong to its sparse engine,
-# which this one does not run, with the value a dense grid packs; a
-# packing that sets any other value is refused by ``from_arrays``.
-_UNPORTED_DEFAULTS = {
-    "sparse": False, "port_of": None, "prv_port": None, "nxt_slot": None,
-    "pack_fail": False, "pause_extra": None, "pausable_extra": None,
-}
 # reference packing fields with no meaning here (its program-cache key)
 _IGNORED = frozenset(["structure_key"])
-
-
-def unsupported_features(scens: Sequence) -> List[str]:
-    """Names of the reference-engine layers a grid needs that this port
-    does not run (empty = the grid runs here).  Reads scenarios by duck
-    type, so the reference's scenario objects can be checked too."""
-    if any(getattr(s.topology, "super_spines", None) for s in scens):
-        return ["3-level super-spine fabrics (sparse incidence)"]
-    return []
 
 
 def _dcqcn_of(s, f, line: float) -> DcqcnConfig:
@@ -227,23 +224,44 @@ class FabricSweepParams:
     msg_ring: int = 1                    # Lm (message start-time ring)
     any_flt: bool = False                # any point attaches a FaultConfig
     any_flap: bool = False               # any point schedules link flaps
+    # -- sparse-incidence structure (3-level pod fabrics) --------------------
+    # Queue state becomes [G, 2, S, F] slot entries (S = _STAGES_SP):
+    # slot (s, f) holds flow f's bytes queued at ``port_of[s, f]``
+    # (n_ports = "slot unused").  ``prv_port`` is each slot's ingress
+    # port (PFC pause target), ``nxt_slot`` the next occupied slot a
+    # stage's drain output enqueues into (_STAGES_SP = "delivered").
+    sparse: bool = False
+    port_of: Optional[np.ndarray] = None     # [6, F] int32
+    prv_port: Optional[np.ndarray] = None    # [6, F] int32
+    nxt_slot: Optional[np.ndarray] = None    # [6, F] int32
+    pack_fail: bool = False              # sparse grid with failure windows
+    # candidate-ingress pauses under failure schedules: a shallow
+    # (intra-pod, multi-candidate) flow's last-hop queue also pauses its
+    # other candidate downlinks, and every candidate hop joins the
+    # pausable ports.  [2, E] (flow, target port) extra pause pairs, and
+    # the candidate hop ports.
+    pause_extra: Optional[np.ndarray] = None
+    pausable_extra: Optional[np.ndarray] = None
 
     @classmethod
-    def from_scenarios(cls, scens: Sequence) -> "FabricSweepParams":
+    def from_scenarios(cls, scens: Sequence,
+                       sparse: bool = False) -> "FabricSweepParams":
         """Pack a grid of scenarios (anything with ``.topology``,
         ``.flows``, ``.fabric``) whose points share the topology
         structure and the flow set; numeric knobs, the routing mode and
         link failure/flap schedules, the message layer, the congestion
         controller and fault injection may vary per point.  A grid with
         no dynamic point keeps the frozen static-ECMP routes, which must
-        then agree."""
+        then agree.
+
+        ``sparse=True`` packs the segmented (slot) incidence instead of
+        the dense port x flow one-hots: required for 3-level
+        (super-spine) topologies, and it runs any static 2-tier grid.  It
+        takes static ECMP with failure/flap windows and the CC zoo; the
+        dynamic routing modes, the message layer and fault injection
+        raise ``ValueError`` there."""
         if not scens:
             raise ValueError("empty fabric sweep grid")
-        feats = unsupported_features(scens)
-        if feats:
-            raise NotImplementedError(
-                "the PyTorch fabric engine does not run this grid's "
-                + ", ".join(feats))
         s0 = scens[0]
         topo0, flows0 = s0.topology, s0.flows
         dt = s0.fabric.dt_us
@@ -274,6 +292,30 @@ class FabricSweepParams:
         any_msg = any(m is not None for s in scens for m in msg_of(s))
         any_cc = any(c is not None and c.algo != "dcqcn"
                      for s in scens for c in cc_of(s))
+        pack_fail = False
+        if sparse:
+            # sparse incidence freezes routes as structure: static ECMP
+            # only, with failure/flap windows and the CC zoo as per-point
+            # parameters
+            if any(s.fabric.routing.is_dynamic for s in scens):
+                raise ValueError(
+                    "sparse incidence supports static_ecmp routing only; "
+                    "dynamic routing modes need the dense engine "
+                    "(2-tier topologies)")
+            if any_msg:
+                raise ValueError("sparse incidence does not support the "
+                                 "message layer; use the dense engine")
+            if any_flt:
+                raise ValueError("sparse incidence does not support "
+                                 "FaultConfig injection; use the dense "
+                                 "engine")
+            pack_fail = dyn         # only failure/flap schedules remain
+            dyn = False
+        elif any(s.topology.super_spines for s in scens):
+            raise ValueError(
+                "3-level (super-spine) topologies need the sparse-"
+                "incidence engine: run_fabric_sweep(..., "
+                "incidence='auto' or 'sparse')")
         if any_msg:
             for s in scens:
                 for m in msg_of(s):
@@ -339,7 +381,61 @@ class FabricSweepParams:
         Sn = len(topo0.spines)
         cols = np.arange(F)
         upP = dnP = candS = crossF = T1 = init_spine = None
-        if not dyn:
+        port_of = prv_port = nxt_slot = None
+        pause_extra = pausable_extra = None
+        if sparse:
+            # six tier-ordered stage slots; each flow occupies the slots
+            # of its frozen route (2/4/6 hops) and every port belongs to
+            # exactly one slot, so per-(port, TC) totals are segment sums
+            # over the S*F (slot, flow) entries instead of [P, F] one-hot
+            # products: cost grows with flows x hops, not flows x ports
+            slot_of = {3: (0, 5), 5: (0, 1, 4, 5), 7: tuple(range(6))}
+            stage_ports = np.full((_STAGES_SP, F), -1, np.int64)
+            for fid, nodes in enumerate(routes):
+                slots = slot_of.get(len(nodes))
+                if slots is None:
+                    raise ValueError(
+                        f"unsupported route length {len(nodes)}")
+                for sl_i, hop in zip(slots, zip(nodes, nodes[1:])):
+                    stage_ports[sl_i, fid] = add(hop, sl_i)
+            # under failure schedules a shallow (intra-pod,
+            # multi-candidate) flow's last-hop queue pauses the whole
+            # candidate downlink set and every candidate hop joins the
+            # pausable ports; deep super-spine routes stay frozen chains
+            ex_f, ex_p, cand_ports = [], [], []
+            if pack_fail:
+                for fid, f in enumerate(flows0):
+                    if len(routes[fid]) != 5:
+                        continue
+                    paths = topo0.candidate_paths(f.src, f.dst)
+                    if len(paths) <= 1:
+                        continue
+                    frozen_dn = stage_ports[4, fid]
+                    for pth in paths:
+                        pu = add((pth[0], pth[1]), 1)
+                        pd = add((pth[1], pth[2]), 4)
+                        cand_ports += [pu, pd]
+                        if pd != frozen_dn:
+                            ex_f.append(fid)
+                            ex_p.append(pd)
+            if ex_f:
+                pause_extra = np.array([ex_f, ex_p], np.int32)
+            if cand_ports:
+                pausable_extra = np.array(sorted(set(cand_ports)),
+                                          np.int32)
+            P = len(port_id)
+            port_of = np.where(stage_ports >= 0, stage_ports,
+                               P).astype(np.int32)
+            prv_port = np.full((_STAGES_SP, F), P, np.int32)
+            nxt_slot = np.full((_STAGES_SP, F), _STAGES_SP, np.int32)
+            for fid in range(F):
+                used = np.flatnonzero(stage_ports[:, fid] >= 0)
+                for a, b in zip(used, used[1:]):
+                    nxt_slot[a, fid] = b
+                    prv_port[b, fid] = stage_ports[a, fid]
+            occ, dest = [], []
+            prev_onehot = np.zeros((0, F, 0))
+        elif not dyn:
             stage_ports = np.full((_STAGES, F), -1, np.int32)
             prev_port = np.full((_STAGES, F), -1, np.int32)
             for fid, nodes in enumerate(routes):
@@ -432,14 +528,15 @@ class FabricSweepParams:
         ridx = {h: i for i, h in enumerate(recv_hosts)}
         recv_of = np.array([ridx[f.dst] for f in flows0], np.int32)
         qos_of = np.array([int(f.qos) for f in flows0], np.int32)
-        stage_mask = np.zeros((_STAGES, P), bool)
+        n_stages = _STAGES_SP if sparse else _STAGES
+        stage_mask = np.zeros((n_stages, P), bool)
         for p, st in enumerate(port_stage):
             stage_mask[st, p] = True
         recv_onehot = np.zeros((R, F))
         recv_onehot[recv_of, cols] = 1.0
         owner_recv = np.full(P, -1, np.int32)
         for (a, b), pid in port_id.items():
-            if port_stage[pid] == _STAGES - 1:
+            if port_stage[pid] == n_stages - 1:
                 owner_recv[pid] = ridx[b]
 
         # ---- stacked per-point parameters -------------------------------- #
@@ -501,13 +598,14 @@ class FabricSweepParams:
                     (f.cnp_delay_us if f.cnp_delay_us is not None
                      else s.fabric.cnp_delay_us) / dt)))
                 for f in s.flows])
-            if dyn:
-                rc = s.fabric.routing
+            if dyn or pack_fail:
                 ft = topo.failure_ticks(dt)
                 nv = (NEVER_TICK, NEVER_TICK)
                 pv["fail_at"].append([ft.get(k, nv)[0] for k in port_keys])
                 pv["fail_until"].append([ft.get(k, nv)[1]
                                          for k in port_keys])
+            if dyn:
+                rc = s.fabric.routing
                 pv["rmode"].append(rc.mode_code())
                 pv["flet"].append(max(1, int(round(rc.flowlet_gap_us
                                                    / dt))))
@@ -593,29 +691,25 @@ class FabricSweepParams:
                    dyn_route=dyn, any_wrr=any_wrr, host_tc=host_tc,
                    settle_ring=Hs, n_spines=Sn if dyn else 0,
                    any_cc=any_cc, any_msg=any_msg, msg_ring=Lm,
-                   any_flt=any_flt, any_flap=any_flap)
+                   any_flt=any_flt, any_flap=any_flap,
+                   sparse=sparse, port_of=port_of, prv_port=prv_port,
+                   nxt_slot=nxt_slot, pack_fail=pack_fail,
+                   pause_extra=pause_extra, pausable_extra=pausable_extra)
 
     @classmethod
     def from_arrays(cls, d: Dict) -> "FabricSweepParams":
         """Build the packing from the reference's (``repro``'s
         ``FabricSweepParams`` as a field -> value dict of numpy arrays and
-        Python scalars), so both engines can run on identical packed
-        parameters.  Raises if the packing sets a field of a layer this
-        port does not run, or carries a field it does not know."""
+        Python scalars), dense or sparse, so both engines can run on
+        identical packed parameters.  Raises if the packing lacks a field
+        or carries one it does not know."""
         names = [f.name for f in dataclasses.fields(cls)]
         missing = [n for n in names if n not in d]
         if missing:
             raise ValueError(f"packing lacks {missing}")
-        for k, v in d.items():
-            if k in names or k in _IGNORED:
-                continue
-            if k not in _UNPORTED_DEFAULTS:
-                raise ValueError(f"unknown packing field {k!r}")
-            want = _UNPORTED_DEFAULTS[k]
-            if (v is not None) if want is None else (v != want):
-                raise NotImplementedError(
-                    f"packing sets {k}={v!r}: a layer the PyTorch fabric "
-                    "engine does not run")
+        unknown = [k for k in d if k not in names and k not in _IGNORED]
+        if unknown:
+            raise ValueError(f"unknown packing field {unknown[0]!r}")
         return cls(**{n: d[n] for n in names})
 
 
@@ -691,9 +785,7 @@ def _static(fsp: FabricSweepParams) -> Dict[str, object]:
     owner = fsp.owner_recv
     cls_onehot = np.zeros((N_QOS, F))
     cls_onehot[fsp.qos_of, np.arange(F)] = 1.0
-    sel = np.zeros((2, 2, 1, 1))
-    sel[0, 0], sel[1, 1] = 1.0, 1.0
-    return {
+    out = {
         "cls_of": fsp.qos_of,
         "cls_recv": cls_onehot[:, None, :] * fsp.recv_onehot[None, :, :],
         "stage": fsp.stage_mask,
@@ -701,6 +793,29 @@ def _static(fsp: FabricSweepParams) -> Dict[str, object]:
         "recv_of": fsp.recv_of,
         "owner_clamp": np.maximum(owner, 0),
         "owner_valid": owner >= 0,
+    }
+    if fsp.sparse:
+        S = _STAGES_SP
+        sel_inj = np.zeros((2, S, 1))
+        sel_inj[0, 0, 0] = 1.0
+        selm = np.zeros((2, 1))
+        selm[1, 0] = 1.0
+        out.update({
+            # where stage k's drain output enqueues: [S, F] one-hot of
+            # each flow's next slot (none past its last)
+            "nxt_oh": [(fsp.nxt_slot[k][None, :] == np.arange(S)[:, None])
+                       .astype(np.float64) for k in range(S - 1)],
+            "row_oh": [np.eye(S)[k][:, None] for k in range(S)],
+            "sel_inj": sel_inj,
+            "selm": selm,
+        })
+        if fsp.pause_extra is not None:
+            out["ex_f"] = fsp.pause_extra[0]
+        return out
+    sel = np.zeros((2, 2, 1, 1))
+    sel[0, 0], sel[1, 1] = 1.0, 1.0
+    return {
+        **out,
         "occ": list(fsp.occ),
         "dest": list(fsp.dest),
         "prev_mat": fsp.prev_onehot.reshape(P * F, P),
@@ -712,6 +827,41 @@ def _static(fsp: FabricSweepParams) -> Dict[str, object]:
         **({"dl_E": fused.pause_pair_onehot(fsp.port_keys)}
            if fsp.any_flt else {}),
     }
+
+
+def _seg_plans(fsp: FabricSweepParams, device) -> Dict[str, object]:
+    """The sparse tick's segment-sum plans, one per static index, built
+    once (:func:`repro_torch.fabric.fused.seg_plan`).  Bins are the flat
+    ``tc * (P + 1) + port`` addresses (column P is the "slot unused"
+    dummy) or the padded ports; each plan's ``idx`` also serves the
+    gathers that read a per-(TC, port) value back to the flows."""
+    S, P, F = _STAGES_SP, fsp.n_ports, fsp.n_flows
+    Ppad = P + 1
+    QPpad = N_QOS * Ppad
+    po = fsp.port_of.astype(np.int64)                     # [S, F]
+    qos = fsp.qos_of.astype(np.int64)                     # [F]
+    qp = qos[None, :] * Ppad + po
+    pp = qos[None, :] * Ppad + fsp.prv_port.astype(np.int64)
+    cols = np.arange(F)
+    dq = []
+    for k in range(S - 1):
+        nx = fsp.nxt_slot[k].astype(np.int64)
+        tp = np.where(nx < S, po[np.minimum(nx, S - 1), cols], P)
+        dq.append(qos * Ppad + tp)
+
+    def plan(idx, size):
+        return fused.seg_plan(idx, size, device)
+    out = {"qp_k": [plan(qp[k], QPpad) for k in range(S)],
+           "qp_flat": plan(qp.reshape(-1), QPpad),
+           "pp_flat": plan(pp.reshape(-1), QPpad),
+           "dq_k": [plan(d, QPpad) for d in dq],
+           "po_k": [plan(po[k], Ppad) for k in range(S)],
+           "po_flat": plan(po.reshape(-1), Ppad)}
+    if fsp.pause_extra is not None:
+        exf = fsp.pause_extra[0].astype(np.int64)
+        out["ex_flat"] = plan(qos[exf] * Ppad
+                              + fsp.pause_extra[1].astype(np.int64), QPpad)
+    return out
 
 
 def _to_device(a, dtype: torch.dtype, device: torch.device):
@@ -754,8 +904,10 @@ def _init_state(fsp: FabricSweepParams, p, dtype, device):
         "pace_tus": full(float("inf"), F),
         # CNP propagation ring (slot-major, 3 notification sources)
         "cring": z(Hc, 3, F),
-        # ports (axis 1: 0 = queued bytes, 1 = ECN-marked subset)
-        "qm": z(2, P, F),
+        # ports (axis 1: 0 = queued bytes, 1 = ECN-marked subset); a
+        # sparse grid queues per (stage slot, flow) instead of (port,
+        # flow), its PFC state stays classed [Q, P]
+        "qm": z(2, _STAGES_SP if fsp.sparse else P, F),
         "asserted": flags(N_QOS, P),
         "paused": flags(N_QOS, P),
         "pause_us": z(P),
@@ -778,6 +930,9 @@ def _init_state(fsp: FabricSweepParams, p, dtype, device):
         # fleet counters
         "ecn_marked": z(), "sw_dropped": z(),
     }
+    if fsp.sparse:
+        # per-uplink carried bytes (the fabric uplinks' utilization)
+        s["tx"] = z(P)
     if fsp.dyn_route:
         # routing state: current spine choice (static hash seed), reroute
         # counts and per-port carried bytes
@@ -944,6 +1099,9 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
     Hs, Sn, flap = opts["Hs"], opts["Sn"], opts["flap"]
     any_cc, any_msg, Lm, flt = opts["cc"], opts["msg"], opts["Lm"], \
         opts["flt"]
+    sparse = opts["sparse"]
+    links = dyn or opts["fail"]          # per-tick link up/down state
+
     def c(x):                            # 0-d constant of the engine dtype
         return torch.tensor(x, dtype=dtype, device=device)
 
@@ -956,10 +1114,10 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
     # simulated end-of-tick time of every tick, (t + 1) * dt in the
     # engine dtype, indexed by the tick
     nows = (torch.arange(ticks, device=device).to(dtype) + one) * fdt
-    arangeF = torch.arange(st["recv_of"].shape[0], dtype=torch.int32,
-                           device=device)
+    F = st["recv_of"].shape[0]
+    arangeF = torch.arange(F, dtype=torch.int32, device=device)
     cls_of, recv_of = st["cls_of"], st["recv_of"]
-    occ, dest = st["occ"], st["dest"]
+    occ, dest = st.get("occ"), st.get("dest")
     # loop-invariant per-point quantities
     budget = p["gbps"] * bpt
     budget_crumb = budget * c(1e-6)
@@ -1061,16 +1219,10 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         [G, P, F]; one class per flow, so one nonzero term per entry."""
         return torch.matmul(x_q.transpose(-1, -2), clsF)
 
-    def drain(s, k, upf=None):
-        """Stage-k ports forward up to rate*dt: strict-priority budget
-        grants (the fused water-fill), or WRR water-filling where a point
-        schedules it, pro rata across the flows of a class.  ``upf``
-        zeroes the budget of dead links.  Returns the drained tensor
-        ``out`` [G, 2, P, F]."""
-        qm = s["qm"]
-        qtc = class_tot(qm[:, 0])                            # [G, Q, P]
-        budget0 = budget if upf is None else budget * upf
-        can_q = st["stage"][k] & ~s["paused"] & (qtc > zero)
+    def grants(qtc, can_q, budget0):
+        """Per-(TC, port) drain fractions [G, Q, P]: strict-priority
+        budget grants (the fused water-fill), or WRR water-filling where
+        a point schedules it."""
         frac_q = fused.priority_grants(qtc, can_q, budget0, budget_crumb,
                                        impl=impl)
         if wrr:
@@ -1092,6 +1244,17 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             frac_wrr = torch.where(qtc > zero,
                                    alloc / torch.maximum(qtc, tiny), zero)
             frac_q = torch.where(is_wrr, frac_wrr, frac_q)
+        return frac_q
+
+    def drain(s, k, upf=None):
+        """Stage-k ports forward up to rate*dt (:func:`grants`), pro rata
+        across the flows of a class.  ``upf`` zeroes the budget of dead
+        links.  Returns the drained tensor ``out`` [G, 2, P, F]."""
+        qm = s["qm"]
+        qtc = class_tot(qm[:, 0])                            # [G, Q, P]
+        budget0 = budget if upf is None else budget * upf
+        can_q = st["stage"][k] & ~s["paused"] & (qtc > zero)
+        frac_q = grants(qtc, can_q, budget0)
         frac_pf = to_flows(frac_q)
         can_pf = to_flows(torch.where(can_q, one, zero))
         out = qm * frac_pf[:, None]
@@ -1125,6 +1288,85 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         s["ecn_marked"] = s["ecn_marked"] + dm.sum((-1, -2))
         s["qm"] = s["qm"] + take + dm[:, None] * st["sel1"]
 
+    if sparse:
+        # segmented (slot) incidence: per-(TC, port) totals are segment
+        # sums over the S*F (slot, flow) entries into the flat
+        # tc * (P + 1) + port bins (column P = "slot unused"), and every
+        # per-port decision comes back to the flows as a gather at the
+        # same addresses
+        S = _STAGES_SP
+        G, P = budget.shape
+        Ppad = P + 1
+        QPpad = N_QOS * Ppad
+        stage_any = opts["stage_any"]
+        qp_k, dq_k, po_k = st["qp_k"], st["dq_k"], st["po_k"]
+        pad_q = torch.zeros((G, N_QOS, 1), dtype=dtype, device=device)
+        pad_p = torch.zeros((G, 1), dtype=dtype, device=device)
+        # padded per-port budget for the telemetry gathers (budget 0 at
+        # the dummy column: the leg drops out)
+        budget_pad = torch.cat([budget, pad_p], -1)
+
+        def seg(vals, plan):
+            return fused.seg_sum(vals, plan, impl=impl)
+
+        def segQ(vals, plan):
+            """Per-flow values [G, N] summed into per-(TC, port) totals
+            [G, Q, P] (the dummy column sliced off)."""
+            return seg(vals, plan).reshape(G, N_QOS, Ppad)[..., :P]
+
+        def gQ(x_qp, idx):
+            """A per-(TC, port) value [G, Q, P] read back at the flat
+            (TC, port) addresses ``idx`` [N] (0 at the dummy column)."""
+            return torch.cat([x_qp, pad_q], -1).reshape(G, QPpad) \
+                .index_select(-1, idx)
+
+        def qtc_all(qm):
+            """Per-(TC, port) occupancy [G, Q, P]: one segment sum of all
+            slot entries (each port hosts exactly one slot's entries)."""
+            return segQ(qm[:, 0].reshape(G, S * F), st["qp_flat"])
+
+        def drain_sp(s, k, upf=None):
+            """Slot-k ports forward up to rate*dt: the dense drain's
+            grants on slot row k.  Returns the drained [G, 2, F] (the
+            slot row is the port-level provenance)."""
+            qm = s["qm"]
+            qrow = qm[:, :, k]                               # [G, 2, F]
+            plan = qp_k[k]
+            # the grants kernel takes a contiguous demand
+            qtc = segQ(qrow[:, 0], plan).contiguous()
+            budget0 = budget if upf is None else budget * upf
+            can_q = st["stage"][k] & ~s["paused"] & (qtc > zero)
+            frac_f = gQ(grants(qtc, can_q, budget0), plan.idx)
+            out = qrow * frac_f[:, None]
+            left = qrow - out
+            # sub-1e-9 residues vanish with their marks (dense drain)
+            can_f = gQ(torch.where(can_q, one, zero), plan.idx)
+            gone = (can_f > half) & (left[:, 0] < eps_q)
+            left = torch.where(gone[:, None], zero, left)
+            s["qm"] = qm - (qrow - left)[:, :, None] * st["row_oh"][k]
+            return out
+
+        def enqueue_sp(s, A, k):
+            """Batch-enqueue slot-k output ``A`` [G, 2, F] at each flow's
+            next slot: proportional split of the class partition, one ECN
+            knee per (TC, port) against pre-batch occupancy."""
+            plan = dq_k[k]
+            qtc = qtc_all(s["qm"])
+            tot_q = segQ(A[:, 0], plan)
+            space_q = torch.maximum(buf_tc - qtc, zero)
+            scale_q = torch.where(tot_q > space_q,
+                                  space_q / torch.maximum(tot_q, tiny), one)
+            take = A * gQ(scale_q, plan.idx)[:, None]
+            lost = (A - take)[:, 0]
+            s["inj_lo"] = s["inj_lo"] - lost
+            s["sw_dropped"] = s["sw_dropped"] + lost.sum(-1)
+            mark_q = ecn_on[:, None, :] & (qtc > kmin_th)
+            mark_f = gQ(torch.where(mark_q, one, zero), plan.idx)
+            dm = torch.where(mark_f > half, take[:, 0] - take[:, 1], zero)
+            s["ecn_marked"] = s["ecn_marked"] + dm.sum(-1)
+            s["qm"] = s["qm"] + (take + dm[:, None] * st["selm"])[:, :, None] \
+                * st["nxt_oh"][k]
+
     def fold(s, hi, lo):
         """Drain a split accumulator's low part into its high part once it
         outgrows 64 KiB (bounds float32 drift over a run)."""
@@ -1147,20 +1389,26 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
 
         # ---- 0. link failure / flap / crash events ------------------------ #
         upf = route_oh = None
-        if dyn:
+        if links:
             downP, edgeP = link_state(t, p, flap)           # [G, P]
             upf = torch.where(downP, zero, one)
             failf = torch.where(edgeP, one, zero)
+            if sparse:
+                # the falling edge of each slot's port [G, S, F]
+                failf = torch.cat([failf, pad_p], -1).index_select(
+                    -1, st["po_flat"].idx).reshape(G, S, F)
+            else:
+                failf = failf[:, :, None]
             # in-flight bytes die with the link; fluid go-back-N
             # re-credits them for retransmission
-            lostF = (s["qm"][:, 0] * failf[:, :, None]).sum(-2)
+            lostF = (s["qm"][:, 0] * failf).sum(-2)
             if flt:
                 ledger(s, lostF)
                 s["flt_drop"] = s["flt_drop"] + lostF.sum(-1)
             else:
                 s["inj_lo"] = s["inj_lo"] - lostF
             s["sw_dropped"] = s["sw_dropped"] + lostF.sum(-1)
-            s["qm"] = s["qm"] * (one - failf)[:, None, :, None]
+            s["qm"] = s["qm"] * (one - failf)[:, None]
         if flt:
             # NIC/host crash: everything queued on the crashed receiver's
             # access link dies and its admission state zeroes; cumulative
@@ -1249,18 +1497,29 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             offer = torch.minimum(offer, wroom)
         # source-side backpressure: the NIC queue never overflows, bytes
         # that don't fit in the flow's class partition stay un-injected
-        off_pf = occ[0] * offer[:, None, :]
-        tot_q = class_tot(off_pf)                            # [G, Q, P]
-        space_q = torch.maximum(buf_tc - class_tot(s["qm"][:, 0]), zero)
-        scale_q = torch.where(tot_q > space_q,
-                              space_q / torch.maximum(tot_q, tiny), one)
-        take_f = offer * (occ[0] * to_flows(scale_q)).sum(-2)
-        s["inj_lo"] = s["inj_lo"] + take_f
-        s["qm"] = s["qm"] + (occ[0] * take_f[:, None, :])[:, None] \
-            * st["sel0"]
+        if sparse:
+            qtcI = qtc_all(s["qm"])
+            tot_q = segQ(offer, qp_k[0])
+            space_q = torch.maximum(buf_tc - qtcI, zero)
+            scale_q = torch.where(tot_q > space_q,
+                                  space_q / torch.maximum(tot_q, tiny), one)
+            take_f = offer * gQ(scale_q, qp_k[0].idx)
+            s["inj_lo"] = s["inj_lo"] + take_f
+            s["qm"] = s["qm"] + take_f[:, None, None, :] * st["sel_inj"]
+        else:
+            off_pf = occ[0] * offer[:, None, :]
+            tot_q = class_tot(off_pf)                        # [G, Q, P]
+            space_q = torch.maximum(buf_tc - class_tot(s["qm"][:, 0]),
+                                    zero)
+            scale_q = torch.where(tot_q > space_q,
+                                  space_q / torch.maximum(tot_q, tiny), one)
+            take_f = offer * (occ[0] * to_flows(scale_q)).sum(-2)
+            s["inj_lo"] = s["inj_lo"] + take_f
+            s["qm"] = s["qm"] + (occ[0] * take_f[:, None, :])[:, None] \
+                * st["sel0"]
 
         # ---- 1.5 routing weights (after injection) ------------------------ #
-        D0 = dest[0]
+        D0 = None if sparse else dest[0]
         if dyn and Sn:
             # idle-gap flowlets: a flow injecting again after more than
             # flowlet_gap ticks of silence opens a new flowlet
@@ -1298,43 +1557,65 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
             D0 = dest[0] + torch.einsum("gsf,sfp->gpf", W, st["upP"])
 
         # ---- 2. tier-ordered forwarding (cut-through within the tick) ---- #
-        out = drain(s, 0, upf)
-        if flt:
-            out = kill(s, out)
-        if any_cc:
-            # per-tick drained bytes per port: the txRate leg of the
-            # HPCC-style INT signal
-            txP = out[:, 0].sum(-1)
-        fbm = (occ[0] * out).sum(-2)                         # [G, 2, F]
-        # cross-leaf stage-0 output follows this tick's routing weights
-        enqueue(s, D0[..., None, :, :] * fbm[..., None, :])
-        out = drain(s, 1, upf)
-        if flt:
-            out = kill(s, out)
-        if any_cc:
-            txP = txP + out[:, 0].sum(-1)
-        if dyn:
-            # uplink output keeps its port-level provenance: the [P, F, P]
-            # map sends bytes drained at (leaf, spine) to that spine's
-            # downlink toward the flow's leaf
-            s["tx"] = s["tx"] + out[:, 0].sum(-1)
-            enqueue(s, torch.einsum("gcpf,pfq->gcqf", out, st["T1"]))
+        if sparse:
+            # slot by slot in tier order; the last slot (leaf downlink)
+            # delivers.  Per-port drained bytes feed the INT telemetry of
+            # the CC zoo and the fabric uplinks' (slots 1, 2) tx
+            if any_cc:
+                txPp = torch.zeros((G, Ppad), dtype=dtype, device=device)
+            for k in range(S):
+                if not stage_any[k]:
+                    continue
+                out = drain_sp(s, k, upf)
+                if any_cc or k in (1, 2):
+                    txk = seg(out[:, 0], po_k[k])            # [G, P + 1]
+                    if any_cc:
+                        txPp = txPp + txk
+                    if k in (1, 2):
+                        s["tx"] = s["tx"] + txk[:, :P]
+                if k < S - 1:
+                    enqueue_sp(s, out, k)
+            fbm = out
         else:
-            fbm = (occ[1] * out).sum(-2)
-            enqueue(s, dest[1] * fbm[..., None, :])
-        out = drain(s, 2, upf)
-        if flt:
-            out = kill(s, out)
-        if any_cc:
-            txP = txP + out[:, 0].sum(-1)
-        fbm = (occ[2] * out).sum(-2)
-        enqueue(s, dest[2] * fbm[..., None, :])
-        out = drain(s, 3, upf)
-        if flt:
-            out = kill(s, out)
-        if any_cc:
-            txP = txP + out[:, 0].sum(-1)
-        fbm = (occ[3] * out).sum(-2)
+            out = drain(s, 0, upf)
+            if flt:
+                out = kill(s, out)
+            if any_cc:
+                # per-tick drained bytes per port: the txRate leg of the
+                # HPCC-style INT signal
+                txP = out[:, 0].sum(-1)
+            fbm = (occ[0] * out).sum(-2)                     # [G, 2, F]
+            # cross-leaf stage-0 output follows this tick's routing
+            # weights
+            enqueue(s, D0[..., None, :, :] * fbm[..., None, :])
+            out = drain(s, 1, upf)
+            if flt:
+                out = kill(s, out)
+            if any_cc:
+                txP = txP + out[:, 0].sum(-1)
+            if dyn:
+                # uplink output keeps its port-level provenance: the
+                # [P, F, P] map sends bytes drained at (leaf, spine) to
+                # that spine's downlink toward the flow's leaf
+                s["tx"] = s["tx"] + out[:, 0].sum(-1)
+                enqueue(s, torch.einsum("gcpf,pfq->gcqf", out,
+                                        st["T1"]))
+            else:
+                fbm = (occ[1] * out).sum(-2)
+                enqueue(s, dest[1] * fbm[..., None, :])
+            out = drain(s, 2, upf)
+            if flt:
+                out = kill(s, out)
+            if any_cc:
+                txP = txP + out[:, 0].sum(-1)
+            fbm = (occ[2] * out).sum(-2)
+            enqueue(s, dest[2] * fbm[..., None, :])
+            out = drain(s, 3, upf)
+            if flt:
+                out = kill(s, out)
+            if any_cc:
+                txP = txP + out[:, 0].sum(-1)
+            fbm = (occ[3] * out).sum(-2)
         if Hs > 1:
             # spray reorder settling: arrivals wait `settle` ticks in a
             # slot-major ring before receiver admission (settle 0 reads
@@ -1368,22 +1649,31 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         # folded into rtt = base + sum(q/budget) and util = max per-hop
         # (txRate/B + qlen/(B*T)), as masked lanes
         if any_cc:
-            qP = s["qm"][:, 0].sum(-1)                       # [G, P]
-            if dyn and Sn:
-                legs = (occ[0],
-                        torch.einsum("gsf,sfp->gpf", route_oh, st["upP"]),
-                        torch.einsum("gsf,sfp->gpf", route_oh, st["dnP"]),
-                        occ[3])
-            elif dyn:
-                legs = (occ[0], occ[3])
+            if sparse:
+                # the route slots in tier order, so a 2-tier grid sums
+                # its legs in the dense engine's order
+                qPp = seg(s["qm"][:, 0].reshape(G, S * F), st["po_flat"])
+                legs = [tuple(x.index_select(-1, po_k[k].idx)
+                              for x in (qPp, txPp, budget_pad))
+                        for k in range(S) if stage_any[k]]
             else:
-                legs = (occ[0], occ[1], occ[2], occ[3])
-            qd = util = zero
-            for leg in legs:
+                qP = s["qm"][:, 0].sum(-1)                   # [G, P]
+                if dyn and Sn:
+                    oh = (occ[0],
+                          torch.einsum("gsf,sfp->gpf", route_oh,
+                                       st["upP"]),
+                          torch.einsum("gsf,sfp->gpf", route_oh,
+                                       st["dnP"]),
+                          occ[3])
+                elif dyn:
+                    oh = (occ[0], occ[3])
+                else:
+                    oh = (occ[0], occ[1], occ[2], occ[3])
                 # [P, F] (static) or [G, P, F] (routed) one-hot gathers
-                q_l = (leg * qP[:, :, None]).sum(-2)          # [G, F]
-                tx_l = (leg * txP[:, :, None]).sum(-2)
-                b_l = (leg * budget[:, :, None]).sum(-2)
+                legs = [tuple((leg * x[:, :, None]).sum(-2)
+                              for x in (qP, txP, budget)) for leg in oh]
+            qd = util = zero
+            for q_l, tx_l, b_l in legs:                      # [G, F] each
                 ok = b_l > zero
                 qd = qd + torch.where(ok, q_l / torch.maximum(b_l, tiny),
                                       zero)
@@ -1609,18 +1899,35 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
 
         # ---- 5. per-priority PFC pause propagation ------------------------ #
         q0 = s["qm"][:, 0]
-        frac_occ = class_tot(q0) / buf_tc                    # [G, Q, P]
+        frac_occ = (qtc_all(s["qm"]) if sparse else class_tot(q0)) / buf_tc
         s["asserted"] = can_assert[:, None, :] & \
             torch.where(s["asserted"], frac_occ >= sxon, frac_occ > sxoff)
-        # a flow contributes a pause iff its own class is over watermark
-        # at the port it is queued in: scatter the per-class assert state
-        # back to (port, flow), then to that flow's class on its ingress
-        # link — [G, Q, P*F] @ [P*F, P]
-        assert_pf = to_flows(torch.where(s["asserted"], one, zero))
-        contrib = torch.where((assert_pf > half) & (q0 > zero), one, zero)
-        contrib_q = contrib[:, None] * clsF[:, :, None, :]   # [G, Q, P, F]
-        flat = contrib_q.reshape(contrib_q.shape[:2] + (-1,))
-        link_paused = torch.matmul(flat, st["prev_mat"]) > zero
+        if sparse:
+            # a slot contributes a pause iff its flow's class is asserted
+            # at its own port; the pause targets the slot's ingress port
+            # on the flow's class: one gather, one segment sum
+            af = gQ(torch.where(s["asserted"], one, zero),
+                    st["qp_flat"].idx).reshape(G, S, F)
+            contrib = torch.where((af > half) & (q0 > zero), one, zero)
+            link_paused = segQ(contrib.reshape(G, S * F),
+                               st["pp_flat"]) > zero         # [G, Q, P]
+            if "ex_f" in st:
+                # under failure schedules a shallow flow's last-hop
+                # contribution also pauses its other candidate downlinks
+                extra = contrib[:, S - 1].index_select(-1, st["ex_f"])
+                link_paused = link_paused | (segQ(extra, st["ex_flat"])
+                                             > zero)
+        else:
+            # a flow contributes a pause iff its own class is over
+            # watermark at the port it is queued in: scatter the per-class
+            # assert state back to (port, flow), then to that flow's class
+            # on its ingress link — [G, Q, P*F] @ [P*F, P]
+            assert_pf = to_flows(torch.where(s["asserted"], one, zero))
+            contrib = torch.where((assert_pf > half) & (q0 > zero), one,
+                                  zero)
+            contrib_q = contrib[:, None] * clsF[:, :, None, :]
+            flat = contrib_q.reshape(contrib_q.shape[:2] + (-1,))
+            link_paused = torch.matmul(flat, st["prev_mat"]) > zero
         link_any = link_paused.any(-2)
         s["pause_us"] = s["pause_us"] + torch.where(link_any, fdt, zero)
         s["pause_tc_us"] = s["pause_tc_us"] + \
@@ -1759,7 +2066,14 @@ def _results(s: Dict[str, np.ndarray],
     # ingress support (the scalar engine's `pausable` set exactly); links
     # down for the whole window can neither pause nor carry, so they
     # leave the storm and utilization denominators
-    pmask = fsp.prev_onehot.sum((0, 1)) > 0
+    if fsp.sparse:
+        pmask = np.zeros(fsp.n_ports, bool)
+        pmask[fsp.prv_port[fsp.prv_port < fsp.n_ports]] = True
+        if fsp.pausable_extra is not None:
+            # candidate hops of shallow flows under failure schedules
+            pmask[fsp.pausable_extra] = True
+    else:
+        pmask = fsp.prev_onehot.sum((0, 1)) > 0
     if "fail_at" in fsp.pvals:
         dead = (fsp.pvals["fail_at"] <= 0) \
             & (fsp.pvals["fail_until"] >= fsp.ticks)         # [G, P]
@@ -1818,12 +2132,14 @@ def _results(s: Dict[str, np.ndarray],
     else:
         out["reroute_count"] = np.zeros(G)
     if "tx" in s:
-        # per-uplink (leaf -> spine) utilization; links dead for the
-        # whole window leave the mean and max
+        # per-uplink utilization (leaf -> spine; sparse pod grids add the
+        # spine -> super-spine tier); links dead for the whole window
+        # leave the mean and max
         tx = np.asarray(s["tx"], np.float64)
         cap = fsp.pvals["gbps"] * 1e9 / 8.0 * (sim_us * 1e-6)
         util = np.where(cap > 0.0, tx / np.maximum(cap, 1e-30), 0.0)
-        up_mask = fsp.stage_mask[1]
+        up_mask = (fsp.stage_mask[1] | fsp.stage_mask[2]) if fsp.sparse \
+            else fsp.stage_mask[1]
         alive = up_mask[None, :] & ~dead
         out["uplink_util"] = np.where(up_mask[None, :], util, 0.0)
         if up_mask.any():
@@ -1841,13 +2157,18 @@ def _opts(fsp: FabricSweepParams) -> dict:
     return {"dyn": fsp.dyn_route, "wrr": fsp.any_wrr,
             "host_tc": fsp.host_tc, "Hs": fsp.settle_ring,
             "Sn": fsp.n_spines, "flap": fsp.any_flap, "cc": fsp.any_cc,
-            "msg": fsp.any_msg, "Lm": fsp.msg_ring, "flt": fsp.any_flt}
+            "msg": fsp.any_msg, "Lm": fsp.msg_ring, "flt": fsp.any_flt,
+            "sparse": fsp.sparse, "fail": fsp.pack_fail,
+            # slots with no port are skipped when the step is built
+            "stage_any": [bool(m.any()) for m in fsp.stage_mask]}
 
 
 # --------------------------------------------------------------------------- #
 # Entry points
 # --------------------------------------------------------------------------- #
 CHAIN = 8           # ticks (iterations) a captured graph chains
+_ADAPTIVE_DENSE_ONLY = ("adaptive_dt macro-ticking is dense-engine only; "
+                        "run sparse grids at the fine tick")
 
 
 class FabricRun:
@@ -1867,7 +2188,7 @@ class FabricRun:
     this equals its numpy loop, which skips it); the host reads the tick
     once a batch of iterations (``batches``).
 
-    The water-fill launch counts (``fused.LAUNCHES.read()``) hold the
+    The kernel launch counts (``fused.LAUNCHES.read()``) hold the
     warm-up's launches (two iterations on a scratch copy, set-up) and
     then, on CUDA, one for each launch a replay executes, added on the
     card.  ``launches_captured()`` is the arithmetic beside them: the
@@ -1884,6 +2205,8 @@ class FabricRun:
             raise ValueError("adaptive dt runs on the static-buffer body "
                              "(graph='auto'); graph=False is the fixed-dt "
                              "eager loop")
+        if fsp.sparse and adaptive is not None:
+            raise ValueError(_ADAPTIVE_DENSE_ONLY)
         dev = resolve_device(device)
         dt = resolve_dtype(dev, dtype)
         fused.resolve_impl(impl, dev)        # reject a bad impl up front
@@ -1892,6 +2215,8 @@ class FabricRun:
         p = {k: _to_device(v, dt, dev)
              for k, v in _np_params(fsp, np_dt).items()}
         st = {k: _to_device(v, dt, dev) for k, v in _static(fsp).items()}
+        if fsp.sparse:
+            st.update(_seg_plans(fsp, dev))
         self.fsp, self.device, self.dtype = fsp, dev, dt
         self.adaptive = adaptive
         self.step = _make_step(st, p, fsp.dt_us, fsp.ring_len, fsp.cnp_ring,
@@ -1982,7 +2307,8 @@ def run_fabric_sweep(scenarios: Sequence, device=None,
                      dtype: Optional[torch.dtype] = None,
                      impl: str = "auto", graph="auto",
                      adaptive_dt: bool = False,
-                     adaptive: Optional[fused.AdaptiveConfig] = None
+                     adaptive: Optional[fused.AdaptiveConfig] = None,
+                     incidence: str = "auto"
                      ) -> Dict[str, np.ndarray]:
     """Advance a grid of fabric scenarios through the full multi-host
     recurrence at once; returns ``{metric: array}`` aligned with the input
@@ -1993,24 +2319,39 @@ def run_fabric_sweep(scenarios: Sequence, device=None,
     ``device=None`` runs on CUDA and raises ``RuntimeError`` without it;
     pass ``device="cpu"`` for the CPU.  ``dtype`` defaults to float32
     (the only CUDA dtype); float64 on the CPU is the oracle mode.
-    ``impl="auto"`` launches the CUDA water-fill kernels on the card and
-    runs their plain versions on the CPU.  ``graph="auto"`` replays the
-    tick as captured CUDA graphs on the card (the same static-buffer
-    chains, uncaptured, on the CPU); ``graph=False`` runs the eager
-    fixed-dt loop (see :class:`FabricRun`).
+    ``impl="auto"`` launches the CUDA kernels (the water-fills, and the
+    segment sum of the sparse engine) on the card and runs their plain
+    versions on the CPU.  ``graph="auto"`` replays the tick as captured
+    CUDA graphs on the card (the same static-buffer chains, uncaptured,
+    on the CPU); ``graph=False`` runs the eager fixed-dt loop (see
+    :class:`FabricRun`).
+
+    ``incidence`` picks the queue-state layout: ``"dense"`` is the
+    ``[G, 2, P, F]`` port x flow formulation, ``"sparse"`` the segmented
+    ``[G, 2, 6, F]`` slot incidence whose cost grows with flows x hops
+    instead of flows x ports.  ``"auto"`` picks sparse exactly where the
+    topology has a super-spine tier (3-level pod fabrics); ``"sparse"``
+    runs any static 2-tier grid too.  The sparse engine takes static
+    ECMP with failure/flap windows and the CC zoo; dynamic routing, the
+    message layer and fault injection raise ``ValueError`` there.
 
     ``adaptive_dt=True`` (or an explicit :class:`AdaptiveConfig` via
     ``adaptive=``) turns on macro-tick coarsening: quiet stretches of the
     whole grid advance ``k * dt`` per iteration in closed form, with fine
     ticks near every event; the result gains ``adaptive_iterations``
-    (``[G]``, the iteration count).  It is dense-engine only: a grid that
-    needs the sparse (3-level) engine raises ``ValueError``.
+    (``[G]``, the iteration count).  It is dense-engine only: on a
+    sparse grid it raises ``ValueError``.
     """
+    if incidence not in ("auto", "dense", "sparse"):
+        raise ValueError(f"unknown incidence {incidence!r}")
+    sparse = incidence == "sparse" or (
+        incidence == "auto"
+        and any(bool(s.topology.super_spines) for s in scenarios))
     cfg = adaptive if adaptive is not None \
         else (fused.AdaptiveConfig() if adaptive_dt else None)
-    if cfg is not None and unsupported_features(scenarios):
-        raise ValueError("adaptive_dt macro-ticking is dense-engine only; "
-                         "run sparse grids at the fine tick")
-    return run_packed(FabricSweepParams.from_scenarios(scenarios),
+    if sparse and cfg is not None:
+        raise ValueError(_ADAPTIVE_DENSE_ONLY)
+    return run_packed(FabricSweepParams.from_scenarios(scenarios,
+                                                       sparse=sparse),
                       device=device, dtype=dtype, impl=impl, graph=graph,
                       adaptive=cfg)

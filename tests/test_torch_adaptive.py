@@ -15,7 +15,8 @@
   macro-advance) equals the reference's host loop (macro advance skipped
   at k == 1);
 * on/off trains keep every tick fine and equal fixed dt; ``max_stride=1``
-  equals fixed dt element for element; a sparse (3-level) grid raises.
+  equals fixed dt element for element; a sparse (3-level) grid raises,
+  and runs at the fine tick equal to the reference.
 """
 import dataclasses
 import math
@@ -241,15 +242,25 @@ def test_max_stride_one_equals_fixed_dt(graph):
 
 
 def test_adaptive_refuses_sparse_grids():
-    """A 3-level (super-spine) grid needs the sparse engine, which the
-    reference runs at the fine tick only."""
+    """A 3-level (super-spine) grid runs on the sparse engine, which
+    the reference runs at the fine tick only: adaptive dt raises, the
+    fine tick equals the reference's ``numpy`` backend."""
     topo = make_pod_clos(pods=2, leaves_per_pod=2, hosts_per_leaf=2)
     sc = SC.Scenario(name="pod", topology=topo, flows=[],
                      fabric=SC.FabricConfig(sim_time_s=1e-5))
     with pytest.raises(ValueError, match="dense-engine only"):
         run_fabric_sweep([sc], device="cpu", adaptive_dt=True)
-    with pytest.raises(NotImplementedError):
-        run_fabric_sweep([sc], device="cpu")
+    pod = SC.pod_incast_grid(pods=2, leaves_per_pod=2, hosts_per_leaf=2,
+                             burst_mb=0.2, sim_time_s=0.0003)[0]
+    with pytest.raises(ValueError, match="dense-engine only"):
+        run_fabric_sweep(pod, device="cpu", adaptive_dt=True)
+    want = RV.run_fabric_sweep(pod, backend="numpy")
+    got = run_fabric_sweep(pod, device="cpu", dtype=torch.float64)
+    for k in want:
+        a, b = (np.asarray(x[k], np.float64) for x in (got, want))
+        assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
+        m = np.isfinite(b)
+        assert np.allclose(a[m], b[m], rtol=1e-9, atol=0.0), k
 
 
 def test_adaptive_iterations_key_only_when_adaptive():

@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card (``cuda`` marker): the water-fills
-bit for bit, and the fabric engines that run them (the dense tick under
+and the segment sum bit for bit (the segment sum against its plain
+version run on the CPU, launch after launch), and the fabric engines
+that run them (the sparse pod tick through its captured graph equal to
+its eager loop, its launches counted on the card; the dense tick under
 dynamic routing and a link failure, under the CC zoo with verbs messages,
 and under loss, recovery and a receiver crash, each against CPU float64;
 its captured CUDA graphs equal to the eager loop, and adaptive dt within
@@ -88,7 +91,8 @@ def test_kernels_match_plain_bitwise(card, shape):
     got = fused.priority_grants(demand, can, budget, crumb)
     acc = fused.priority_admit(demand, budget)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES == {"priority_grants": 1, "priority_admit": 1}
+    assert fused.LAUNCHES == {"priority_grants": 1, "priority_admit": 1,
+                              "seg_sum": 0}
     assert _same_bits(got, fused.priority_grants_ref(demand, can, budget,
                                                      crumb))
     assert _same_bits(acc, fused.priority_admit_ref(demand, budget))
@@ -111,7 +115,7 @@ def test_engine_runs_through_the_kernels(card):
              for m in ("jet", "ddio") for p in (False, True)]
     got, launches, captured = _counted(scens)
     assert launches == captured == {"priority_grants": 800,
-                                    "priority_admit": 200}
+                                    "priority_admit": 200, "seg_sum": 0}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     for k in ("flow_goodput_gbps", "flow_completion_us"):
         a, b = got[k], want[k]
@@ -149,7 +153,7 @@ def test_routing_grid_on_the_card_matches_cpu_float64(card):
         sim_time_s=0.002)[0]
     got, launches, captured = _counted(scens)
     assert launches == captured == {"priority_grants": 8000,
-                                    "priority_admit": 2000}
+                                    "priority_admit": 2000, "seg_sum": 0}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     for k in ("flow_goodput_gbps", "flow_completion_us",
               "incast_completion_us", "uplink_util_max"):
@@ -181,7 +185,7 @@ def test_message_grid_on_the_card_matches_cpu_float64(card):
                                    n_senders=4, sim_time_s=0.001)[0]
     got, launches, captured = _counted(scens)
     assert launches == captured == {"priority_grants": 4000,
-                                    "priority_admit": 1000}
+                                    "priority_admit": 1000, "seg_sum": 0}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     _held_to_cpu(got, want, ("flow_goodput_gbps",))
     assert np.abs(got["msg_count_total"] - want["msg_count_total"]).max() \
@@ -207,7 +211,7 @@ def test_lossy_grid_on_the_card_matches_cpu_float64(card):
     scens.append(crash)
     got, launches, captured = _counted(scens)
     assert launches == captured == {"priority_grants": 4000,
-                                    "priority_admit": 1000}
+                                    "priority_admit": 1000, "seg_sum": 0}
     want = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
     _held_to_cpu(got, want, ("dropped_pkts", "retransmit_bytes"), 1e-4)
     _held_to_cpu(got, want, ("flow_goodput_gbps",))
@@ -269,7 +273,7 @@ def test_trace_sees_every_replayed_water_fill(card):
     run = FabricRun(FabricSweepParams.from_scenarios(_incast48(0.002)))
     fused.reset_launches()
     prof = cs.trace_kernels(run.run)
-    want = {"priority_grants": 8000, "priority_admit": 2000}
+    want = {"priority_grants": 8000, "priority_admit": 2000, "seg_sum": 0}
     assert fused.LAUNCHES.read() == run.launches_captured() == want
     assert prof["waterfill_launches"] == want
 
@@ -281,7 +285,8 @@ def test_graph_equals_eager_on_the_card(card, grid):
     grants and 1 admit counted a tick both ways (the replays' counted on
     the card, equal to the launches captured for a tick x ticks)."""
     scens = (_incast48 if grid == "incast48" else _lossy9)(0.0002)
-    want_launches = {"priority_grants": 800, "priority_admit": 200}
+    want_launches = {"priority_grants": 800, "priority_admit": 200,
+                     "seg_sum": 0}
     got, launches, captured = _counted(scens)
     assert launches == captured == want_launches
     want, launches, _ = _counted(scens, graph=False)
@@ -305,7 +310,7 @@ def test_adaptive_graph_within_bound_of_cpu_float32(card):
     iters = int(got["adaptive_iterations"][0])
     assert iters < 1000
     assert launches == captured == {"priority_grants": 4 * iters,
-                                    "priority_admit": iters}
+                                    "priority_admit": iters, "seg_sum": 0}
     want = run_fabric_sweep(scens, device="cpu", adaptive_dt=True)
     assert abs(iters - int(want["adaptive_iterations"][0])) \
         <= cfg.max_stride
@@ -325,6 +330,99 @@ def test_adaptive_max_stride_one_equals_fixed_dt_on_the_card(card):
     assert (adap.pop("adaptive_iterations") == 200).all()
     for k in fixed:
         assert _same(adap[k], fixed[k]), k
+
+
+SEG_SHAPES = [(4, 193, 693), (4, 1158, 693), (4, 193, 231),
+              (1, 1, 1), (3, 60000, 5000), (64, 24576, 12291)]
+
+
+def _seg_inputs(seed, rows, n, size):
+    """Values whose sums depend on the order, one crowded bin, bins with
+    no entry."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, size, n)
+    idx[: n // 4] = 0
+    vals = rng.choice(np.array([1e8, 1.0, -1e8, 0.3, -2.5, 0.0],
+                               np.float32), size=(rows, n))
+    return torch.from_numpy(vals), idx
+
+
+@pytest.mark.parametrize("rows,n,size", SEG_SHAPES)
+def test_seg_sum_kernel_is_the_cpu_plain_version_bitwise(card, rows, n,
+                                                        size):
+    """The pod path's shapes, a row past shared memory (60,000 values:
+    the device-memory path) and a large one: bit for bit the plain
+    version run on the CPU in float32, and the same bits launch after
+    launch."""
+    vals, idx = _seg_inputs(8, rows, n, size)
+    want = fused.seg_sum_ref(vals, torch.from_numpy(idx), size)
+    plan = fused.seg_plan(idx, size, card)
+    fused.reset_launches()
+    got = fused.seg_sum(vals.to(card), plan)
+    again = fused.seg_sum(vals.to(card), plan)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["seg_sum"] == 2
+    assert _same_bits(got.cpu(), want)
+    assert _same_bits(again, got)
+
+
+def test_seg_sum_wrapper_rejects_what_the_kernel_does_not_take(card):
+    vals, idx = _seg_inputs(9, 2, 50, 7)
+    plan = fused.seg_plan(idx, 7, card)
+    with pytest.raises(TypeError):
+        fused.seg_sum(vals.double().to(card), plan)
+    with pytest.raises(ValueError):
+        fused.seg_sum(vals[:, :40].to(card), plan)
+    with pytest.raises(ValueError):
+        fused.seg_sum(vals.to(card), fused.seg_plan(idx, 7))
+
+
+def _pod64(sim_time_s):
+    """``benchmarks/bench_fabric.py``'s small scale point: receiver mode
+    x PFC, 2 x 2 x 16 hosts, 0.2 MB bursts."""
+    return TSC.pod_incast_grid(pods=2, leaves_per_pod=2, hosts_per_leaf=16,
+                               burst_mb=0.2, sim_time_s=sim_time_s)[0]
+
+
+def _counted_sparse(scens, **kw):
+    run = FabricRun(FabricSweepParams.from_scenarios(scens, sparse=True),
+                    **kw)
+    fused.reset_launches()
+    res = run.run()
+    return res, fused.LAUNCHES.read(), run.launches_captured()
+
+
+def test_pod_grid_graph_equals_eager_on_the_card(card):
+    """pod64 at 200 ticks through the captured graph and the eager loop:
+    every output equal, with 6 grants, 1 admit and 22 segment sums a
+    tick counted both ways (the replays' counted on the card, equal to
+    the launches captured for a tick x ticks); within 5e-4 of CPU
+    float64."""
+    scens = _pod64(0.0002)
+    want_launches = {"priority_grants": 1200, "priority_admit": 200,
+                     "seg_sum": 4400}
+    got, launches, captured = _counted_sparse(scens)
+    assert launches == captured == want_launches
+    eager, launches, _ = _counted_sparse(scens, graph=False)
+    assert launches == want_launches
+    assert got.keys() == eager.keys()
+    for k in eager:
+        assert _same(got[k], eager[k]), k
+    cpu = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    _held_to_cpu(got, cpu, ("flow_goodput_gbps", "flow_completion_us",
+                            "ecn_marked_bytes", "uplink_util_max"))
+
+
+def test_sparse_two_tier_is_the_dense_run_on_the_card(card):
+    """incast48's 2-tier grid through the sparse engine: within 5e-4 of
+    the dense engine's card run, with identical finite masks (cuBLAS
+    sums the dense engine's one-hot products in its own order)."""
+    scens = _incast48(0.0002)
+    dense = run_fabric_sweep(scens)
+    sparse = run_fabric_sweep(scens, incidence="sparse")
+    _held_to_cpu(sparse, dense, ("flow_goodput_gbps", "flow_completion_us",
+                                 "incast_completion_us",
+                                 "switch_dropped_bytes"))
 
 
 # --------------------------------------------------------------------------- #

@@ -102,7 +102,8 @@ def test_cpu_tensors_never_launch_and_cuda_impl_raises():
     fused.reset_launches()
     fused.priority_grants(_t(demand), _t(can), _t(budget), _t(crumb))
     fused.priority_admit(_t(demand), _t(budget))
-    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0}
+    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0,
+                              "seg_sum": 0}
     with pytest.raises(ValueError, match="CUDA"):
         fused.priority_grants(_t(demand), _t(can), _t(budget), _t(crumb),
                               impl="cuda")
@@ -113,7 +114,8 @@ def test_cpu_tensors_never_launch_and_cuda_impl_raises():
     assert torch.equal(
         fused.priority_admit(_t(demand), _t(budget), impl="ref"),
         fused.priority_admit_ref(_t(demand), _t(budget)))
-    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0}
+    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0,
+                              "seg_sum": 0}
 
 
 def test_resolve_impl():

@@ -11,7 +11,8 @@ buffers in chains (the body a CUDA graph captures), on the CPU.
 * the adaptive replay plan ends exactly at the last tick and starts no
   iteration past it, for any stride sequence;
 * one iteration, fixed or adaptive, creates no tensor from host data
-  and reads nothing back to the host (either would break the capture);
+  and reads nothing back to the host (either would break the capture),
+  on every dense branch and on the sparse (pod) tick;
 * the chain refuses a body that changes a state's keys or dtype, and the
   entry point refuses an unknown graph mode;
 * launch counts outside a capture are the host's own.
@@ -26,7 +27,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from _hypothesis_compat import given, settings, st
-from repro_torch.fabric import FaultConfig, fused
+from repro_torch.fabric import CcConfig, FaultConfig, fused
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.tickgraph import TickChain, adaptive_batches
 from repro_torch.fabric.vector import (FabricRun, FabricSweepParams,
@@ -181,13 +182,31 @@ class _HostOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("adaptive", [False, True],
-                         ids=["fixed", "adaptive"])
-@pytest.mark.parametrize("grid", GRIDS)
+def _pods():
+    """The sparse engine: a pod fabric under per-TC PFC, the CC zoo and a
+    failure window and a flap on two uplinks (adaptive dt is
+    dense-only)."""
+    out = TSC.pod_storm_grid(buffer_kb=(32.0, 64.0), sim_time_s=SIM_S)[0]
+    for s, algo in zip(out, ("timely", "hpcc")):
+        s.fabric.cc = CcConfig(algo=algo)
+        s.topology.fail_link("p0l0", "p0s0", at_us=50.0, restore_us=150.0)
+        s.topology.flap_link("p1l0", "p1s0", start_us=40.0,
+                             period_us=100.0, down_us=30.0)
+    return out
+
+
+CAPTURED = [(g, a) for g in GRIDS for a in (False, True)] + [("pods", False)]
+
+
+@pytest.mark.parametrize(
+    "grid,adaptive", CAPTURED,
+    ids=[f"{g}-{'adaptive' if a else 'fixed'}" for g, a in CAPTURED])
 def test_iteration_is_capturable(grid, adaptive):
     """What the card captures (the fixed tick, or the adaptive
-    iteration), run on the CPU under a recorder."""
-    fsp = FabricSweepParams.from_scenarios(GRIDS[grid]())
+    iteration), run on the CPU under a recorder; the sparse engine's
+    tick too."""
+    fsp = FabricSweepParams.from_scenarios(_pods(), sparse=True) \
+        if grid == "pods" else FabricSweepParams.from_scenarios(GRIDS[grid]())
     run = FabricRun(fsp, device="cpu",
                     adaptive=fused.AdaptiveConfig() if adaptive else None)
     with _HostOps() as rec:

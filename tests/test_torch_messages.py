@@ -330,8 +330,15 @@ def test_unbounded_window_raises():
 
 
 def test_unsupported_features_name_only_the_sparse_engine():
-    scens = _cc_grid(RSC) + [RSC.lossy_incast(4)]
-    assert TV.unsupported_features(scens) == []
-    assert TV.unsupported_features(_cc_grid(TSC)) == []
-    assert TV.unsupported_features([RSC.pod_incast()]) == [
-        "3-level super-spine fabrics (sparse incidence)"]
+    """The CC zoo and the lossy grid pack for the dense engine, and the
+    reference's pod incast (the sparse engine, the last layer the port
+    lacked) runs equal to its ``numpy`` backend."""
+    for scens in (_cc_grid(RSC), [RSC.lossy_incast(4)]):
+        assert not TV.FabricSweepParams.from_scenarios(scens).sparse
+    assert TV.FabricSweepParams.from_scenarios(_cc_grid(TSC)).any_cc
+    pod = [RSC.pod_incast(pods=2, leaves_per_pod=2, hosts_per_leaf=2,
+                          sim_time_s=0.0003)]
+    want = ref_sweep(pod, backend="numpy")
+    got = run_fabric_sweep(pod, device="cpu", dtype=torch.float64)
+    for k in want:
+        assert _rel(got[k], want[k]) <= 1e-9, k

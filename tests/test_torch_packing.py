@@ -5,7 +5,7 @@ grids must pack to identical structure arrays, identical per-point
 parameter arrays (same keys, dtypes and values) and identical ring
 horizons — the engines then start from the same numbers.
 ``FabricSweepParams.from_arrays`` must round-trip the reference's
-packing and refuse the layers the port does not run.
+packing, dense or sparse.
 """
 import dataclasses
 
@@ -101,33 +101,39 @@ def test_from_arrays_round_trips_reference_packing(grid):
     _assert_same(port, FabricSweepParams.from_scenarios(GRIDS[grid](TSC)))
 
 
-def _dyn_packing():
-    """A pod fabric whose link fails mid-run: the sparse engine carries
-    the failure window as per-tick link state (``pack_fail``), which the
-    port does not run (a dense dynamic grid with the message layer packs:
-    ``tests/test_torch_messages.py``)."""
-    scens = SC.pod_incast_grid(mode=("jet",), pfc=(False,),
-                               sim_time_s=0.0005)[0]
-    for s in scens:
-        s.topology.fail_link("p1s0", "ss0", at_us=100.0)
-    ref = RefParams.from_scenarios(scens, sparse=True)
-    assert ref.pack_fail
-    return ref
+def _pod_grid(M, fail: bool):
+    scens = M.pod_incast_grid(mode=("jet",), pfc=(False, True),
+                              sim_time_s=0.0003)[0]
+    if fail:
+        # a link down mid-run: the sparse engine carries the window as
+        # per-tick link state (``pack_fail``)
+        for s in scens:
+            s.topology.fail_link("p1s0", "ss0", at_us=100.0)
+    return scens
 
 
-def _sparse_packing():
-    return RefParams.from_scenarios(
-        SC.pod_incast_grid(mode=("jet",), pfc=(False,),
-                           sim_time_s=0.0005)[0], sparse=True)
-
-
-@pytest.mark.parametrize("make", [_dyn_packing, _sparse_packing],
-                         ids=["dynamic", "sparse"])
-def test_from_arrays_refuses_dynamic_and_sparse_packings(make):
-    ref = make()
+@pytest.mark.parametrize("fail", [True, False], ids=["dynamic", "sparse"])
+def test_from_arrays_refuses_dynamic_and_sparse_packings(fail):
+    """The reference's sparse packings (with a failure window: the
+    ``pack_fail`` one) go through ``from_arrays``, equal the port's own
+    packing, and run equal to the reference's ``numpy`` backend."""
+    from repro.fabric.vector import run_fabric_sweep as ref_sweep
+    from repro_torch.fabric.vector import run_packed
+    ref = RefParams.from_scenarios(_pod_grid(SC, fail), sparse=True)
+    assert ref.sparse and ref.pack_fail == fail
     d = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
-    with pytest.raises(NotImplementedError):
-        FabricSweepParams.from_arrays(d)
+    port = FabricSweepParams.from_arrays(d)
+    _assert_same(port, ref)
+    _assert_same(port, FabricSweepParams.from_scenarios(_pod_grid(TSC, fail),
+                                                        sparse=True))
+    got = run_packed(port, device="cpu", dtype=torch.float64)
+    want = ref_sweep(_pod_grid(SC, fail), backend="numpy")
+    for k in want:
+        a, b = np.asarray(got[k], np.float64), np.asarray(want[k],
+                                                          np.float64)
+        assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
+        m = np.isfinite(b)
+        assert np.allclose(a[m], b[m], rtol=1e-9, atol=0.0), k
 
 
 def test_from_arrays_refuses_unknown_and_missing_fields():

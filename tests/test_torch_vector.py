@@ -161,17 +161,25 @@ def test_engine_forces_full_fp32_matmuls():
 
 
 @pytest.mark.parametrize("make,exc", [
-    (lambda: ([SC.pod_incast()], {}), NotImplementedError),
-    (lambda: ([_pod_fail(SC.pod_incast())], {}), NotImplementedError),
-    (lambda: ([SC.pod_incast()], {"adaptive_dt": True}), ValueError),
+    (lambda M: ([M.pod_incast(sim_time_s=0.0003)], {}), None),
+    (lambda M: ([_pod_fail(M.pod_incast(sim_time_s=0.0003))], {}), None),
+    (lambda M: ([M.pod_incast()], {"adaptive_dt": True}), ValueError),
 ], ids=["pod_incast", "pod_incast_fail_link", "pod_incast_adaptive"])
 def test_unsupported_features_raise(make, exc):
-    """What the port does not run raises: the sparse engine's 3-level
-    fabrics (``NotImplementedError``), and adaptive dt on them
-    (``ValueError``, as the reference: adaptive dt is dense-only)."""
-    scens, kw = make()
-    with pytest.raises(exc):
-        run_fabric_sweep(scens, device="cpu", **kw)
+    """The reference's 3-level fabrics run on the sparse engine, with
+    and without a link failure schedule, equal to its ``numpy`` backend
+    in float64; adaptive dt on them raises ``ValueError``, as the
+    reference's (adaptive dt is dense-only)."""
+    scens, kw = make(TSC)
+    if exc is not None:
+        with pytest.raises(exc, match="dense-engine only"):
+            run_fabric_sweep(scens, device="cpu", **kw)
+        return
+    want = ref_sweep(make(SC)[0], backend="numpy")
+    got = run_fabric_sweep(scens, device="cpu", dtype=torch.float64)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert rel(got[k], want[k]) <= 1e-9, k
 
 
 @pytest.mark.parametrize("make", [
@@ -219,4 +227,5 @@ def test_adaptive_dt_raises():
 def test_cpu_run_launches_no_kernel():
     fused.reset_launches()
     run_fabric_sweep([TSC.incast(2, sim_time_s=0.00002)], device="cpu")
-    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0}
+    assert fused.LAUNCHES == {"priority_grants": 0, "priority_admit": 0,
+                              "seg_sum": 0}
