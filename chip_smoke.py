@@ -155,14 +155,29 @@ Each phase prints one JSON line:
 
 The card runs of phases 9-14 come first, then ``kernel`` rows of both
 water-fills at every shape those fabric grids gave them (grants at each
-grid's [G, Q, P], admit at its [G, Q, R]; bit for bit) and of the
-segment sum at pod256's and pod1024's three shapes and at [4096, 24576]
-values into 12,291 bins (bit for bit against its plain version run on
-the CPU in float32 and over a second launch, with one ``index_add_`` on
-the card, atomic, as its yardstick), then the CPU references of phases
-9-14 in spawned worker processes (an ``oracles`` line: workers, host
-cores, wall of each), so that no reference competes with a timed card
-run for the host; the lines of phases 9-14 follow.
+grid's [G, Q, P], admit at its [G, Q, R]; bit for bit); ``seg_variants``
+lines run pod64, pod256 and pod1024 through the graph with each
+segment-sum kernel in turn (50 ticks traced whole: the segment sums'
+device µs a tick and launches by name, 22 a tick; at 256 and 1,024
+hosts ms a tick over 300 ticks).  Then the CPU references of phases 9-14
+in spawned worker processes (an ``oracles`` line: workers, host cores,
+wall of each), so that no reference competes with a timed card run for
+the host; the lines of phases 9-14 follow.  The ``pods`` and ``scale``
+lines carry the segment sums' device µs a tick, and the ``total`` line
+the seconds of each phase.
+
+Right after the water-fills' first rows, before any CUDA graph, the
+``kernel`` rows of the segment sum (``warp_fold``) at pod256's and
+pod1024's three shapes, pod1024's slot 5 (768 of its 769 entries in one
+bin) and [4096, 24576] values into 12,291 bins: bit for bit against its
+plain version run on the CPU in float32, over a second launch and
+against the first design (``bin_thread``, forced); CUDA-event ms,
+device µs and host µs of both kernels in the same call, one
+``index_add_`` on the card (atomic) as the yardstick, the launch layout
+of the C source held to the Python one, and two bounds: bytes once over
+the memory rate, and the bin-order floor (the longest bin's serial adds
+at 4 cycles over ``clocks.max.sm``); a ``seg_sum_host`` line itemises
+the wrapper's host µs at pod256's largest shape.
 
 The ``kernel`` rows also hold the paged decode kernel (zamba2's shared
 attention, a length-0 row that must give o == 0, danube-1.8b,
@@ -258,6 +273,10 @@ PROFILE_PAD_S = 0.5         # idle seconds on each side of a profiler
 FABRIC_KERNELS = {"priority_grants": "grants_kernel",
                   "priority_admit": "admit_kernel",
                   "seg_sum": "seg_sum_kernel"}
+# the segment sum's two kernels: the one the tick runs, and the first
+# design, which only a timing forces
+SEG_KERNELS = {"warp_fold": "seg_sum_kernel",
+               "bin_thread": "seg_sum_bin_thread_kernel"}
 # launches of each a tick: the dense tick, the 3-level sparse tick (a
 # grants a slot; segment sums: injection 2, a drain a slot 6, enqueue
 # 5 x 2, the uplink tx of slots 1-2, PFC 2) and the 2-tier sparse tick
@@ -524,6 +543,7 @@ def trace_kernels(fn) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     kernels = busy_ns = 0
     by_name = dict.fromkeys(FABRIC_KERNELS, 0)
+    seg = {var: [0, 0] for var in SEG_KERNELS}      # launches, ns
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             continue
@@ -533,10 +553,16 @@ def trace_kernels(fn) -> dict:
         for k, tag in FABRIC_KERNELS.items():
             if tag in name:
                 by_name[k] += 1
+        for var, tag in SEG_KERNELS.items():
+            if tag in name:
+                seg[var][0] += 1
+                seg[var][1] += e.duration_ns()
     return {"wall_s": wall,
             "parse_s": time.perf_counter() - t0 - wall - PROFILE_PAD_S,
             "kernels": kernels, "device_busy_us": busy_ns * 1e-3,
-            "waterfill_launches": by_name}
+            "waterfill_launches": by_name,
+            "seg_sum": {var: {"launches": c, "device_us": ns * 1e-3}
+                        for var, (c, ns) in seg.items()}}
 
 
 def fabric_run(scens, graph="auto", adaptive=None, profiled=False,
@@ -1043,8 +1069,9 @@ def profile_window(fn, ticks: int, warm: bool = True, top: int = 0) -> dict:
     """Kernels launched per tick and the device's busy share over one
     call of ``fn`` (``ticks`` ticks) under ``torch.profiler`` (after a
     warm-up call of ``fn`` where ``warm``); the water-fill kernels it
-    executed, by name; the ``top`` kernels by device time and the
-    water-fills' device time a launch where ``top``."""
+    executed, by name; the segment sums' launches and device µs a tick;
+    the ``top`` kernels by device time and the water-fills' device time a
+    launch where ``top``."""
     import torch
     if warm:
         fn()
@@ -1065,14 +1092,16 @@ def profile_window(fn, ticks: int, warm: bool = True, top: int = 0) -> dict:
     by_name = {f"priority_{name}": sum(e.count for e in own
                                        if f"{name}_kernel" in e.key)
                for name in ("grants", "admit")}
-    seg = sum(e.count for e in rows if FABRIC_KERNELS["seg_sum"] in e.key)
+    seg = [e for e in rows if FABRIC_KERNELS["seg_sum"] in e.key]
     out = {"ticks": ticks, "wall_s": wall, "parse_s": parse,
            "kernels_per_tick": launches / ticks,
            "device_busy_us_per_tick": busy_us / ticks,
            "device_busy_share": busy_us * 1e-6 / wall if wall else None,
            "waterfills_per_tick": sum(e.count for e in own) / ticks,
            "waterfill_launches": by_name,
-           "seg_sums_per_tick": seg / ticks}
+           "seg_sums_per_tick": sum(e.count for e in seg) / ticks,
+           "seg_sum_device_us_per_tick":
+               sum(e.device_time_total for e in seg) / ticks}
     if top:
         out["own_kernels"] = {name: {
             "count": sum(e.count for e in es),
@@ -1434,15 +1463,89 @@ def pod_scens(job: str, sim_time_s: float):
                            sim_time_s=sim_time_s)[0]
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def seg_device_us(calls: list, n: int = 20) -> list:
+    """Device µs a call of each segment-sum variant and of the library
+    yardstick at each of several shapes, ``calls`` [{variant: a call of
+    it}] a shape, from one ``torch.profiler`` session (:func:`profiled`)
+    in which each shape's calls run ``n`` times each, in turn.  The raw
+    device records, in the order they ran, fall into one run a (shape,
+    variant): a kernel's by its name (``SEG_KERNELS``, one launch a
+    call), ``index_add_``'s as every other record (the session runs
+    nothing else; its kernels' names and count a call are kept).  Fails
+    unless the runs line up with the calls."""
+    import torch
+    for fns in calls:
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for fns in calls:
+            for fn in fns.values():
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    recs = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        var = next((v for v, tag in SEG_KERNELS.items() if tag in e.name()),
+                   "index_add_")
+        recs.append((e.start_ns(), var, e.duration_ns(), e.name()))
+    runs = []                       # [variant, records, ns, names]
+    for _, var, ns, name in sorted(recs):
+        if runs and runs[-1][0] == var:
+            runs[-1][1] += 1
+            runs[-1][2] += ns
+            runs[-1][3].add(name)
+        else:
+            runs.append([var, 1, ns, {name}])
+    want = [var for fns in calls for var in fns]
+    got = [(r[0], r[1]) for r in runs]
+    check([r[0] for r in runs] == want
+          and all(c == n for var, c in got if var in SEG_KERNELS),
+          f"seg_sum device µs: the profiler's records {got} do not line "
+          f"up with the calls {want} ({n} each)")
+    it = iter(runs)
+    out = []
+    for fns in calls:
+        row = {}
+        for var, c, ns, names in (next(it) for _ in fns):
+            row[var] = ns * 1e-3 / n
+            if var == "index_add_":
+                row["index_add_kernels"] = {"per_call": c / n,
+                                            "names": sorted(names)}
+        out.append(row)
+    return out
+
+
 def seg_sum_phase(label: str, rows: int, idx, size: int, seed: int,
-                  iters: int) -> dict:
-    """The segment-sum kernel at ``[rows, len(idx)]`` values into
-    ``size`` bins at the bin index ``idx``: bit for bit against its plain
-    version run on the CPU in float32, and against itself over a second
-    launch; per-call time of the kernel, of the plain version on the card
-    and of one ``index_add_`` into a zeroed output (the same function,
-    atomic: the yardstick), beside the bound (bytes once over the memory
-    rate).  Values whose sums depend on the order (1e8, 1, -1e8)."""
+                  iters: int, clock_hz: float) -> tuple:
+    """The segment-sum kernel (``warp_fold``) at ``[rows, len(idx)]``
+    values into ``size`` bins at the bin index ``idx``: bit for bit
+    against its plain version run on the CPU in float32, against itself
+    over a second launch and against the first design (``bin_thread``,
+    forced); per call, of both kernels, CUDA-event ms and host µs (no
+    sync in the loop; :func:`seg_sum_rows` adds the device µs), with the
+    plain version on the card and one ``index_add_`` into a zeroed output
+    (the same function, atomic: the yardstick); the launch layout the C
+    source makes (``fused.seg_launch``).  Two bounds: bytes once
+    over the memory rate (``bound_ms``), and the bin-order floor, the
+    longest bin's serial chain of adds at 4 cycles each over the highest
+    SM clock; ``row_bound_ms`` is the larger and ``row_bound_by`` names
+    it.  Values whose sums depend on the order (1e8, 1, -1e8).  Returns
+    the row, unprinted, and the calls of both kernels and of the
+    yardstick (``index_add_``)."""
     import numpy as np
     import torch
     from repro_torch.fabric import fused
@@ -1455,58 +1558,208 @@ def seg_sum_phase(label: str, rows: int, idx, size: int, seed: int,
     vals = vals_cpu.cuda()
     plan = fused.seg_plan(idx, size, "cuda")
     want = fused.seg_sum_ref(vals_cpu, torch.from_numpy(idx), size)
+    calls = {var: (lambda var=var: fused.seg_sum(vals, plan, _variant=var))
+             for var in fused.SEG_VARIANTS}
     got = fused.seg_sum(vals, plan)
     again = fused.seg_sum(vals, plan)
+    old = calls["bin_thread"]()
     torch.cuda.synchronize()
     equal = bitwise_equal(got.cpu(), want)
     repeat = bitwise_equal(again, got)
+    old_equal = bitwise_equal(old, got)
+    n_long = int(plan.long_bins.numel())
+    layout = fused.seg_launch(rows, n, size, n_long)
     out = torch.zeros((rows, size), device="cuda")
+
+    def library():
+        out.index_add_(1, plan.idx, vals)
+
     nbytes = rows * n * 4 + n * 4 + (size + 1) * 4 + rows * size * 4
     bound_ms, bound_by = bound(nbytes, rows * n, FP32_OPS_PER_S)
+    longest = int(np.bincount(idx, minlength=size).max()) if n else 0
+    floor_ms = longest * 4 / clock_hz * 1e3
+    timed = {var: {"ms": cuda_ms(fn, iters), "device_us": None,
+                   "host_us": host_us(fn)} for var, fn in calls.items()}
     row = {"name": "seg_sum", "case": label, "shape": [rows, n],
-           "bins": size, "staged": bool(fused._seg_lib().seg_sum_staged(n)),
-           "bitwise_equal": equal, "repeat_equal": repeat,
-           "max_abs_err": float((got.cpu() - want).abs().max().item()),
-           "ms": cuda_ms(lambda: fused.seg_sum(vals, plan), iters),
+           "bins": size, "longest": longest,
+           "long_bins": n_long, "variant": "warp_fold",
+           "layout": layout, "bitwise_equal": equal, "repeat_equal": repeat,
+           "bin_thread_equal": old_equal,
+           "max_abs_err": float((got.cpu() - want).abs().max().item())
+           if got.numel() else 0.0,
+           **timed["warp_fold"], "bin_thread": timed["bin_thread"],
            "plain_ms": cuda_ms(lambda: fused.seg_sum_ref(vals, plan.idx,
                                                          size), iters),
-           "library_ms": cuda_ms(lambda: out.index_add_(1, plan.idx, vals),
-                                 iters),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
-    emit("kernel", **row)
+           "library_ms": cuda_ms(library, iters),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bin_order_floor_ms": floor_ms,
+           "row_bound_ms": max(bound_ms, floor_ms),
+           "row_bound_by": "bin order" if floor_ms > bound_ms else bound_by,
+           "bytes": nbytes}
     check(equal, f"seg_sum {label}: the card != the CPU plain version")
     check(repeat, f"seg_sum {label}: two launches differ")
-    return row
+    check(old_equal, f"seg_sum {label}: bin_thread != warp_fold")
+    return row, {**calls, "index_add_": library}
+
+
+def seg_host_items(label: str, rows: int, idx, size: int) -> dict:
+    """The host's µs a call of the segment-sum wrapper at one shape, and
+    of its pieces alone: the output's allocation, the current stream, the
+    launch through ctypes (the kernel enqueued, not counted), the launch
+    counter, the device check; ``rest`` is the wrapper less those."""
+    import numpy as np
+    import torch
+    from repro_torch.fabric import fused
+    vals = torch.zeros((rows, len(idx)), device="cuda")
+    plan = fused.seg_plan(np.asarray(idx), size, "cuda")
+    out = fused.seg_sum(vals, plan)
+    dev = vals.device
+    perm, offsets, long_bins, n_long = plan.ptrs
+    fn = fused._seg_lib().seg_sum_f32
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    items = {
+        "wrapper": host_us(lambda: fused.seg_sum(vals, plan), 200),
+        "empty": host_us(lambda: torch.empty(
+            (rows, size), dtype=torch.float32, device=dev), 200),
+        "stream": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index), 200),
+        "ctypes_launch": host_us(lambda: fn(
+            vals.data_ptr(), perm, offsets, long_bins, out.data_ptr(), rows,
+            plan.n, size, n_long, stream), 200),
+        "launch_counter": host_us(
+            lambda: fused.LAUNCHES.add("seg_sum", dev), 200),
+        "device_check": host_us(
+            lambda: dev.index != torch.cuda.current_device(), 200)}
+    items["rest"] = items["wrapper"] - sum(
+        v for k, v in items.items() if k != "wrapper")
+    out = {"case": label, "shape": [rows, len(idx)], "bins": size,
+           "host_us": items}
+    emit("seg_sum_host", **out)
+    return out
 
 
 def seg_sum_rows() -> dict:
     """The segment sum at the pod path's shapes (pod256's and pod1024's
     three: a slot row into the (TC, port) bins, every slot entry into
-    them, a slot row into the ports) and at a large one; returns the row
-    of pod256's largest shape, every slot entry into the (TC, port)
-    bins, for the ``kernels`` line."""
+    them, a slot row into the ports; and pod1024's slot 5, 768 of its 769
+    entries in one bin) and at a large one; then the wrapper's host µs
+    item by item at pod256's largest shape; returns the row of that
+    shape, every slot entry into the (TC, port) bins, for the
+    ``kernels`` line."""
     import numpy as np
     from repro_torch.fabric.vector import FabricSweepParams, _seg_plans
-    main = None
+    clock = sm_clock_hz()
+    main, done = None, []
     for i, job in enumerate(("pod256", "pod1024")):
         fsp = FabricSweepParams.from_scenarios(pod_scens(job, 1e-5),
                                                sparse=True)
         plans = _seg_plans(fsp, "cpu")
-        for j, (what, pl) in enumerate((("slot row -> (TC, port)",
-                                         plans["qp_k"][1]),
-                                        ("all slots -> (TC, port)",
-                                         plans["qp_flat"]),
-                                        ("slot row -> port",
-                                         plans["po_k"][1]))):
-            row = seg_sum_phase(f"{job} {what}", fsp.n_points,
-                                pl.idx.numpy(), pl.size, 50 + 3 * i + j,
-                                iters=2000)
+        picks = [("slot row -> (TC, port)", plans["qp_k"][1]),
+                 ("all slots -> (TC, port)", plans["qp_flat"]),
+                 ("slot row -> port", plans["po_k"][1])]
+        if job == "pod1024":
+            picks.append(("slot 5 -> (TC, port)", plans["qp_k"][5]))
+        for j, (what, pl) in enumerate(picks):
+            done.append(seg_sum_phase(f"{job} {what}", fsp.n_points,
+                                      pl.idx.numpy(), pl.size,
+                                      50 + 4 * i + j, iters=2000,
+                                      clock_hz=clock))
             if job == "pod256" and pl is plans["qp_flat"]:
-                main = row
+                main = done[-1][0]
+                host = (fsp.n_points, pl.idx.numpy(), pl.size)
     rows, n, size = SEG_LARGE
     idx = np.random.default_rng(60).integers(0, size, n)
-    seg_sum_phase("large", rows, idx, size, 61, iters=20)
+    done.append(seg_sum_phase("large", rows, idx, size, 61, iters=20,
+                              clock_hz=clock))
+    dev = seg_device_us([calls for _, calls in done])
+    for (row, _), us in zip(done, dev):
+        row["device_us"] = us["warp_fold"]
+        row["bin_thread"]["device_us"] = us["bin_thread"]
+        row["library_device_us"] = us["index_add_"]
+        row["library_kernels"] = us["index_add_kernels"]
+    for row, _ in done:
+        times = (row["device_us"], row["bin_thread"]["device_us"],
+                 row["library_device_us"])
+        check(all(math.isfinite(t) and t > 0 for t in times),
+              f"seg_sum {row['case']}: device µs {times}")
+    for row, _ in done:
+        emit("kernel", **row)
+    seg_host_items("pod256 all slots -> (TC, port)", *host)
     return main
+
+
+@contextlib.contextmanager
+def forced_seg_variant(variant: str):
+    """Every ``fused.seg_sum`` call of the fabric tick runs ``variant``
+    (a timing's forcing: the tick reads ``fused.seg_sum`` at each
+    call)."""
+    from repro_torch.fabric import fused
+    real = fused.seg_sum
+
+    def forced(vals, plan, impl="auto", _variant=None):
+        return real(vals, plan, impl=impl, _variant=variant)
+    fused.seg_sum = forced
+    try:
+        yield
+    finally:
+        fused.seg_sum = real
+
+
+def seg_variants_phase(job: str) -> dict:
+    """A pod cell through the captured graph with its segment sums on each
+    kernel in turn, ``warp_fold`` then ``bin_thread`` (forced): 50 ticks
+    traced whole (:func:`trace_kernels`: the segment sums' launches by
+    name, 22 a tick, and their device µs a tick; kernels and busy µs a
+    tick), the launches counted on the card (22 a tick); then ms a tick
+    over 300 untraced ticks, the two kernels timed in the order
+    ``warp_fold``, ``bin_thread``, ``bin_thread``, ``warp_fold`` (a
+    drift of the card's clock over the four falls on both alike), each
+    kernel's mean in ``ms_per_tick``, its two runs in
+    ``ms_per_tick_runs``."""
+    import torch
+    from repro_torch.fabric import fused
+    from repro_torch.fabric.vector import FabricRun, FabricSweepParams
+
+    def forced(var):
+        return (forced_seg_variant(var) if var == "bin_thread"
+                else contextlib.nullcontext())
+    fsp = FabricSweepParams.from_scenarios(pod_scens(job, 50e-6),
+                                           sparse=True)
+    ticks = fsp.ticks
+    timed = FabricSweepParams.from_scenarios(pod_scens(job, 300e-6),
+                                             sparse=True)
+    out = {}
+    for var in SEG_KERNELS:
+        with forced(var):
+            run = FabricRun(fsp)
+            fused.reset_launches()
+            tr = trace_kernels(run.run)
+            launches = fused.LAUNCHES.read()
+        seg = tr["seg_sum"][var]
+        out[var] = {"launches": launches,
+                    "seg_sums_per_tick": seg["launches"] / ticks,
+                    "seg_sum_device_us_per_tick": seg["device_us"] / ticks,
+                    "kernels_per_tick": tr["kernels"] / ticks,
+                    "device_busy_us_per_tick":
+                        tr["device_busy_us"] / ticks,
+                    "ms_per_tick_runs": []}
+        want = {k: c * ticks for k, c in POD_LAUNCHES.items()}
+        check(launches == want and seg["launches"] == 22 * ticks,
+              f"{job} {var}: launches {launches}, {seg['launches']} "
+              f"segment sums by name in {ticks} ticks")
+    for var in ("warp_fold", "bin_thread", "bin_thread", "warp_fold"):
+        with forced(var):
+            run = FabricRun(timed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.run()
+            out[var]["ms_per_tick_runs"].append(
+                (time.perf_counter() - t0) / timed.ticks * 1e3)
+    for var in SEG_KERNELS:
+        out[var]["ms_per_tick"] = sum(out[var]["ms_per_tick_runs"]) / 2
+    emit("seg_variants", job=job, ticks=ticks, timed_ticks=timed.ticks,
+         **out, nvidia_smi=card_line())
+    return out
 
 
 def pods_phase(dense: dict):
@@ -1555,6 +1808,8 @@ def pods_phase(dense: dict):
                    "kernels_per_tick": prof["kernels_per_tick"],
                    "device_busy_us_per_tick":
                        prof["device_busy_us_per_tick"],
+                   "seg_sum_device_us_per_tick":
+                       prof["seg_sum_device_us_per_tick"],
                    "device_busy_share": prof["device_busy_share_unprofiled"],
                    "pause_fanout": res["pause_fanout"].tolist(),
                    "pause_storm": res["pause_storm"].tolist(),
@@ -1579,6 +1834,8 @@ def pods_phase(dense: dict):
             / math.log(4.0),
             "growth_exponent_256_1024":
                 math.log(busy["pod1024"] / busy["pod256"]) / math.log(4.0),
+            "seg_sum_device_us_per_tick": {
+                j: out[j]["seg_sum_device_us_per_tick"] for j in POD_HOSTS},
             "ceiling": SCALE_CEILING, "nvidia_smi": card_line()}
         emit("scale", **scale)
         for job, (fsp, res, head) in runs.items():
@@ -2620,9 +2877,21 @@ def profile_serve(cfg, dev) -> None:
 
 
 
+PHASE_S: dict = {}           # seconds of each phase of run(), in order
+_LAP = [0.0]
+
+
+def lap(name: str) -> None:
+    """Charge the seconds since the previous lap to phase ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + now - _LAP[0]
+    _LAP[0] = now
+
+
 def run() -> int:
     import torch
     start = time.perf_counter()
+    _LAP[0] = start
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA card", file=sys.stderr)
@@ -2652,6 +2921,7 @@ def run() -> int:
                     for ln in log.splitlines() if "registers" in ln],
              wgmma_spill_bytes=spills, flash_build=flash, ssd_build=ssd,
              decode_build=decode)
+        lap("build")
         check(spills is None or (len(spills) == 4 and not any(spills)),
               f"the wgmma kernel spills registers: {spills}")
         # 5 head-dim tiles x 2 types on the tensor cores, 2 x 2 on the CUDA
@@ -2678,6 +2948,12 @@ def run() -> int:
                 ("priority_admit", (48, 3, 2), 2)):
             rows[name] = kernel_phase(name, main_shape, seed, iters=2000)
             kernel_phase(name, LARGE, seed + 10, iters=20)
+        lap("kernel_waterfill")
+        # before any CUDA graph of the script: after one, the profiler kept
+        # no record of a kernel launched through ctypes (graph replays'
+        # yes), so the rows' device µs would be lost
+        rows["seg_sum"] = seg_sum_rows()
+        lap("kernel_seg_sum")
         # serve path's shapes first: those rows go into the kernels line
         rows["flash_attention"] = flash_phase(
             "serve path", 1, 32, 32, 1024, 1024, 64, True, None, "float32",
@@ -2702,6 +2978,7 @@ def run() -> int:
             flash_phase(f"simt D={d} {dtype}", 1, 16, 4, 1024, 1024, d,
                         True, None, dtype, seed, iters=10, plain_iters=3,
                         expect="simt")
+        lap("kernel_flash")
         rows["ssd_scan"] = ssd_phase(
             "serve path", 1, 1024, 64, 64, 1, 64, 256, 7, iters=50,
             plain_iters=5, expect="mma_3xtf32", prev_iters=20)
@@ -2722,6 +2999,7 @@ def run() -> int:
         ssd_phase("simt P=20", 1, 1024, 64, 20, 1, 64, 256, 11, iters=10,
                   plain_iters=3, expect="simt")
         ssd_plan_phase()
+        lap("kernel_ssd")
         rows["decode_attention_paged"] = decode_phase(
             "zamba2 shared attention", 6, 32, 32, 64, 16, SERVE_PROMPTS,
             "float32", 20, iters=200, plain_iters=20, expect="simt_f32")
@@ -2742,6 +3020,7 @@ def run() -> int:
                      "bfloat16", 33, iters=50, plain_iters=5,
                      expect="mma_bf16")
         decode_plan_phase()
+        lap("kernel_decode")
         rows["staged_matmul"] = matmul_phase(
             "zamba2 MLP up-projection", 1024, 2048, 8192, "float32", 25,
             iters=10, plain_iters=10, expect="simt_f32")
@@ -2763,35 +3042,54 @@ def run() -> int:
         matmul_phase("bench_kernels FFN tile", 4096, 5120, 8192, "bfloat16",
                      28, iters=20, plain_iters=5, expect="wgmma_bf16_n256")
         wgmma_widths_phase(iters=20)
+        lap("kernel_matmul")
         main = main_path()
+        lap("main_path")
         profile_phase()
+        lap("profile")
         main_result = main.pop("result")
         unit_stride_phase(main_result)
         adaptive_fsp, adaptive_finish = adaptive_phase()
+        lap("adaptive")
         from repro_torch.configs import get_arch
         zamba2 = get_arch("zamba2-1.2b")
         serve = serve_phase(zamba2, torch.device("cuda"))
+        lap("serve")
         profile_serve(zamba2, torch.device("cuda"))
+        lap("profile_serve")
         paged, staged = paged_phase(zamba2, torch.device("cuda"))
+        lap("paged_staged")
         # the card runs of the last three phases first, timed with no
         # CPU reference running beside them; then the references
         finish = [sweep_phase("bench 144", False),
                   sweep_phase("dense 9216", True)]
+        lap("receiver_sweep")
         routing_fsp, routing_finish = routing_phase()
+        lap("routing")
         class_fsps, classes_finish = classes_phase()
+        lap("classes")
         msg_fsp, messages_finish = messages_phase()
+        lap("messages")
         flt_fsp, faults_finish = faults_phase()
+        lap("faults")
         pod_fsps, pod256, pods_finish = pods_phase(main_result)
+        lap("pods")
         waterfill_path_rows({"routing8": routing_fsp, **class_fsps,
                              "messages18": msg_fsp, "lossy9": flt_fsp,
                              "adaptive8": adaptive_fsp, **pod_fsps}, 40)
-        rows["seg_sum"] = seg_sum_rows()
+        lap("kernel_waterfill_paths")
+        for job in ("pod64", "pod256", "pod1024", "pod_storm3"):
+            seg_variants_phase(job)
+        lap("seg_variants")
         oracles = run_oracles()
+        lap("oracles")
         for done in finish + [routing_finish, classes_finish,
                               messages_finish, faults_finish,
                               adaptive_finish, pods_finish]:
             done(oracles)
+        lap("checks_vs_oracles")
         traced = main_path_traced(main_result)
+        lap("main_path_traced")
         # each kernel's launches on the path that runs it
         launches = {**traced["launches_by_name"],
                     "flash_attention": serve["launches"]["flash_attention"],
@@ -2807,7 +3105,7 @@ def run() -> int:
               and all(n > 0 for n in launches.values()),
               f"a kernel was launched on no path: {launches}")
         total = time.perf_counter() - start
-        emit("total", wall_s=total, limit_s=TIME_LIMIT_S)
+        emit("total", wall_s=total, limit_s=TIME_LIMIT_S, phase_s=PHASE_S)
         check(total < TIME_LIMIT_S, f"the script took {total} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

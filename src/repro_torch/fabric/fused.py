@@ -22,10 +22,15 @@ into (class, port) bins with a batched segment sum at static indices
 PyTorch's float scatter-adds are atomic and change their summation order
 from run to run, so the port sums through a hand-written deterministic
 kernel (``csrc/seg_sum.cu``) over a plan built once at set-up
-(:func:`seg_plan`: a stable sort of the entries by bin and CSR offsets).
-Each bin adds its entries in entry order, as ``np.add.at`` and the CPU
-``index_add_`` of the plain version (:func:`seg_sum_ref`) do, so the
-kernel is bitwise equal to the plain version run on the CPU in float32.
+(:func:`seg_plan`: a stable sort of the entries by bin, CSR offsets, and
+the bins of at least :data:`SEG_LONG_MIN` entries, which the kernel folds
+a warp each).  Each bin adds its entries in entry order, as
+``np.add.at`` and the CPU ``index_add_`` of the plain version
+(:func:`seg_sum_ref`) do, so the kernel is bitwise equal to the plain
+version run on the CPU in float32.  The source holds two kernels
+(:data:`SEG_VARIANTS`): ``warp_fold``, which :func:`seg_sum` launches,
+and ``bin_thread``, the first design (one thread a bin), which only a
+timing forces (``_variant``).
 
 The PFC-deadlock watchdog's helpers (:func:`pause_pair_onehot`,
 :func:`cycle_flags`) are plain tensor code in both packages: {0,1}
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -97,24 +103,53 @@ def priority_admit_ref(demand, space):
     return torch.stack(rows, -2)
 
 
+SEG_VARIANTS = ("warp_fold", "bin_thread")
+SEG_LONG_MIN = 32           # entries from which warp_fold folds a bin a
+                            # warp (csrc/seg_sum.cu: kLongMin)
+
+
 @dataclasses.dataclass(frozen=True)
 class SegPlan:
     """A static segment-sum index, set up once (:func:`seg_plan`): each
     entry's bin ``idx`` [N] (int64, the plain version's index), the
     entries stably sorted by bin ``perm`` [N] and the bins' CSR offsets
-    into it ``offsets`` [size + 1] (both int32, the kernel's), and the
-    number of bins ``size``."""
+    into it ``offsets`` [size + 1] (both int32, the kernel's), the number
+    of bins ``size``, and the bins of at least :data:`SEG_LONG_MIN`
+    entries, ascending, ``long_bins`` [L] (int32), which the kernel folds
+    a warp each.  Checked once, when it is made (types, shapes, one
+    device); a call checks only its values."""
     idx: torch.Tensor
     perm: torch.Tensor
     offsets: torch.Tensor
     size: int
+    long_bins: torch.Tensor
+    n: int = dataclasses.field(init=False)
+    device: torch.device = dataclasses.field(init=False)
+    ptrs: tuple = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        n, dev = self.idx.numel(), self.idx.device
+        for name, t, shape, dtype in (
+                ("idx", self.idx, (n,), torch.int64),
+                ("perm", self.perm, (n,), torch.int32),
+                ("offsets", self.offsets, (self.size + 1,), torch.int32),
+                ("long_bins", self.long_bins, (self.long_bins.numel(),),
+                 torch.int32)):
+            _check(name, t, shape, dtype, dev)
+        object.__setattr__(self, "n", n)
+        object.__setattr__(self, "device", dev)
+        # the kernel's arguments, fixed for the plan's life
+        object.__setattr__(self, "ptrs", (
+            self.perm.data_ptr(), self.offsets.data_ptr(),
+            self.long_bins.data_ptr(), self.long_bins.numel()))
 
 
 def seg_plan(idx, size: int, device=None) -> SegPlan:
     """The plan of a segment sum of ``[.., N]`` values into ``size`` bins
     at the static bin index ``idx`` [N] (numpy or a tensor), on
     ``device`` (default: ``idx``'s).  ``perm`` is a *stable* sort of the
-    entries by bin, so each bin's entries keep their order."""
+    entries by bin, so each bin's entries keep their order; bins of at
+    least :data:`SEG_LONG_MIN` entries are listed in ``long_bins``."""
     if device is None:
         device = idx.device if isinstance(idx, torch.Tensor) else "cpu"
     a = (idx.cpu().numpy() if isinstance(idx, torch.Tensor)
@@ -122,13 +157,16 @@ def seg_plan(idx, size: int, device=None) -> SegPlan:
     if a.size and (a.min() < 0 or a.max() >= size):
         raise ValueError(f"segment index out of range [0, {size})")
     perm = np.argsort(a, kind="stable")
-    offsets = np.concatenate([[0], np.cumsum(np.bincount(a,
-                                                         minlength=size))])
+    counts = np.bincount(a, minlength=size)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
     return SegPlan(
         idx=torch.as_tensor(a, device=device),
         perm=torch.as_tensor(perm.astype(np.int32), device=device),
         offsets=torch.as_tensor(offsets.astype(np.int32), device=device),
-        size=int(size))
+        size=int(size),
+        long_bins=torch.as_tensor(
+            np.flatnonzero(counts >= SEG_LONG_MIN).astype(np.int32),
+            device=device))
 
 
 def seg_sum_ref(vals, idx, size: int):
@@ -137,7 +175,7 @@ def seg_sum_ref(vals, idx, size: int):
     axis).  On the CPU each bin adds its entries in entry order, as
     ``np.add.at`` does."""
     lead = vals.shape[:-1]
-    v = vals.reshape(-1, vals.shape[-1])
+    v = vals.reshape(int(np.prod(lead)), vals.shape[-1])   # N may be 0
     out = v.new_zeros((v.shape[0], size))
     out.index_add_(1, idx, v)
     return out.reshape(lead + (size,))
@@ -220,42 +258,82 @@ def _seg_lib():
     lib = library(_SEG_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.seg_sum_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
+        lib.seg_sum_f32.argtypes = [p, p, p, p, p, i64, i32, i32, i32, p]
         lib.seg_sum_f32.restype = ctypes.c_int
-        lib.seg_sum_staged.argtypes = [i32]
-        lib.seg_sum_staged.restype = ctypes.c_int
+        lib.seg_sum_layout.argtypes = [i64, i32, i32, i32, i32,
+                                       ctypes.POINTER(ctypes.c_longlong)]
+        lib.seg_sum_layout.restype = ctypes.c_int
+        lib.seg_sum_bin_thread_f32.argtypes = [p, p, p, p, i64, i32, i32, p]
+        lib.seg_sum_bin_thread_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def _seg_sum_cuda(vals, plan: SegPlan):
+def seg_launch(rows: int, n: int, size: int, n_long: int = 0,
+               sms: int = 0) -> dict:
+    """The launch ``warp_fold`` makes for ``rows`` rows of ``n`` values
+    into ``size`` bins, ``n_long`` of them long, on a card of ``sms``
+    SMs (0: the current card), as ``csrc/seg_sum.cu`` computes it
+    (builds the library): ``grid`` blocks (a row each, or with more
+    rows than SMs one persistent block an SM) of ``threads`` (a warp a
+    long bin and a thread a short one, 128 to 1,024), ``buffers`` rows
+    in shared memory (0: read from device memory; 2: double-buffered),
+    ``indices_staged`` (perm copied beside them), ``tma`` (rows arrive
+    by a bulk copy) and the shared memory of a block."""
+    out = (ctypes.c_longlong * 6)()
+    _raise_on(_seg_lib().seg_sum_layout(rows, n, size, n_long, sms, out),
+              "seg_sum_layout")
+    return {"grid": out[0], "threads": out[1], "buffers": out[2],
+            "indices_staged": bool(out[3]), "tma": bool(out[4]),
+            "smem_bytes": out[5]}
+
+
+def _seg_sum_cuda(vals, plan: SegPlan, variant: str):
     dev = vals.device
-    if dev.index is not None and dev.index != torch.cuda.current_device():
+    if dev != plan.device:
+        raise ValueError(f"vals is on {dev}, the plan on {plan.device}")
+    if dev.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {dev} but the current CUDA device "
                          f"is {torch.cuda.current_device()}")
     if vals.dtype != torch.float32:
         raise TypeError(f"vals must be torch.float32, got {vals.dtype}")
-    n = vals.shape[-1] if vals.dim() else 0
-    _check("perm", plan.perm, (n,), torch.int32, dev)
-    _check("offsets", plan.offsets, (plan.size + 1,), torch.int32, dev)
-    v = vals.reshape(-1, n).contiguous()
+    n = plan.n
+    if vals.dim() == 0 or vals.shape[-1] != n:
+        raise ValueError(f"vals has shape {tuple(vals.shape)}, expected "
+                         f"[.., {n}]")
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
     out = torch.empty(vals.shape[:-1] + (plan.size,), dtype=torch.float32,
                       device=dev)
     if out.numel():
-        _raise_on(_seg_lib().seg_sum_f32(
-            v.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
-            out.data_ptr(), v.shape[0], n, plan.size,
-            torch.cuda.current_stream(dev).cuda_stream), "seg_sum")
+        perm, offsets, long_bins, n_long = plan.ptrs
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        lib = _seg_lib()
+        if variant == "warp_fold":
+            err = lib.seg_sum_f32(
+                vals.data_ptr(), perm, offsets, long_bins, out.data_ptr(),
+                out.numel() // plan.size, n, plan.size, n_long, stream)
+        else:
+            err = lib.seg_sum_bin_thread_f32(
+                vals.data_ptr(), perm, offsets, out.data_ptr(),
+                out.numel() // plan.size, n, plan.size, stream)
+        _raise_on(err, "seg_sum")
         LAUNCHES.add("seg_sum", dev)
     return out
 
 
-def seg_sum(vals, plan: SegPlan, impl: str = "auto"):
+def seg_sum(vals, plan: SegPlan, impl: str = "auto",
+            _variant: Optional[str] = None):
     """Deterministic batched segment sum (see :func:`seg_sum_ref`) at a
-    plan from :func:`seg_plan`: the CUDA kernel for CUDA tensors, the
-    plain version for CPU ones."""
+    plan from :func:`seg_plan`: the CUDA kernel for CUDA tensors
+    (``warp_fold``), the plain version for CPU ones.  ``_variant`` forces
+    a kernel of :data:`SEG_VARIANTS` (the chip smoke test times
+    ``bin_thread`` beside ``warp_fold`` with it)."""
+    if _variant is not None and _variant not in SEG_VARIANTS:
+        raise ValueError(f"unknown seg_sum variant {_variant!r} "
+                         f"({' | '.join(SEG_VARIANTS)})")
     if resolve_impl(impl, vals.device) == "cuda":
-        return _seg_sum_cuda(vals, plan)
+        return _seg_sum_cuda(vals, plan, _variant or "warp_fold")
     return seg_sum_ref(vals, plan.idx, plan.size)
 
 

@@ -333,7 +333,8 @@ def test_adaptive_max_stride_one_equals_fixed_dt_on_the_card(card):
 
 
 SEG_SHAPES = [(4, 193, 693), (4, 1158, 693), (4, 193, 231),
-              (1, 1, 1), (3, 60000, 5000), (64, 24576, 12291)]
+              (1, 1, 1), (3, 60000, 5000), (64, 24576, 12291),
+              (4096, 24576, 12291), (300, 1001, 77), (200, 40000, 100)]
 
 
 def _seg_inputs(seed, rows, n, size):
@@ -366,6 +367,131 @@ def test_seg_sum_kernel_is_the_cpu_plain_version_bitwise(card, rows, n,
     assert _same_bits(again, got)
 
 
+def _straddling():
+    """A bin of 33 entries and one of 1,000 off the 32-entry chunk edges,
+    between short bins, the entries shuffled."""
+    rng = np.random.default_rng(7)
+    idx = np.concatenate([np.full(5, 0), np.full(33, 1), np.full(1000, 2),
+                          rng.integers(3, 40, 300), np.full(31, 41),
+                          np.full(32, 42)])
+    return rng.permutation(idx), 45
+
+
+def _slot5():
+    """pod1024's slot-5 row: 768 of 769 entries in one bin."""
+    idx = np.full(769, 1757)
+    idx[300] = 12
+    return idx, 2637
+
+
+SEG_ADVERSARIAL = {
+    "one bin holds all": (3, np.zeros(1000, np.int64), 5),
+    "empty bins": (3, np.array([1, 4, 4, 1, 7, 4] * 3), 9),
+    "no entries": (3, np.zeros(0, np.int64), 3),
+    "one bin": (5, np.zeros(50, np.int64), 1),
+    "33 and 1000 across chunk edges": (4, *_straddling()),
+    "33 and 1000, persistent": (301, *_straddling()),
+    "pod1024 slot 5": (4, *_slot5()),
+}
+
+
+def _seg_vals(seed, rows, n):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice(
+        np.array([1e8, 1.0, -1e8, 0.3, -2.5, 0.0, -0.0], np.float32),
+        size=(rows, n)))
+
+
+@pytest.mark.parametrize("case", SEG_ADVERSARIAL)
+def test_seg_sum_adversarial_bins_bitwise(card, case):
+    """Bins that hold every entry, empty bins, no entries, a single bin,
+    bins of 33 and 1,000 entries across the warp's chunk edges (in a
+    block a row and in persistent blocks), the incast slot row: both
+    kernels bit for bit the plain version run on the CPU in float32,
+    launch after launch, one launch a call."""
+    rows, idx, size = SEG_ADVERSARIAL[case]
+    vals = _seg_vals(10, rows, idx.size)
+    want = fused.seg_sum_ref(vals, torch.from_numpy(idx), size)
+    plan = fused.seg_plan(idx, size, card)
+    v = vals.to(card)
+    fused.reset_launches()
+    got = [fused.seg_sum(v, plan) for _ in range(2)]
+    old = fused.seg_sum(v, plan, _variant="bin_thread")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["seg_sum"] == 3
+    for g in got + [old]:
+        assert _same_bits(g.cpu(), want)
+
+
+@pytest.mark.parametrize("rows,n,size", SEG_SHAPES)
+def test_seg_sum_bin_thread_variant_equals_warp_fold(card, rows, n, size):
+    """The first design, forced, gives the new kernel's bits."""
+    vals, idx = _seg_inputs(12, rows, n, size)
+    plan = fused.seg_plan(idx, size, card)
+    v = vals.to(card)
+    got = fused.seg_sum(v, plan)
+    old = fused.seg_sum(v, plan, _variant="bin_thread")
+    torch.cuda.synchronize()
+    assert _same_bits(got, old)
+
+
+def test_seg_sum_captured_launch_equals_eager(card):
+    """A launch captured into a CUDA graph and replayed (on new values
+    copied into its input) equals an eager launch on those values, and
+    each replay counts one launch on the card."""
+    idx, size = _straddling()
+    plan = fused.seg_plan(idx, size, card)
+    static = _seg_vals(13, 4, idx.size).to(card)
+    fused.seg_sum(static, plan)                 # eager first: the counter
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused.seg_sum(static, plan)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused.seg_sum(static, plan)
+    fused.reset_launches()
+    for seed in (14, 15):
+        fresh = _seg_vals(seed, 4, idx.size).to(card)
+        static.copy_(fresh)
+        graph.replay()
+        eager = fused.seg_sum(fresh, plan)
+        torch.cuda.synchronize()
+        assert _same_bits(captured, eager)
+        assert _same_bits(eager.cpu(), fused.seg_sum_ref(
+            fresh.cpu(), torch.from_numpy(idx), size))
+    assert fused.LAUNCHES.read()["seg_sum"] == 4
+
+
+@pytest.mark.parametrize("rows,n,size,n_long,want", [
+    # grid, threads, buffers, indices staged, bulk copy
+    (4, 1158, 693, 11, (4, 1024, 1, True, False)),      # pod256, all slots
+    (4, 4614, 2637, 11, (4, 1024, 1, True, False)),     # pod1024, all slots
+    (4, 193, 231, 0, (4, 256, 1, True, False)),         # pod256 slot -> port
+    (4, 33, 47, 1, (4, 128, 1, True, False)),           # pod64 slot 5 -> port
+    (4096, 24576, 12291, 0, (132, 1024, 2, False, True)),   # the large check
+    (300, 1001, 77, 1, (132, 1024, 2, True, True)),     # persistent, unaligned
+    (200, 40000, 100, 0, (132, 1024, 1, False, True)),  # one buffer fits
+    (3, 60000, 5000, 0, (3, 1024, 0, False, False)),    # past shared memory
+    (1, 1, 1, 0, (1, 128, 1, True, False)),
+    (500, 7, 3, 0, (132, 1024, 1, True, False)),        # no bulk copy below 8
+])
+def test_seg_sum_launch_layout(card, rows, n, size, n_long, want):
+    """The launch the C source makes on a card of 132 SMs: its choices,
+    and its shared memory (two mbarriers, the row buffers, 512 bytes a
+    warp that folds a long bin, perm where staged) within the 227 KB a
+    block may opt into."""
+    got = fused.seg_launch(rows, n, size, n_long, sms=132)
+    assert (got["grid"], got["threads"], got["buffers"],
+            got["indices_staged"], got["tma"]) == want
+    row_bytes = 4 * ((n + 7) // 4 * 4)
+    assert got["smem_bytes"] == 16 + got["buffers"] * row_bytes + 512 * min(
+        n_long, got["threads"] // 32) + (
+        4 * n if got["indices_staged"] else 0)
+    assert got["smem_bytes"] <= 232448
+
+
 def test_seg_sum_wrapper_rejects_what_the_kernel_does_not_take(card):
     vals, idx = _seg_inputs(9, 2, 50, 7)
     plan = fused.seg_plan(idx, 7, card)
@@ -375,6 +501,8 @@ def test_seg_sum_wrapper_rejects_what_the_kernel_does_not_take(card):
         fused.seg_sum(vals[:, :40].to(card), plan)
     with pytest.raises(ValueError):
         fused.seg_sum(vals.to(card), fused.seg_plan(idx, 7))
+    with pytest.raises(ValueError):
+        fused.seg_sum(vals.to(card), plan, _variant="tree")
 
 
 def _pod64(sim_time_s):
