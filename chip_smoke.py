@@ -152,6 +152,29 @@ Each phase prints one JSON line:
     hosts, ``growth_exponent`` = log(busy256 / busy64) / log 4 and its
     ms a tick twin, both <= 1.6 (``bench_floors.json``), and the 256 ->
     1,024 exponent, recorded.
+15. ``farm``: the sweep farm (``repro_torch.fabric.farm.run_farm``) on
+    the card, every chunk through the captured tick.  incast64
+    (``build_grid("incast")``, the reference bench's farm grid: {jet,
+    ddio} x PFC {off, on} x 16 bursts 0.25-4 MB, 4 senders, 2 ms) in
+    chunks of 16 and of 18 (three, and a remainder of 10 padded to 16 by
+    6 repeated lanes, which replays the run captured for the chunks of
+    16), two passes each, against its monolithic graph run in the same
+    call: every output equal (``dev_farm_vs_mono`` exactly 0, NaN and
+    inf in the same places), a graph captured per chunk shape not built
+    before on the first pass and none on the second, each chunk counting
+    4 grants and 1 admit a
+    tick on the card, equal to the launches captured x ticks; the wall
+    of the monolithic run and of each pass (recorded).
+    ``farm_pod_storm3``: ``pod_storm_grid()`` in chunks of 2 and 1, equal
+    to its monolithic run, 22 segment sums a tick a chunk.
+    ``farm_workers``: ``run_farm("incast", quick=True)`` in chunks of 4
+    through a spawn pool of 2 workers writing shards under
+    ``build/farm_runs``, equal to the in-process farm; one shard deleted
+    and the run resumed reruns that chunk only.  ``mixed_fleet6``
+    (printed after ``oracles``): ``mixed_fleet_grid()`` at full width (8
+    senders + victim, 6 points, 2 ms) in chunks of 4 and 2, within 5e-4
+    of CPU float64 on goodput and incast completion, identical finite
+    masks.
 
 The card runs of phases 9-14 come first, then ``kernel`` rows of both
 water-fills at every shape those fabric grids gave them (grants at each
@@ -1035,6 +1058,8 @@ def oracle(job: str, threads: int):
             scens = adaptive_scens(ADAPTIVE_TIME_S)
         elif job in POD_TIMES:
             scens = pod_scens(job, POD_TIMES[job])
+        elif job == "mixed_fleet6":
+            scens = mixed_scens()
         else:
             scens = class_scens(job, CLASSES_TIME_S)
         out = run_fabric_sweep(scens, device="cpu", dtype=torch.float64,
@@ -1052,7 +1077,8 @@ def run_oracles() -> dict:
     from concurrent.futures import ProcessPoolExecutor
     jobs = {"sweep_dense": 2, "messages": 1, "routing": 1, "faults": 1,
             "adaptive": 1, "pod256": 1, "pod64": 1, "pod_storm3": 1,
-            "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1}
+            "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1,
+            "mixed_fleet6": 1}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=ORACLE_WORKERS,
@@ -1863,6 +1889,221 @@ def pods_phase(dense: dict):
         return out
     return {job: r[0] for job, r in runs.items()}, runs["pod256"][2], \
         finish
+
+
+FARM_CHUNKS = (16, 18)      # incast64: 4 chunks of 16; 3 of 18 + 10 padded to 16
+FARM_POD_CHUNK = 2          # pod_storm3: a chunk of 2 and one of 1
+MIXED_TIME_S = 0.002        # mixed_fleet6: depth 20 ms -> the registry's 2 ms
+MIXED_CHUNK = 4             # mixed_fleet6: a chunk of 4 and one of 2
+FARM_RUNS = ROOT / "build" / "farm_runs"    # farm_workers' artifacts
+
+
+def mixed_scens():
+    """``mixed_fleet_grid()`` at full width (8 senders + a victim; Jet
+    pool 12 / 4 / 1 MB x bursts 1 / 2 MB), depth cut to 2 ms."""
+    from repro_torch.fabric import mixed_fleet_grid
+    return mixed_fleet_grid(sim_time_s=MIXED_TIME_S)[0]
+
+
+def grid_ticks(scens) -> int:
+    """A grid's tick count, as its packing computes it."""
+    f = scens[0].fabric
+    return int(f.sim_time_s * 1e6 / f.dt_us)
+
+
+def farm_pass(scens, chunk: int, **kw):
+    """One in-memory farm run of ``scens`` in chunks of ``chunk`` on the
+    card; the launch counts are set to 0 just before it and read just
+    after (a capture's warm-up launches included)."""
+    from repro_torch.fabric import fused
+    from repro_torch.fabric.farm import run_farm
+    fused.reset_launches()
+    t0 = time.perf_counter()
+    res = run_farm(scens, chunk_size=chunk, artifacts=False, **kw)
+    wall = time.perf_counter() - t0
+    return res, wall, fused.LAUNCHES.read()
+
+
+def farm_summary(res, wall: float, launches: dict, want: dict, ticks: int,
+                 per=None) -> dict:
+    """A farm pass against the monolithic run ``want``: outputs that
+    differ (NaN and inf in the same places), the largest relative
+    deviation over every output, graphs captured, and each chunk's
+    launches on the card (counted around its run, a replay's added on
+    the card) against ``per`` a tick and the launches captured x ticks."""
+    import numpy as np
+    recs = res["manifest"]["records"]
+    got = res["results"]
+    diff = differing(got, want)
+    dev = max((rel(np.asarray(got[k], np.float64),
+                   np.asarray(want[k], np.float64)) for k in want
+               if k in got and np.asarray(want[k]).dtype.kind in "fiub"),
+              default=0.0)
+    tick_want = {k: c * ticks for k, c in (per or DENSE_LAUNCHES).items()}
+    return {"wall_s": wall, "captures": sum(r["captures"] for r in recs),
+            "padded": [r["padded"] for r in recs],
+            "real": [r["stop"] - r["start"] for r in recs],
+            "chunk_wall_s": [r["wall_s"] for r in recs],
+            "dev_farm_vs_mono": dev, "differ": diff,
+            "launches": launches,
+            "launches_chunks": {k: sum(r["launches"][k] for r in recs)
+                                for k in launches},
+            "launches_ok": all(r["launches"] == tick_want
+                               and r["launches_captured"] == tick_want
+                               for r in recs)}
+
+
+def farm_phase():
+    """The sweep farm on the card (``repro_torch.fabric.farm.run_farm``),
+    in memory: incast64 (``build_grid("incast")``) against its monolithic
+    graph run, twice in chunks of 16 and twice in chunks of 18; pod_storm3
+    in chunks of 2 against its monolithic run; mixed_fleet6 in chunks of
+    4.  Runs the card now; returns the function that holds mixed_fleet6
+    to the CPU float64 reference."""
+    from repro_torch.fabric import build_grid, pod_storm_grid
+    scens, _ = build_grid("incast")
+    fsp, mono, head = fabric_run(scens)
+    out = {"grid": "incast64", "points": fsp.n_points,
+           "flows": fsp.n_flows, "ticks": fsp.ticks,
+           "mono": {k: head[k] for k in ("capture_s", "run_s", "wall_s",
+                                         "ms_per_tick", "launches")}}
+    for chunk in FARM_CHUNKS:
+        out[f"chunk{chunk}"] = [
+            farm_summary(*farm_pass(scens, chunk), mono, fsp.ticks)
+            for _ in range(2)]
+    out["nvidia_smi"] = card_line()
+    emit("farm", **out)
+    check(launches_per_tick(head, fsp.ticks),
+          f"incast64 monolithic: launches {head['launches']}")
+    built = set()           # chunk shapes with a run in the cache
+    for chunk in FARM_CHUNKS:
+        first, again = out[f"chunk{chunk}"]
+        new = set(first["padded"]) - built
+        built |= set(first["padded"])
+        for i, ps in enumerate((first, again)):
+            check(not ps["differ"] and ps["dev_farm_vs_mono"] == 0.0,
+                  f"farm chunk {chunk} pass {i}: differs from the "
+                  f"monolithic run in {ps['differ']} (dev "
+                  f"{ps['dev_farm_vs_mono']})")
+            check(ps["launches_ok"], f"farm chunk {chunk} pass {i}: "
+                  f"chunk launches {ps['launches_chunks']}")
+        check(first["captures"] == len(new),
+              f"farm chunk {chunk}: {first['captures']} captures for "
+              f"new shapes {sorted(new)}")
+        check(again["captures"] == 0 and again["launches"]
+              == again["launches_chunks"],
+              f"farm chunk {chunk}, second pass: {again['captures']} "
+              f"captures, launches {again['launches']} vs chunks "
+              f"{again['launches_chunks']}")
+
+    last = out[f"chunk{FARM_CHUNKS[-1]}"][0]
+    check(any(p > r for p, r in zip(last["padded"], last["real"])),
+          f"farm chunk {FARM_CHUNKS[-1]}: no chunk pads a lane (real "
+          f"{last['real']}, padded {last['padded']})")
+
+    pods = pod_storm_grid()[0]
+    pfsp, pmono, phead = fabric_run(pods, sparse=True)
+    pod = farm_summary(*farm_pass(pods, FARM_POD_CHUNK), pmono,
+                       pfsp.ticks, POD_LAUNCHES)
+    emit("farm_pod_storm3", points=pfsp.n_points, ticks=pfsp.ticks,
+         mono={k: phead[k] for k in ("capture_s", "run_s", "ms_per_tick",
+                                     "launches")}, **pod)
+    check(not pod["differ"] and pod["dev_farm_vs_mono"] == 0.0,
+          f"farm pod_storm3: differs from the monolithic run in "
+          f"{pod['differ']}")
+    check(pod["launches_ok"] and pod["captures"] == 2,
+          f"farm pod_storm3: chunk launches {pod['launches_chunks']}, "
+          f"{pod['captures']} captures")
+
+    mixed = mixed_scens()
+    mres, mwall, mlaunch = farm_pass(mixed, MIXED_CHUNK)
+    ticks = grid_ticks(mixed)
+    mrecs = mres["manifest"]["records"]
+
+    def finish(oracles) -> dict:
+        import numpy as np
+        got = mres["results"]
+        want, cpu_wall = oracles["mixed_fleet6"]
+        dev = {k: rel(got[k], want[k]) for k in
+               ("flow_goodput_gbps", "incast_completion_us",
+                "victim_goodput_gbps", "flow_completion_us")}
+        m = {"points": len(mixed), "flows": len(mixed[0].flows),
+             "ticks": ticks, "wall_s": mwall,
+             "captures": sum(r["captures"] for r in mrecs),
+             "padded": [r["padded"] for r in mrecs],
+             "launches": mlaunch, "dev": dev,
+             "dev_goodput": dev["flow_goodput_gbps"],
+             "dev_incast_fct": dev["incast_completion_us"],
+             "incast_fct_us": got["incast_completion_us"].tolist(),
+             "victim_gbps": got["victim_goodput_gbps"].tolist(),
+             "recv_escape_ecn": got["recv_escape_ecn"][:, 0].tolist(),
+             "cpu_float64_wall_s": cpu_wall}
+        emit("mixed_fleet6", **m)
+        tick_want = {k: c * ticks for k, c in DENSE_LAUNCHES.items()}
+        check(all(r["launches"] == r["launches_captured"] == tick_want
+                  for r in mrecs),
+              f"mixed_fleet6: chunk launches "
+              f"{[r['launches'] for r in mrecs]}")
+        check(dev["flow_goodput_gbps"] <= TOL
+              and dev["incast_completion_us"] <= TOL,
+              f"mixed_fleet6 deviates from CPU float64: {dev} (inf = "
+              "finite masks differ)")
+        check(bool(np.isfinite(got["flow_goodput_gbps"]).all()),
+              "mixed_fleet6: non-finite goodput")
+        return m
+    return finish
+
+
+def farm_workers_phase() -> dict:
+    """``run_farm("incast", quick=True)`` (16 points, 4 senders, 1 ms) in
+    chunks of 4 through a spawn pool of 2 workers, each on the card and
+    writing its own shards under the gitignored ``build/farm_runs``: the
+    merged table equal to the in-process farm's, bit for bit; then one
+    shard deleted and the run resumed, which reruns that chunk only."""
+    import shutil
+    from repro_torch.fabric import artifacts, build_grid
+    from repro_torch.fabric.farm import run_farm
+    shutil.rmtree(FARM_RUNS, ignore_errors=True)
+    kw = dict(quick=True, chunk_size=4)
+    inproc = run_farm("incast", artifacts=False, **kw)
+    t0 = time.perf_counter()
+    pooled = run_farm("incast", workers=2, out_dir=str(FARM_RUNS),
+                      run_id="workers", **kw)
+    pool_wall = time.perf_counter() - t0
+    os.remove(artifacts.chunk_path(pooled["run_dir"], 1))
+    t0 = time.perf_counter()
+    resumed = run_farm("incast", workers=2, out_dir=str(FARM_RUNS),
+                       run_id="workers", resume=True, **kw)
+    resume_wall = time.perf_counter() - t0
+    m = resumed["manifest"]
+    reran = [r["chunk"] for r in m["records"]
+             if r["chunk"] not in m["resumed_chunks"]]
+    recs = pooled["manifest"]["records"]
+    diff = differing(pooled["results"], inproc["results"])
+    diff2 = differing(resumed["results"], inproc["results"])
+    ticks = grid_ticks(build_grid("incast", quick=True)[0])
+    tick_want = {k: c * ticks for k, c in DENSE_LAUNCHES.items()}
+    out = {"points": m["n_points"], "chunks": m["chunks"],
+           "workers": sorted({r["worker"] for r in recs}),
+           "captures": sum(r["captures"] for r in recs),
+           "pool_wall_s": pool_wall, "resume_wall_s": resume_wall,
+           "equal_inprocess": not diff, "differ": diff,
+           "resumed_chunks": m["resumed_chunks"], "reran": reran,
+           "resume_equal": not diff2,
+           "launches_ok": all(r["launches"] == r["launches_captured"]
+                              == tick_want for r in m["records"])}
+    emit("farm_workers", **out)
+    check(not diff and not diff2,
+          f"farm_workers: the pool differs from in-process in {diff}, "
+          f"the resumed run in {diff2}")
+    check(reran == [1] and m["resumed_chunks"] == [0, 2, 3],
+          f"farm_workers: resume reran {reran}")
+    check(len(out["workers"]) == 2
+          and all(w.startswith("pid") for w in out["workers"]),
+          f"farm_workers: workers {out['workers']}")
+    check(out["launches_ok"], "farm_workers: chunk launches "
+          f"{[r['launches'] for r in m['records']]}")
+    return out
 
 
 def waterfill_path_rows(grids: dict, seed: int) -> None:
@@ -3074,6 +3315,9 @@ def run() -> int:
         lap("faults")
         pod_fsps, pod256, pods_finish = pods_phase(main_result)
         lap("pods")
+        farm_finish = farm_phase()
+        farm_workers_phase()
+        lap("farm")
         waterfill_path_rows({"routing8": routing_fsp, **class_fsps,
                              "messages18": msg_fsp, "lossy9": flt_fsp,
                              "adaptive8": adaptive_fsp, **pod_fsps}, 40)
@@ -3085,7 +3329,7 @@ def run() -> int:
         lap("oracles")
         for done in finish + [routing_finish, classes_finish,
                               messages_finish, faults_finish,
-                              adaptive_finish, pods_finish]:
+                              adaptive_finish, pods_finish, farm_finish]:
             done(oracles)
         lap("checks_vs_oracles")
         traced = main_path_traced(main_result)

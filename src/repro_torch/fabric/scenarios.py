@@ -1,17 +1,20 @@
 """Scenario library: the storage-incast workload over the Clos fabric
 (paper §5–6: N senders on one leaf burst into one receiver on another,
-plus an optional open-loop victim flow), HPC all-to-all, the QoS-mixed
-storage fleet, the OLAP shuffle, incast under a link failure, the
-strict/WRR and whole-link/per-class host-gate pairs, the message incast
-under the CC zoo and its lossy twin, the pod-scale (3-level Clos)
-incast, shuffle and PFC-storm scenarios, and the grid functions that
-feed :func:`repro_torch.fabric.vector.run_fabric_sweep`."""
+plus an optional open-loop victim flow), HPC all-to-all, the fig 9
+storage mixes, the mixed Jet + DDIO fleet, the single-pair testbed, the
+QoS-mixed storage fleet, the OLAP shuffle, incast under a link failure,
+the strict/WRR and whole-link/per-class host-gate pairs, the message
+incast under the CC zoo and its lossy twin, the pod-scale (3-level Clos)
+incast, shuffle and PFC-storm scenarios, the grid functions that feed
+:func:`repro_torch.fabric.vector.run_fabric_sweep`, and the sweep farm's
+named-grid registry (:data:`GRIDS`, :func:`build_grid`) and chunk plan
+(:func:`chunk_plan`)."""
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.datapath import QoS
 from ..core.simulator import SimConfig, testbed_100g
@@ -21,7 +24,8 @@ from .faults import FaultConfig
 from .messages import MessageConfig
 from .routing import RoutingConfig
 from .switch import SwitchConfig
-from .topology import Topology, clos, incast_fabric, make_pod_clos
+from .topology import (Topology, clos, incast_fabric, jet_testbed,
+                       make_pod_clos)
 
 
 @dataclasses.dataclass
@@ -98,19 +102,86 @@ def all_to_all(n_hosts: int = 8, mode: str = "jet",
                                 mode, pfc, msg_bytes=msg_kb << 10)))
 
 
-def incast_grid(mode: Sequence[str] = ("jet", "ddio"),
-                pfc: Sequence[bool] = (False, True),
-                burst_mb: Sequence[float] = tuple(
-                    0.25 * (i + 1) for i in range(16)),
-                n_senders: int = 4,
-                sim_time_s: float = 0.002,
-                ) -> Tuple[List[Scenario], List[dict]]:
-    """Receiver mode x PFC x burst-size grid over :func:`incast`."""
+# fig 9 storage classes: message size + per-flow open-loop load; num_qps
+# shrinks with message size so latency "generations" (num_qps * msg bytes)
+# stay observable within a few ms of simulated time
+_STORAGE: Dict[str, dict] = {
+    "oltp":   dict(msg_kb=8,    flow_gbps=8.0,  n_clients=8, num_qps=32),
+    "olap":   dict(msg_kb=1024, flow_gbps=40.0, n_clients=4, num_qps=8),
+    "backup": dict(msg_kb=4096, flow_gbps=90.0, n_clients=2, num_qps=2),
+}
+
+
+def storage_mix(kind: str = "oltp", mode: str = "jet",
+                pfc: bool = False, sim_time_s: float = 0.02) -> Scenario:
+    """Storage traffic fanning into one receiver host (paper fig 9):
+    OLTP = many small-message clients, OLAP = 1 MB scans, backup = few
+    near-line-rate streams."""
+    if kind not in _STORAGE:
+        raise ValueError(f"unknown storage mix {kind!r}; "
+                         f"pick one of {sorted(_STORAGE)}")
+    p = _STORAGE[kind]
+    topo = incast_fabric(p["n_clients"])
+    flows = [Flow(src=f"h0_{i}", dst="h1_0", offered_gbps=p["flow_gbps"],
+                  tag=kind)
+             for i in range(p["n_clients"])]
+    sw = SwitchConfig(pfc_enabled=pfc)
+    return Scenario(
+        name=f"storage_{kind}_{mode}", topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=_recv_factory(
+                                mode, pfc, msg_bytes=p["msg_kb"] << 10,
+                                num_qps=p["num_qps"])))
+
+
+def mixed_fleet(n_senders: int = 8, pool_mb: float = 12.0,
+                burst_mb: float = 1.0, pfc: bool = False,
+                rnic_ecn_cnp: bool = False,
+                sim_time_s: float = 0.02) -> Scenario:
+    """Mixed Jet + DDIO fleet on one fabric: N senders burst into a *Jet*
+    receiver (``h1_0``, pool size ``pool_mb``) while a victim flow streams
+    open-loop into a *DDIO* receiver (``h1_1``) sharing the source leaf
+    and fabric path.
+
+    With ``rnic_ecn_cnp=False`` (the default here) the only
+    receiver-side brake on the incast is the escape ladder's ECN -> CNP
+    path, so sweeping ``pool_mb`` down makes the host-side
+    admission/escape -> network-side DCQCN feedback loop observable in
+    fleet metrics (incast FCT, victim goodput)."""
+    topo = incast_fabric(n_senders)
+    flows = [Flow(src=f"h0_{i}", dst="h1_0",
+                  burst_bytes=burst_mb * 1e6, tag="incast")
+             for i in range(n_senders)]
+    flows.append(Flow(src=f"h0_{n_senders - 1}", dst="h1_1",
+                      tag="victim"))
+    pool_b = int(pool_mb * (1 << 20))
+
+    def recv(host: str) -> SimConfig:
+        if host == "h1_0":
+            return testbed_100g("jet", pfc_enabled=pfc,
+                                jet_pool_bytes=pool_b,
+                                rnic_ecn_cnp=rnic_ecn_cnp)
+        return testbed_100g("ddio", pfc_enabled=pfc)
+
+    sw = SwitchConfig(pfc_enabled=pfc)
+    return Scenario(
+        name=f"mixed{n_senders}_pool{pool_mb:g}{'_pfc' if pfc else ''}",
+        topology=topo, flows=flows,
+        fabric=FabricConfig(sim_time_s=sim_time_s, switch=sw,
+                            receiver_cfg=recv))
+
+
+def mixed_fleet_grid(pool_mb: Sequence[float] = (12.0, 4.0, 1.0),
+                     burst_mb: Sequence[float] = (1.0, 2.0),
+                     **kw) -> Tuple[List[Scenario], List[dict]]:
+    """Jet pool size x burst size grid over :func:`mixed_fleet`, the
+    closed-loop sweep: shrinking the receiver pool raises escape-ladder
+    ECN pressure, which throttles that receiver's DCQCN senders and
+    shifts fleet incast FCT and victim goodput."""
     return fabric_grid(
-        lambda mode, pfc, burst_mb: incast(
-            n_senders=n_senders, mode=mode, pfc=pfc, burst_mb=burst_mb,
-            sim_time_s=sim_time_s),
-        mode=list(mode), pfc=list(pfc), burst_mb=list(burst_mb))
+        lambda pool_mb, burst_mb: mixed_fleet(
+            pool_mb=pool_mb, burst_mb=burst_mb, **kw),
+        pool_mb=list(pool_mb), burst_mb=list(burst_mb))
 
 
 def qos_mixed_storage(n_bulk: int = 4, n_oltp: int = 3, n_olap: int = 2,
@@ -292,6 +363,19 @@ def host_gate_pair(sim_time_s: float = 0.004) -> List[Scenario]:
                                 switch=SwitchConfig(pfc_enabled=True),
                                 receiver_cfg=recv)))
     return out
+
+
+def single_pair(mode: str = "jet", sim_time_s: float = 0.01,
+                **recv_kw) -> Scenario:
+    """One sender, one receiver under one switch: the fabric rendition of
+    the paper's two-host testbed."""
+    topo = jet_testbed(2)
+    return Scenario(
+        name=f"pair_{mode}", topology=topo,
+        flows=[Flow(src="h0_0", dst="h0_1")],
+        fabric=FabricConfig(sim_time_s=sim_time_s,
+                            receiver_cfg=_recv_factory(mode, False,
+                                                       **recv_kw)))
 
 
 def message_incast(n_senders: int = 8, algo: str = "dcqcn",
@@ -501,3 +585,108 @@ def pod_storm_grid(buffer_kb: Sequence[float] = (32.0, 64.0, 128.0),
     return fabric_grid(
         lambda buffer_kb: pod_pfc_storm(buffer_kb=buffer_kb, **kw),
         buffer_kb=list(buffer_kb))
+
+
+# --------------------------------------------------------------------------- #
+# Farm layer: named grids + chunk plans
+# --------------------------------------------------------------------------- #
+def incast_grid(mode: Sequence[str] = ("jet", "ddio"),
+                pfc: Sequence[bool] = (False, True),
+                burst_mb: Sequence[float] = tuple(
+                    0.25 * (i + 1) for i in range(16)),
+                n_senders: int = 4,
+                sim_time_s: float = 0.002,
+                ) -> Tuple[List[Scenario], List[dict]]:
+    """Receiver mode x PFC x burst-size grid over :func:`incast`: the
+    farm's canonical 64-point 2-tier workload (burst size is a pure
+    numeric axis, so chunks of this grid share structure)."""
+    return fabric_grid(
+        lambda mode, pfc, burst_mb: incast(
+            n_senders=n_senders, mode=mode, pfc=pfc, burst_mb=burst_mb,
+            sim_time_s=sim_time_s),
+        mode=list(mode), pfc=list(pfc), burst_mb=list(burst_mb))
+
+
+#: Named grids the farm can rebuild by name inside worker processes
+#: (Scenario objects embed receiver-config closures and do not pickle;
+#: workers re-materialize the grid from this registry instead).  Each
+#: entry maps name -> (builder, quick-kwargs): the builder returns
+#: ``(scenarios, point-dicts)``; the quick kwargs shrink the grid for
+#: smoke runs (``build_grid(name, quick=True)``).
+GRIDS: Dict[str, Tuple[Callable[..., Tuple[List[Scenario], List[dict]]],
+                       dict]] = {
+    "incast": (incast_grid,
+               dict(burst_mb=(0.25, 0.5, 1.0, 2.0), n_senders=4,
+                    sim_time_s=0.001)),
+    "mixed_fleet": (mixed_fleet_grid,
+                    dict(pool_mb=(12.0, 4.0), burst_mb=(1.0,),
+                         sim_time_s=0.002)),
+    "qos_mixed": (qos_mixed_grid, dict(sim_time_s=0.001)),
+    "routing": (routing_grid,
+                dict(modes=("static_ecmp", "adaptive"),
+                     sim_time_s=0.001)),
+    "message_sweep": (message_sweep_grid,
+                      dict(msg_kb=(64.0,), window=(1, 16),
+                           verb=("write",), algo=("dcqcn", "timely"),
+                           sim_time_s=0.001)),
+    "lossy_incast": (lossy_incast_grid,
+                     dict(loss_rate=(0.01,), sim_time_s=0.001)),
+    "pod_incast": (pod_incast_grid, dict(sim_time_s=0.002)),
+    "pod_storm": (pod_storm_grid,
+                  dict(buffer_kb=(32.0, 64.0), sim_time_s=0.002)),
+}
+
+
+def build_grid(name: str, quick: bool = False,
+               **overrides) -> Tuple[List[Scenario], List[dict]]:
+    """Materialize a named grid from :data:`GRIDS`.
+
+    ``quick=True`` applies the registry's shrunken axes (smoke-test
+    size); explicit ``overrides`` win over both defaults and quick
+    kwargs.  This is the farm's worker-side entry point: a ``(name,
+    quick, overrides)`` triple is picklable where a scenario list is
+    not, and rebuilding is deterministic, so every worker sees the
+    identical grid."""
+    if name not in GRIDS:
+        raise ValueError(f"unknown grid {name!r}; "
+                         f"pick one of {sorted(GRIDS)}")
+    builder, quick_kw = GRIDS[name]
+    kw = dict(quick_kw) if quick else {}
+    kw.update(overrides)
+    return builder(**kw)
+
+
+def chunk_plan(n_points: int, chunk_size: int) -> List[dict]:
+    """Split ``n_points`` grid points into fixed-shape chunks.
+
+    Full chunks use exactly ``chunk_size`` points; the remainder is
+    padded *up* to the next power of two (capped at ``chunk_size``), so
+    a farm run builds at most two run shapes whatever the grid size: the
+    padding points replicate a real scenario and are sliced off after
+    the run (grid points are independent lanes, so padded lanes cannot
+    perturb real results).
+
+    Returns a list of ``{"chunk": k, "start": i, "stop": j, "padded":
+    m}`` dicts where ``stop - start`` is the real point count and
+    ``padded >= stop - start`` is the dispatch shape.
+    """
+    if chunk_size <= 0:
+        raise ValueError("chunk_size must be positive")
+    if n_points <= 0:
+        raise ValueError("empty grid")
+    plan = []
+    start = 0
+    while start < n_points:
+        stop = min(start + chunk_size, n_points)
+        real = stop - start
+        if real == chunk_size:
+            padded = chunk_size
+        else:
+            padded = 1
+            while padded < real:
+                padded *= 2
+            padded = min(padded, chunk_size)
+        plan.append({"chunk": len(plan), "start": start, "stop": stop,
+                     "padded": padded})
+        start = stop
+    return plan

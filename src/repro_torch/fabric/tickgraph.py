@@ -16,13 +16,17 @@ a key whose output *is* its buffer (a ring written in place) is skipped.
 
 With ``capture`` (CUDA) the constructor warms the body up on a side
 stream, captures a graph of one iteration and one of ``chain``
-iterations, and then restores the real initial state and counters: the
-warm-up advances the buffers and the in-place rings.  Without it the same
-chains run eagerly, so a CPU run executes everything but the capture.
+iterations (with Python's cyclic garbage collector off, see
+:func:`_no_gc`), and then restores the real initial state and counters:
+the warm-up advances the buffers and the in-place rings.  Without it the
+same chains run eagerly, so a CPU run executes everything but the
+capture.
 A capture or replay error raises; nothing falls back to the eager loop.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -88,7 +92,11 @@ class TickChain:
         one = torch.cuda.CUDAGraph()
         mark = dict(self.counts.captured) if self.counts is not None \
             else {}
-        with torch.cuda.graph(one):
+        # capture on this device's own stream: ``torch.cuda.graph``'s
+        # default capture stream is made once, on the device current at
+        # the process's first capture, and a capture of another card's
+        # work on it fails
+        with _no_gc(), torch.cuda.graph(one, stream=side):
             self.enqueue(1)
         if self.counts is not None:
             self.per_iteration = {k: self.counts.captured[k] - mark[k]
@@ -96,7 +104,7 @@ class TickChain:
         many = one
         if self.chain > 1:
             many = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(many):
+            with _no_gc(), torch.cuda.graph(many, stream=side):
                 self.enqueue(self.chain)
         self.graphs = (one, many)
         for k, v in keep.items():
@@ -120,6 +128,21 @@ class TickChain:
             many.replay()
         for _ in range(r):
             one.replay()
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """No cyclic garbage collection inside a capture: a collection there
+    may destroy a dead run's CUDA graph, and destroying a graph while
+    another is captured invalidates that capture (CUDA refuses the
+    graph's reset on a capturing stream)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def adaptive_batches(ticks: int, max_stride: int,

@@ -50,7 +50,9 @@ chains run without capture; ``graph=False`` runs the eager loop with a
 Python tick.  Adaptive dt (:class:`repro_torch.fabric.fused.AdaptiveConfig`)
 captures one iteration of the reference's ``lax.while_loop`` body (fine
 step, whole-grid stride, macro advance) and replays batches of it,
-reading the tick back once a batch.
+reading the tick back once a batch.  A built fixed-dt run is re-armed in
+place with another packing of its structure (:meth:`FabricRun.load`,
+:func:`cached_run`): the sweep farm's chunks replay one captured run.
 
 The sparse-incidence engine (``FabricSweepParams.from_scenarios(...,
 sparse=True)``, which ``run_fabric_sweep`` picks for 3-level pod
@@ -67,6 +69,7 @@ the CC zoo; on a 2-tier grid it equals the dense engine.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -160,10 +163,6 @@ _SWITCH_TC = [
     ("sw_xon", lambda s, tc: s.xon_frac(tc)),
 ]
 
-# reference packing fields with no meaning here (its program-cache key)
-_IGNORED = frozenset(["structure_key"])
-
-
 def _dcqcn_of(s, f, line: float) -> DcqcnConfig:
     """Per-line-rate DCQCN, or the override a DCQCN ``cc`` carries."""
     c = f.cc if getattr(f, "cc", None) is not None \
@@ -204,6 +203,10 @@ class FabricSweepParams:
     dt_us: float
     ring_len: int
     cnp_ring: int                        # CNP propagation ring length
+    # hash of the structure arrays, the ring horizons and the capability
+    # flags: packings with equal keys (and equal n_points, ticks, rings,
+    # dt) run on one built FabricRun (FabricRun.load)
+    structure_key: str
     # -- dynamic-routing structure (None on the static path) ----------------
     # With any point routing dynamically (mode != static_ecmp, or a
     # failure or flap schedule), ports cover every candidate uplink and
@@ -243,9 +246,26 @@ class FabricSweepParams:
     pause_extra: Optional[np.ndarray] = None
     pausable_extra: Optional[np.ndarray] = None
 
+    def envelope(self) -> dict:
+        """Chunk-boundary envelope of this packing: the capability flags
+        and ring horizons a *sub-grid* packing must be floored at to build
+        the identical tick (pass to :meth:`from_scenarios` via
+        ``envelope=``).  Pack the full grid once, then pack each chunk
+        under the full grid's envelope: the chunks then share one
+        ``structure_key`` (one built run per chunk shape) and reproduce
+        the monolithic run bit for bit."""
+        return {"ring_len": self.ring_len, "cnp_ring": self.cnp_ring,
+                "settle_ring": self.settle_ring,
+                "msg_ring": self.msg_ring,
+                "dyn": self.dyn_route or self.pack_fail,
+                "wrr": self.any_wrr, "host_tc": self.host_tc,
+                "cc": self.any_cc, "msg": self.any_msg,
+                "flt": self.any_flt, "flap": self.any_flap}
+
     @classmethod
-    def from_scenarios(cls, scens: Sequence,
-                       sparse: bool = False) -> "FabricSweepParams":
+    def from_scenarios(cls, scens: Sequence, sparse: bool = False,
+                       envelope: Optional[dict] = None
+                       ) -> "FabricSweepParams":
         """Pack a grid of scenarios (anything with ``.topology``,
         ``.flows``, ``.fabric``) whose points share the topology
         structure and the flow set; numeric knobs, the routing mode and
@@ -259,7 +279,15 @@ class FabricSweepParams:
         (super-spine) topologies, and it runs any static 2-tier grid.  It
         takes static ECMP with failure/flap windows and the CC zoo; the
         dynamic routing modes, the message layer and fault injection
-        raise ``ValueError`` there."""
+        raise ``ValueError`` there.
+
+        ``envelope`` (see :meth:`envelope`) floors the capability flags
+        and ring horizons at the values of a *larger* grid this packing
+        is a chunk of.  The flags and ring lengths are "any / max over the
+        grid", so a chunk of a heterogeneous grid would otherwise build a
+        different tick than the monolithic run; under the full grid's
+        envelope every chunk builds the monolithic grid's tick, which is
+        what makes a chunked run bit-identical to the one-run grid."""
         if not scens:
             raise ValueError("empty fabric sweep grid")
         s0 = scens[0]
@@ -292,6 +320,18 @@ class FabricSweepParams:
         any_msg = any(m is not None for s in scens for m in msg_of(s))
         any_cc = any(c is not None and c.algo != "dcqcn"
                      for s in scens for c in cc_of(s))
+        # chunk-boundary envelope: floor the capability flags at the
+        # enclosing grid's, so every chunk builds the monolithic tick (a
+        # chunk with no msg/cc/fault/dynamic point must not build the
+        # cheaper structure)
+        env = dict(envelope or {})
+        dyn = dyn or bool(env.get("dyn"))
+        any_wrr = any_wrr or bool(env.get("wrr"))
+        any_flt = any_flt or bool(env.get("flt"))
+        any_flap = any_flap or bool(env.get("flap"))
+        host_tc = host_tc or bool(env.get("host_tc"))
+        any_msg = any_msg or bool(env.get("msg"))
+        any_cc = any_cc or bool(env.get("cc"))
         pack_fail = False
         if sparse:
             # sparse incidence freezes routes as structure: static ECMP
@@ -679,6 +719,28 @@ class FabricSweepParams:
         # message start-time ring: the window bound keeps outstanding
         # <= W+1; +4 leaves slack for float32 count jitter at boundaries
         Lm = int(pvals["m_win"].max()) + 4 if any_msg else 1
+        # chunk-boundary envelope: ring horizons are grid maxima, so a
+        # chunk's rings are floored at the enclosing grid's (a longer
+        # ring is inert: unread slots hold zeros)
+        H = max(H, int(env.get("ring_len", 0)))
+        Hc = max(Hc, int(env.get("cnp_ring", 0)))
+        if dyn:
+            Hs = max(Hs, int(env.get("settle_ring", 0)))
+        if any_msg:
+            Lm = max(Lm, int(env.get("msg_ring", 0)))
+        # the reference's hash, byte for byte: equal structure arrays and
+        # flags give the reference's key
+        h = hashlib.sha1()
+        extras = [a for a in (upP, dnP, candS, crossF, T1, init_spine,
+                              port_of, prv_port, nxt_slot,
+                              pause_extra, pausable_extra)
+                  if a is not None]
+        for arr in (stage_mask, *occ, *dest, recv_onehot, recv_of, qos_of,
+                    prev_onehot, owner_recv, *extras):
+            h.update(np.ascontiguousarray(arr).tobytes())
+        h.update(repr((F, P, R, ticks, dt, H, Hc, Hs, Sn, dyn, any_wrr,
+                       host_tc, any_cc, any_msg, Lm, any_flt,
+                       any_flap, sparse, pack_fail)).encode())
         return cls(port_keys=port_keys, recv_hosts=recv_hosts,
                    flow_tags=[f.tag for f in flows0],
                    stage_mask=stage_mask, occ=occ, dest=dest,
@@ -686,8 +748,9 @@ class FabricSweepParams:
                    prev_onehot=prev_onehot, owner_recv=owner_recv,
                    pvals=pvals, n_points=len(scens), n_flows=F, n_ports=P,
                    n_recv=R, ticks=ticks, dt_us=dt, ring_len=H,
-                   cnp_ring=Hc, upP=upP, dnP=dnP, candS=candS,
-                   crossF=crossF, T1=T1, init_spine=init_spine,
+                   cnp_ring=Hc, structure_key=h.hexdigest(), upP=upP,
+                   dnP=dnP, candS=candS, crossF=crossF, T1=T1,
+                   init_spine=init_spine,
                    dyn_route=dyn, any_wrr=any_wrr, host_tc=host_tc,
                    settle_ring=Hs, n_spines=Sn if dyn else 0,
                    any_cc=any_cc, any_msg=any_msg, msg_ring=Lm,
@@ -707,7 +770,7 @@ class FabricSweepParams:
         missing = [n for n in names if n not in d]
         if missing:
             raise ValueError(f"packing lacks {missing}")
-        unknown = [k for k in d if k not in names and k not in _IGNORED]
+        unknown = [k for k in d if k not in names]
         if unknown:
             raise ValueError(f"unknown packing field {unknown[0]!r}")
         return cls(**{n: d[n] for n in names})
@@ -1079,21 +1142,94 @@ def _slot_write(ring, slot, v):
 # --------------------------------------------------------------------------- #
 # The per-tick step
 # --------------------------------------------------------------------------- #
-def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
+def _hoist(p, opts: dict, dt: float, dtype: torch.dtype,
+           device: torch.device) -> Dict[str, torch.Tensor]:
+    """The per-point constants the tick reads, computed once from the
+    parameters ``p`` (``[G, ...]`` tensors): budgets, thresholds, masks
+    and the CC, message and fault lanes' constants.  Some entries are
+    views of ``p``.  :func:`_make_step` builds the tick over these
+    tensors and :meth:`FabricRun.load` recomputes them into the same
+    storage, which a captured graph reads by address."""
+    def c(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    bpt = c(1e9 / 8.0 * dt * 1e-6)       # bytes per (Gbps * tick)
+    zero, one, half = c(0.0), c(1.0), c(0.5)
+    h = {}
+    h["budget"] = p["gbps"] * bpt
+    h["budget_crumb"] = h["budget"] * c(1e-6)
+    h["clsF"] = p["clsF"]                              # [G, Q, F]
+    h["buf_tc"] = p["buf"][:, None, None]
+    h["kmin_th"] = p["kmin"][..., None] * h["buf_tc"]
+    h["ecn_on"] = p["ecn_en"] > 0.5
+    h["can_assert"] = p["can_assert"] > 0.5
+    h["sxoff"] = p["sw_xoff"][..., None]
+    h["sxon"] = p["sw_xon"][..., None]
+    h["onoff"] = p["off_us"] > zero
+    h["period"] = torch.where(h["onoff"], p["on_us"] + p["off_us"], one)
+    h["jet"] = p["jet"] > 0.5
+    h["avail_dram"] = torch.maximum(zero, p["membw"] - p["cpu_bw"])
+    h["jet_cap"] = torch.minimum(p["pcie"], p["line1"] * 4.0) * bpt
+    h["strag_share"] = torch.where(h["jet"], p["sfrac"], zero)
+    h["inv_knee"] = one / (p["knee"] * p["ddio"])
+    h["rx_pfc_en"] = p["pfc_en"] > 0.5
+    h["wm_en"] = p["wm_cnp"] > 0.5
+    h["linecap"] = torch.minimum(p["line"], p["cap"])
+    if opts["wrr"]:
+        h["quantaQ"] = p["quanta"][..., None]            # [G, Q, 1]
+        h["is_wrr"] = (p["sched"] == 1)[:, None, None]   # [G, 1, 1]
+    if opts["host_tc"]:
+        h["hpfc_b"] = (p["hpfc"] > half)[:, None, :]     # [G, 1, R]
+        h["rx_pfc_tc"] = h["rx_pfc_en"][:, None, :]
+        h["xoffQ"] = p["xoff"][:, None, :]
+        h["xonQ"] = p["xon"][:, None, :]
+        # each admission class's 1/N_QOS share of the RNIC buffer
+        h["part_q"] = (p["rnic_buf"] / c(float(N_QOS)))[:, None, :]
+    if opts["dyn"] and opts["Sn"]:
+        h["bufSF"] = p["buf"][:, None, None]             # vs [G, S, F]
+        h["hystF"] = p["hystb"][:, None]                 # vs [G, F]
+        h["rmode"] = p["rmode"][:, None]                 # [G, 1]
+        h["is_spray"] = (h["rmode"] == 3)[..., None]     # [G, 1, 1]
+    if opts["cc"]:
+        # algorithm lanes (CcConfig.code: 0 dcqcn, 1 timely, 2 hpcc)
+        h["is_dcqcn"] = p["cc_algo"] == 0
+        h["timely_m"] = p["cc_algo"] == 1
+        h["hpcc_m"] = p["cc_algo"] == 2
+        h["inv_brtt"] = one / p["base_rtt"]              # [G, F]
+    if opts["msg"]:
+        h["wbytes"] = p["m_win"] * p["m_bytes"]          # window, in bytes
+    if opts["flt"]:
+        # fault layer (repro_torch.fabric.faults): per-flow recovery masks
+        # and the per-port counter-hash salts (see fault_drops)
+        h["rec_en"] = p["rec_en"]                        # exact 1.0 / 0.0
+        h["rec_keep"] = one - h["rec_en"]
+        h["sel_b"] = p["rec_sel"] > half
+        h["gbn_b"] = (h["rec_en"] > half) & ~h["sel_b"]
+        h["saltp"] = fault_saltp(p["f_salt"])            # [G, P]
+        h["rto_f"] = p["rto_ticks"].to(dtype)
+    if opts["sparse"]:
+        # padded per-port budget for the telemetry gathers (budget 0 at
+        # the dummy column: the leg drops out)
+        h["budget_pad"] = torch.cat(
+            [h["budget"], torch.zeros_like(h["budget"][:, :1])], -1)
+    return h
+
+
+def _make_step(st, p, hp, dt: float, H: int, Hc: int, ticks: int,
                dtype: torch.dtype, device: torch.device, impl: str,
                opts: dict):
     """Build ``step(state, t, it=None) -> state`` over ``[G, ...]``
     tensors.
 
     ``st`` holds the static structure tensors (no grid axis), ``p`` the
-    per-point parameters ``[G, ...]``, both on ``device``.  Queued bytes
-    and their ECN-marked subset travel together as one ``[G, 2, P, F]``
-    tensor and the two release rings as one ``[G, H, 2, R]`` tensor.
-    Per-point constants are hoisted out of the tick.  ``opts`` holds the
-    packing's capability flags (see :func:`_opts`); with all of them off
-    the step is the static engine's.  Integer quantities (tick windows,
-    fault hashes, message counts, retransmit timers) stay integer
-    tensors with floor ``%`` and ``//``.
+    per-point parameters ``[G, ...]`` and ``hp`` the per-point constants
+    hoisted out of the tick (:func:`_hoist`), all on ``device``.  Queued
+    bytes and their ECN-marked subset travel together as one ``[G, 2, P,
+    F]`` tensor and the two release rings as one ``[G, H, 2, R]`` tensor.
+    ``opts`` holds the packing's capability flags (see :func:`_opts`);
+    with all of them off the step is the static engine's.  Integer
+    quantities (tick windows, fault hashes, message counts, retransmit
+    timers) stay integer tensors with floor ``%`` and ``//``.
     """
     dyn, wrr, host_tc = opts["dyn"], opts["wrr"], opts["host_tc"]
     Hs, Sn, flap = opts["Hs"], opts["Sn"], opts["flap"]
@@ -1118,50 +1254,31 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
     arangeF = torch.arange(F, dtype=torch.int32, device=device)
     cls_of, recv_of = st["cls_of"], st["recv_of"]
     occ, dest = st.get("occ"), st.get("dest")
-    # loop-invariant per-point quantities
-    budget = p["gbps"] * bpt
-    budget_crumb = budget * c(1e-6)
-    clsF = p["clsF"]                                   # [G, Q, F]
-    buf_tc = p["buf"][:, None, None]
-    kmin_th = p["kmin"][..., None] * buf_tc
-    ecn_on = p["ecn_en"] > 0.5
-    can_assert = p["can_assert"] > 0.5
-    sxoff = p["sw_xoff"][..., None]
-    sxon = p["sw_xon"][..., None]
-    onoff = p["off_us"] > zero
-    period = torch.where(onoff, p["on_us"] + p["off_us"], one)
-    jet = p["jet"] > 0.5
-    avail_dram = torch.maximum(zero, p["membw"] - p["cpu_bw"])
-    jet_cap = torch.minimum(p["pcie"], p["line1"] * 4.0) * bpt
-    strag_share = torch.where(jet, p["sfrac"], zero)
-    inv_knee = one / (p["knee"] * p["ddio"])
-    rx_pfc_en = p["pfc_en"] > 0.5
-    wm_en = p["wm_cnp"] > 0.5
-    linecap = torch.minimum(p["line"], p["cap"])
+    # loop-invariant per-point quantities (_hoist)
+    budget, budget_crumb, clsF = hp["budget"], hp["budget_crumb"], \
+        hp["clsF"]
+    buf_tc, kmin_th, ecn_on = hp["buf_tc"], hp["kmin_th"], hp["ecn_on"]
+    can_assert, sxoff, sxon = hp["can_assert"], hp["sxoff"], hp["sxon"]
+    onoff, period, jet = hp["onoff"], hp["period"], hp["jet"]
+    avail_dram, jet_cap = hp["avail_dram"], hp["jet_cap"]
+    strag_share, inv_knee = hp["strag_share"], hp["inv_knee"]
+    rx_pfc_en, wm_en, linecap = hp["rx_pfc_en"], hp["wm_en"], \
+        hp["linecap"]
     if wrr:
-        quantaQ = p["quanta"][..., None]                 # [G, Q, 1]
-        is_wrr = (p["sched"] == 1)[:, None, None]        # [G, 1, 1]
+        quantaQ, is_wrr = hp["quantaQ"], hp["is_wrr"]
     if host_tc:
-        hpfc_b = (p["hpfc"] > half)[:, None, :]          # [G, 1, R]
-        rx_pfc_tc = rx_pfc_en[:, None, :]
-        xoffQ = p["xoff"][:, None, :]
-        xonQ = p["xon"][:, None, :]
-        # each admission class's 1/N_QOS share of the RNIC buffer
-        part_q = (p["rnic_buf"] / c(float(N_QOS)))[:, None, :]
+        hpfc_b, rx_pfc_tc = hp["hpfc_b"], hp["rx_pfc_tc"]
+        xoffQ, xonQ, part_q = hp["xoffQ"], hp["xonQ"], hp["part_q"]
     if dyn and Sn:
-        bufSF = p["buf"][:, None, None]                  # vs [G, S, F]
-        hystF = p["hystb"][:, None]                      # vs [G, F]
+        bufSF, hystF = hp["bufSF"], hp["hystF"]
+        rmode, is_spray = hp["rmode"], hp["is_spray"]
         arangeS = torch.arange(Sn, dtype=torch.int32,
                                device=device)[:, None]   # [S, 1]
-        rmode = p["rmode"][:, None]                      # [G, 1]
-        is_spray = (rmode == 3)[..., None]               # [G, 1, 1]
         flet_scale = c(65536.0)                          # flowlet hash
     if any_cc:
-        # algorithm lanes (CcConfig.code: 0 dcqcn, 1 timely, 2 hpcc)
-        is_dcqcn = p["cc_algo"] == 0
-        timely_m = p["cc_algo"] == 1
-        hpcc_m = p["cc_algo"] == 2
-        inv_brtt = one / p["base_rtt"]                   # [G, F]
+        is_dcqcn, timely_m, hpcc_m = hp["is_dcqcn"], hp["timely_m"], \
+            hp["hpcc_m"]
+        inv_brtt = hp["inv_brtt"]
         u_floor, two = c(0.01), c(2.0)
     if any_msg:
         arangeL = torch.arange(Lm, device=device)[:, None]            # [L, 1]
@@ -1169,16 +1286,11 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         hist_lo = c(HIST_MIN_US)
         inv_lr = c(1.0 / np.log(hist_ratio()))
         eps_m = c(MSG_COUNT_EPS)
-        wbytes = p["m_win"] * p["m_bytes"]               # window, in bytes
+        wbytes = hp["wbytes"]
     if flt:
-        # fault layer (repro_torch.fabric.faults): per-flow recovery masks
-        # and the per-port counter-hash salts (see fault_drops)
-        rec_en = p["rec_en"]                             # exact 1.0 / 0.0
-        rec_keep = one - rec_en
-        sel_b = p["rec_sel"] > half
-        gbn_b = (rec_en > half) & ~sel_b
-        saltp = fault_saltp(p["f_salt"])                 # [G, P]
-        rto_f = p["rto_ticks"].to(dtype)
+        rec_en, rec_keep = hp["rec_en"], hp["rec_keep"]
+        sel_b, gbn_b = hp["sel_b"], hp["gbn_b"]
+        saltp, rto_f = hp["saltp"], hp["rto_f"]
         n_dl = int(round(float(np.sqrt(st["dl_E"].shape[-1]))))
 
         def ledger(s, lost_f):
@@ -1302,9 +1414,7 @@ def _make_step(st, p, dt: float, H: int, Hc: int, ticks: int,
         qp_k, dq_k, po_k = st["qp_k"], st["dq_k"], st["po_k"]
         pad_q = torch.zeros((G, N_QOS, 1), dtype=dtype, device=device)
         pad_p = torch.zeros((G, 1), dtype=dtype, device=device)
-        # padded per-port budget for the telemetry gathers (budget 0 at
-        # the dummy column: the leg drops out)
-        budget_pad = torch.cat([budget, pad_p], -1)
+        budget_pad = hp["budget_pad"]
 
         def seg(vals, plan):
             return fused.seg_sum(vals, plan, impl=impl)
@@ -2193,6 +2303,10 @@ class FabricRun:
     then, on CUDA, one for each launch a replay executes, added on the
     card.  ``launches_captured()`` is the arithmetic beside them: the
     launches captured for one iteration times the iterations run.
+
+    :meth:`load` re-arms a built fixed-dt run with another packing of
+    the same structure (a farm chunk), in place, so its captured graphs
+    replay for it; :func:`cached_run` hands out such runs.
     """
 
     def __init__(self, fsp: FabricSweepParams, device=None,
@@ -2211,16 +2325,18 @@ class FabricRun:
         dt = resolve_dtype(dev, dtype)
         fused.resolve_impl(impl, dev)        # reject a bad impl up front
         cuda = dev.type == "cuda"
-        np_dt = np.float32 if dt == torch.float32 else np.float64
         p = {k: _to_device(v, dt, dev)
-             for k, v in _np_params(fsp, np_dt).items()}
+             for k, v in _np_params(fsp, _np_dtype(dt)).items()}
         st = {k: _to_device(v, dt, dev) for k, v in _static(fsp).items()}
         if fsp.sparse:
             st.update(_seg_plans(fsp, dev))
         self.fsp, self.device, self.dtype = fsp, dev, dt
         self.adaptive = adaptive
-        self.step = _make_step(st, p, fsp.dt_us, fsp.ring_len, fsp.cnp_ring,
-                               fsp.ticks, dt, dev, impl, _opts(fsp))
+        self.p = p
+        self.hoisted = _hoist(p, _opts(fsp), fsp.dt_us, dt, dev)
+        self.step = _make_step(st, p, self.hoisted, fsp.dt_us, fsp.ring_len,
+                               fsp.cnp_ring, fsp.ticks, dt, dev, impl,
+                               _opts(fsp))
         self.stride = None if adaptive is None else fused.make_stride_fn(
             fsp, p, _opts(fsp), adaptive, dt)
         self.iterations = self.batches = 0
@@ -2243,6 +2359,43 @@ class FabricRun:
                                counts=fused.LAUNCHES)
         self.capture_s = time.perf_counter() - t0
         self.state = self.chain.state
+
+    def load(self, fsp: FabricSweepParams) -> None:
+        """Re-arm this run with ``fsp``, a packing of the same structure
+        (a farm chunk), in place: its parameters into the run's
+        parameter tensors, the hoisted per-point constants recomputed
+        into their storage, every state buffer and ring back to its
+        initial value, the tick to 0.  A captured graph reads all of
+        these by address, so it then replays ``fsp``'s run.  Raises
+        ``ValueError`` unless ``fsp`` matches the run's ``structure_key``,
+        ``n_points``, ``ticks``, ``ring_len``, ``cnp_ring`` and ``dt_us``,
+        for an adaptive run (the farm runs fixed dt only) and for a
+        ``graph=False`` run (it keeps no static buffers)."""
+        if self.adaptive is not None:
+            raise ValueError("load runs fixed dt only: an adaptive run "
+                             "cannot be re-armed")
+        if self.chain is None:
+            raise ValueError("load re-arms static buffers: a graph=False "
+                             "run cannot be re-armed")
+        mine = _run_key(self.fsp)
+        theirs = _run_key(fsp)
+        if theirs != mine:
+            raise ValueError(
+                "load needs a packing of the run's structure: (structure_"
+                "key, n_points, ticks, ring_len, cnp_ring, dt_us) "
+                f"{theirs} != {mine}")
+        for k, v in _np_params(fsp, _np_dtype(self.dtype)).items():
+            self.p[k].copy_(_to_device(v, self.dtype, self.device))
+        opts = _opts(fsp)
+        for k, v in _hoist(self.p, opts, fsp.dt_us, self.dtype,
+                           self.device).items():
+            self.hoisted[k].copy_(v)
+        for k, v in _init_state(fsp, self.p, self.dtype,
+                                self.device).items():
+            self.state[k].copy_(v)
+        self.t.zero_()
+        self.fsp = fsp
+        self.iterations = self.batches = 0
 
     def launches_captured(self) -> Dict[str, int]:
         """The launches captured for one iteration times the iterations
@@ -2284,12 +2437,55 @@ class FabricRun:
             self.state, self.iterations = s, fsp.ticks
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        res = _results({k: v.cpu().numpy() for k, v in self.state.items()},
-                       fsp)
+        # copies: on the CPU ``.cpu()`` would hand out the state buffers
+        # themselves, which a later load or run overwrites
+        res = _results({k: v.to("cpu", copy=True).numpy()
+                        for k, v in self.state.items()}, fsp)
         if self.adaptive is not None:
             res["adaptive_iterations"] = np.full(fsp.n_points,
                                                  self.iterations)
         return res
+
+
+def _np_dtype(dtype: torch.dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _run_key(fsp: FabricSweepParams) -> tuple:
+    """What a built run fixes: packings equal on it run on one run."""
+    return (fsp.structure_key, fsp.n_points, fsp.ticks, fsp.ring_len,
+            fsp.cnp_ring, fsp.dt_us)
+
+
+_RUNS: Dict[tuple, FabricRun] = {}
+_RUNS_MAX = 8          # built runs kept (state, graphs), as the reference
+# monotonic count of new runs built in this process (a CUDA graph capture
+# on the card, a build on the CPU): the sweep farm reads it before and
+# after each chunk; after the first chunk of each shape it must not move
+GRAPH_CAPTURES = 0
+
+
+def cached_run(fsp: FabricSweepParams, device=None,
+               dtype: Optional[torch.dtype] = None) -> FabricRun:
+    """A fixed-dt :class:`FabricRun` armed with ``fsp``: one built for an
+    earlier packing of the same structure (:func:`_run_key`), device and
+    dtype, re-armed by :meth:`FabricRun.load`, or a new one
+    (``GRAPH_CAPTURES`` + 1).  At most ``_RUNS_MAX`` runs are kept, the
+    oldest dropped first."""
+    global GRAPH_CAPTURES
+    dev = resolve_device(device)
+    dt = resolve_dtype(dev, dtype)
+    key = _run_key(fsp) + (str(dev), dt)
+    run = _RUNS.get(key)
+    if run is not None:
+        run.load(fsp)
+        return run
+    GRAPH_CAPTURES += 1
+    run = FabricRun(fsp, device=dev, dtype=dt)
+    while len(_RUNS) >= _RUNS_MAX:
+        _RUNS.pop(next(iter(_RUNS)))
+    _RUNS[key] = run
+    return run
 
 
 def run_packed(fsp: FabricSweepParams, device=None,

@@ -6,9 +6,11 @@ its eager loop, its launches counted on the card; the dense tick under
 dynamic routing and a link failure, under the CC zoo with verbs messages,
 and under loss, recovery and a receiver crash, each against CPU float64;
 its captured CUDA graphs equal to the eager loop, and adaptive dt within
-its bound of the CPU run; the receiver sweep bit for bit against the
-CPU); flash attention, the SSD scan, the paged decode attention and
-the staged matmul within the tolerances of ``tests/test_kernels.py``, each
+its bound of the CPU run; the sweep farm's chunks equal to the
+monolithic run, a captured run re-armed by ``FabricRun.load`` equal to a
+fresh capture; the receiver sweep bit for bit against the CPU); flash
+attention, the SSD scan, the paged decode attention and the staged
+matmul within the tolerances of ``tests/test_kernels.py``, each
 flash case on the kernel variant its type and head dim select, each
 SSD case on the variant its widths select, and the staged matmul's
 wgmma kernel bit for bit on small-integer operands; each against its
@@ -21,6 +23,7 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import gc
 import math
 
 import numpy as np
@@ -28,8 +31,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, tiny_config
-from repro_torch.fabric import fused
+from repro_torch.fabric import CcConfig, fused
 from repro_torch.fabric import scenarios as TSC
+from repro_torch.fabric.tickgraph import TickChain
 from repro_torch.fabric.vector import (FabricRun, FabricSweepParams,
                                        run_fabric_sweep)
 from repro_torch._device import full_fp32_matmul
@@ -551,6 +555,107 @@ def test_sparse_two_tier_is_the_dense_run_on_the_card(card):
     _held_to_cpu(sparse, dense, ("flow_goodput_gbps", "flow_completion_us",
                                  "incast_completion_us",
                                  "switch_dropped_bytes"))
+
+
+# --------------------------------------------------------------------------- #
+# the sweep farm: captured runs re-armed per chunk
+# --------------------------------------------------------------------------- #
+def test_farm_equals_monolithic_on_the_card(card):
+    """A 7-point incast grid in chunks of 4 (4, then 3 padded to 4 by a
+    repeated lane): every output equal to the monolithic graph run, NaN
+    and inf in the same places; a second pass captures no graph and
+    counts 4 grants and 1 admit a tick on the card in each chunk, equal
+    to the launches captured x ticks."""
+    from repro_torch.fabric.farm import run_farm
+    scens = TSC.incast_grid(burst_mb=(0.5, 1.0), n_senders=4,
+                            sim_time_s=0.0005)[0][:7]
+    mono = run_fabric_sweep(scens)
+    first = run_farm(scens, chunk_size=4, artifacts=False)
+    again = run_farm(scens, chunk_size=4, artifacts=False)
+    for farm in (first, again):
+        assert farm["results"].keys() == mono.keys()
+        for k in mono:
+            assert _same(farm["results"][k], mono[k]), k
+    recs = again["manifest"]["records"]
+    assert [(r["stop"] - r["start"], r["padded"]) for r in recs] == \
+        [(4, 4), (3, 4)]
+    assert [r["captures"] for r in recs] == [0, 0]
+    want = {"priority_grants": 2000, "priority_admit": 500, "seg_sum": 0}
+    for r in recs:
+        assert r["launches"] == r["launches_captured"] == want
+
+
+@pytest.mark.skipif(not torch.cuda.is_available()
+                    or torch.cuda.device_count() < 2,
+                    reason="needs two or more cards")
+def test_farm_round_robin_over_cards_equals_monolithic(card):
+    """With ``device="cuda"`` (no index) the chunks take the cards in
+    turn: a 4-point grid in chunks of 2 runs its two chunks on cards 0
+    and 1, and every output equals the monolithic run on card 0."""
+    from repro_torch.fabric.farm import run_farm
+    scens = TSC.incast_grid(burst_mb=(0.5,), n_senders=4,
+                            sim_time_s=0.0005)[0]
+    mono = run_fabric_sweep(scens, device="cuda:0")
+    farm = run_farm(scens, chunk_size=2, device="cuda", artifacts=False)
+    assert [r["device"] for r in farm["manifest"]["records"]] == \
+        ["cuda:0", "cuda:1"]
+    assert farm["results"].keys() == mono.keys()
+    for k in mono:
+        assert _same(farm["results"][k], mono[k]), k
+
+
+def test_capture_runs_with_the_garbage_collector_off(card):
+    """Destroying a CUDA graph while another is captured invalidates that
+    capture (CUDA refuses the graph's reset on a capturing stream), and a
+    cyclic collection may destroy a dead run's graphs at any allocation:
+    ``TickChain`` captures with the collector off, warms up and returns
+    with it on, and the captured chain still runs."""
+    seen = []
+
+    def body(s):
+        seen.append(gc.isenabled())
+        return {"x": s["x"] + 1.0}
+
+    assert gc.isenabled()
+    chain = TickChain(body, {"x": torch.zeros(4, device=card)}, (), 3,
+                      capture=True)
+    assert gc.isenabled()
+    assert seen == [True, True] + [False] * 4     # warm-up, 1, chain of 3
+    chain.run(7)
+    torch.cuda.synchronize()
+    assert chain.state["x"].tolist() == [7.0] * 4
+
+
+@pytest.mark.parametrize("grid", ["dense", "pods"])
+def test_load_into_a_captured_run_equals_a_fresh_capture(card, grid):
+    """A captured run re-armed with another chunk of its structure
+    (``FabricRun.load``: receiver mode, PFC and the CC differ) replays
+    that chunk's run: every output equal to a fresh capture's."""
+    if grid == "dense":
+        scens = [TSC.incast(4, mode=m, burst_mb=1.0, pfc=p,
+                            sim_time_s=0.0003)
+                 for m, p in (("jet", False), ("jet", False),
+                              ("ddio", True), ("ddio", True))]
+        scens[3].fabric.cc = CcConfig(algo="timely")
+    else:
+        scens = TSC.pod_incast_grid(hosts_per_leaf=2, burst_mb=0.2,
+                                    sim_time_s=0.0003)[0]
+    sparse = grid == "pods"
+    env = FabricSweepParams.from_scenarios(scens, sparse=sparse).envelope()
+    a = FabricSweepParams.from_scenarios(scens[:2], sparse=sparse,
+                                         envelope=env)
+    b = FabricSweepParams.from_scenarios(scens[2:], sparse=sparse,
+                                         envelope=env)
+    run = FabricRun(a)
+    run.run()
+    graphs = run.chain.graphs
+    run.load(b)
+    got = run.run()
+    assert run.chain.graphs is graphs
+    want = FabricRun(b).run()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert _same(got[k], want[k]), k
 
 
 # --------------------------------------------------------------------------- #

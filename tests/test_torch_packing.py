@@ -98,7 +98,11 @@ def test_from_arrays_round_trips_reference_packing(grid):
     d = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
     port = FabricSweepParams.from_arrays(d)
     _assert_same(port, ref)
-    _assert_same(port, FabricSweepParams.from_scenarios(GRIDS[grid](TSC)))
+    own = FabricSweepParams.from_scenarios(GRIDS[grid](TSC))
+    _assert_same(port, own)
+    # structure_key is a field: from_arrays keeps it, and the port's own
+    # key is the reference's
+    assert port.structure_key == own.structure_key == ref.structure_key
 
 
 def _pod_grid(M, fail: bool):
