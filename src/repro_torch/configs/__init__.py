@@ -1,9 +1,16 @@
 """Config registry of the port: ``get_arch(name)`` / ``--arch <id>``.
 
-The port serves the architectures whose whole path it has; so far that is
-zamba2-1.2b.  ``tiny_config`` is the reference's reduction for CPU tests
-(small widths and layers, structure kept), copied unchanged so that both
-packages build the same tiny model.
+The registry holds all ten architectures of the reference, each config
+file copied unchanged.  The serving path runs the eight whose layer kinds
+the engine feeds with token prompts: the dense attention models
+(chatglm3-6b, gemma-7b, h2o-danube-1.8b, starcoder2-15b), the MoE ones
+(llama4-scout-17b-a16e, llama4-maverick-400b-a17b), xlstm-125m and
+zamba2-1.2b.  llama-3.2-vision-11b (cross-attention over image patches)
+and musicgen-large (codebook embeddings) are registered, but building
+their parameters raises ``NotImplementedError`` naming what is missing.
+``tiny_config`` is the reference's reduction for CPU tests (small widths
+and layers, structure kept), copied unchanged so that both packages build
+the same tiny model.
 """
 from __future__ import annotations
 
@@ -11,9 +18,21 @@ import dataclasses
 from typing import Dict
 
 from .base import SHAPES, ArchConfig, ShapeConfig
+from .chatglm3_6b import CONFIG as _chatglm3
+from .gemma_7b import CONFIG as _gemma
+from .h2o_danube_1_8b import CONFIG as _danube
+from .llama4_maverick_400b_a17b import CONFIG as _maverick
+from .llama4_scout_17b_a16e import CONFIG as _scout
+from .llama_3_2_vision_11b import CONFIG as _vision
+from .musicgen_large import CONFIG as _musicgen
+from .starcoder2_15b import CONFIG as _starcoder2
+from .xlstm_125m import CONFIG as _xlstm
 from .zamba2_1_2b import CONFIG as _zamba2
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_zamba2]}
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [
+    _maverick, _scout, _chatglm3, _danube, _starcoder2, _gemma,
+    _musicgen, _xlstm, _vision, _zamba2,
+]}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -4,6 +4,11 @@ the card unless ``--device cpu`` (the counterpart of
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --tiny --device cpu --requests 6 --prompt-len 16 --max-new 8
+
+``--arch`` takes every architecture of the registry; llama-3.2-vision-11b
+and musicgen-large raise ``NotImplementedError`` (cross-attention and
+codebook inputs are not ported).  xlstm-125m's prefill needs a prompt
+length that is a multiple of 128 above 128 tokens.
 """
 from __future__ import annotations
 
@@ -13,7 +18,8 @@ import time
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    from ..configs import ARCHS
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")

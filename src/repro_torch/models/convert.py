@@ -3,8 +3,9 @@
 ``params_from_jax`` takes the tree the reference's ``init_params`` builds
 (dicts and tuples of arrays, as numpy) and returns the same tree as torch
 tensors: the port keeps the reference's layout (pattern tuple with leaves
-stacked ``[n_units, ...]``, remainder tuple, ``shared_attn``,
-``final_norm``, ``unembed``), so the carry is a plain mapping, and both
+stacked ``[n_units, ...]`` (expert stacks and xLSTM blocks alike),
+remainder tuple, ``shared_attn``, ``final_norm``, ``unembed`` unless the
+embedding is tied), so the carry is a plain mapping, and both
 packages then compute the same function.  It reads arrays through
 ``numpy.asarray`` and imports nothing of the reference.
 """

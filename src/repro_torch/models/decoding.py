@@ -1,5 +1,5 @@
-"""Prefill and decode (``repro.models.decoding``): KV caches, Mamba2
-states, ring buffers.
+"""Prefill and decode (``repro.models.decoding``): KV caches, Mamba2 and
+xLSTM states, ring buffers.
 
 The decode state mirrors the parameter layout: pattern leaves are stacked
 ``[n_units, B, ...]``, remainder leaves ``[B, ...]``.  The reference's
@@ -9,10 +9,14 @@ caches are ring buffers of ``min(max_len, sliding_window)`` slots.
 Unlike the reference, ``decode_step`` updates the state it is given in
 place (one token's KV slot, the new conv and SSM states) and returns that
 same state: the functional form would copy every cache on every step.
+Attention decode runs the plain ring decode (``ref.decode_attention_naive``)
+as the reference does; an MoE block runs the capacity dispatch over every
+lane of the step, idle lanes included (the reference's capacity counts
+them too).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
-from . import ssm
+from . import moe, ssm, xlstm
 from .layers import mlp_apply, rms_norm
 from .transformer import (cast_tree, check_served, embed_tokens,
                           segments, unembed)
@@ -71,11 +75,16 @@ def _layer_state(kind: str, cfg: ArchConfig, batch: int, s_cache: int,
                  dtype, device, lead: tuple = ()) -> State:
     check_served(kind)
     st: State = {}
-    if kind == "mamba_attn":
+    if kind.startswith("attn") or kind == "mamba_attn":
         kv_shape = lead + (batch, s_cache, cfg.num_kv_heads, cfg.hd)
         st["kv"] = (torch.zeros(kv_shape, dtype=dtype, device=device),
                     torch.zeros(kv_shape, dtype=dtype, device=device))
-    st["mamba"] = ssm.mamba_state_init(cfg, batch, dtype, device, lead)
+    if kind in ("mamba", "mamba_attn"):
+        st["mamba"] = ssm.mamba_state_init(cfg, batch, dtype, device, lead)
+    elif kind == "mlstm":
+        st["mlstm"] = xlstm.mlstm_state_init(cfg, batch, device, lead)
+    elif kind == "slstm":
+        st["slstm"] = xlstm.slstm_state_init(cfg, batch, device, lead)
     return st
 
 
@@ -108,10 +117,35 @@ def _ring_place(kv: torch.Tensor, s_cache: int) -> torch.Tensor:
     return torch.roll(kv[:, -s_cache:], shifts=t % s_cache, dims=1)
 
 
-def _prefill_layer(kind: str, p, x, cfg, shared, s_cache, impl):
+def _ffn_block(kind: str, p, x, cfg,
+               on_route: Optional[moe.RouteObserver] = None):
+    """The feed-forward half of an attention block: the MLP, or for
+    ``attn_moe`` the MoE capacity dispatch."""
+    h = rms_norm(x, p["ln2"])
+    if kind == "attn_moe":
+        return x + moe.moe_apply(p["ffn"], h, cfg, on_route=on_route)[0]
+    return x + mlp_apply(p["ffn"], h, cfg.mlp)
+
+
+def _prefill_layer(kind: str, p, x, cfg, shared, s_cache, impl,
+                   on_route: Optional[moe.RouteObserver] = None):
     check_served(kind)
     st: State = {}
     h = rms_norm(x, p["ln1"])
+    if kind.startswith("attn"):
+        y, (k, v) = attn.self_attention(p["attn"], h, cfg, return_kv=True,
+                                        impl=impl)
+        x = x + y
+        st["kv"] = (_ring_place(k, s_cache), _ring_place(v, s_cache))
+        return _ffn_block(kind, p, x, cfg, on_route), st
+    if kind == "mlstm":
+        y, st["mlstm"] = xlstm.mlstm_apply(p["mlstm"], h, cfg,
+                                           return_state=True)
+        return x + y, st
+    if kind == "slstm":
+        y, st["slstm"] = xlstm.slstm_apply(p["slstm"], h, cfg,
+                                           return_state=True)
+        return x + y, st
     y, st["mamba"] = ssm.mamba_apply(p["mamba"], h, cfg, return_state=True,
                                      impl=impl)
     x = x + y
@@ -128,11 +162,14 @@ def _prefill_layer(kind: str, p, x, cfg, shared, s_cache, impl):
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             max_len: int = 0, compute_dtype=torch.float32,
-            impl: str = "auto"):
+            impl: str = "auto",
+            on_route: Optional[moe.RouteObserver] = None):
     """Process the prompt; returns (last-position logits [B,V], state,
     lengths [B]).  ``max_len`` sizes the decode cache (default: the prompt
     length).  ``impl`` goes to the kernels (``"ref"``: their plain
-    versions).  Runs where ``tokens`` and ``params`` lie."""
+    versions).  ``on_route`` sees each MoE block's routing, layer by
+    layer (:func:`repro_torch.models.moe.moe_apply`).  Runs where
+    ``tokens`` and ``params`` lie."""
     resolve_device(tokens.device)
     pattern, n_units, rem = segments(cfg)
     t = tokens.shape[-1]
@@ -145,12 +182,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             x, st = _prefill_layer(
                 kind, cast_tree(unit(params["pattern"][pos], u),
                                 compute_dtype),
-                x, cfg, shared, s_cache, impl)
+                x, cfg, shared, s_cache, impl, on_route)
             per_pos[pos].append(st)
     rem_states = []
     for p_l, kind in zip(params["remainder"], rem):
         x, st = _prefill_layer(kind, cast_tree(p_l, compute_dtype), x, cfg,
-                               shared, s_cache, impl)
+                               shared, s_cache, impl, on_route)
         rem_states.append(st)
     logits = unembed(params, x[:, -1:, :], cfg)[:, 0]
     lengths = torch.full((tokens.shape[0],), t, dtype=torch.int32,
@@ -167,6 +204,18 @@ def _decode_layer(kind: str, p, st: State, x, lengths, cfg, shared):
     check_served(kind)
     new: State = {}
     h = rms_norm(x, p["ln1"])
+    if kind.startswith("attn"):
+        y, ck, cv = attn.decode_self_attention(p["attn"], h, st["kv"][0],
+                                               st["kv"][1], lengths, cfg)
+        x = x + y
+        new["kv"] = (ck, cv)
+        return _ffn_block(kind, p, x, cfg), new
+    if kind == "mlstm":
+        y, new["mlstm"] = xlstm.mlstm_decode(p["mlstm"], h, st["mlstm"], cfg)
+        return x + y, new
+    if kind == "slstm":
+        y, new["slstm"] = xlstm.slstm_decode(p["slstm"], h, st["slstm"], cfg)
+        return x + y, new
     y, new["mamba"] = ssm.mamba_decode(p["mamba"], h, st["mamba"], cfg)
     x = x + y
     if kind == "mamba_attn":

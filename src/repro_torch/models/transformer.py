@@ -7,9 +7,12 @@ is a plain mapping), and a remainder segment takes the layers a period
 does not divide (zamba2: 38 = 6 * 6 + 2).  zamba2's *shared* attention +
 MLP block has unstacked weights used at every ``mamba_attn`` position.
 
-The port serves the Mamba2 kinds (``mamba``, ``mamba_attn``); the others
-raise ``NotImplementedError`` naming the kind.  The training forward pass
-and loss are not ported yet.
+The port serves every kind the engine feeds with token prompts: dense
+and MoE attention blocks (``attn_dense``, ``attn_moe``), the Mamba2 kinds
+(``mamba``, ``mamba_attn``) and the xLSTM blocks (``mlstm``, ``slstm``).
+``attn_cross`` (image patches) and codebook embeddings raise
+``NotImplementedError`` naming what is missing.  The training forward
+pass and loss are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,11 +23,13 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn
-from . import ssm
+from . import moe as moe_mod
+from . import ssm, xlstm
 from .layers import embed_init, init_rms, mlp_apply, mlp_init, rms_norm
 
 Params = Dict[str, Any]
-SERVED_KINDS = ("mamba", "mamba_attn")
+SERVED_KINDS = ("attn_dense", "attn_moe", "mamba", "mamba_attn", "mlstm",
+                "slstm")
 
 
 # --------------------------------------------------------------------------- #
@@ -77,8 +82,22 @@ def check_served(kind: str) -> None:
 def _init_layer(kind: str, generator: torch.Generator, cfg: ArchConfig,
                 dtype, device, lead: tuple = ()) -> Params:
     check_served(kind)
-    return {"ln1": init_rms(cfg.d_model, dtype, device, lead),
-            "mamba": ssm.mamba_init(generator, cfg, dtype, device, lead)}
+    d = cfg.d_model
+    p: Params = {"ln1": init_rms(d, dtype, device, lead)}
+    if kind.startswith("attn"):
+        p["attn"] = attn.attn_init(generator, cfg, dtype, device, lead)
+        p["ln2"] = init_rms(d, dtype, device, lead)
+        p["ffn"] = (moe_mod.moe_init(generator, cfg, dtype, device, lead)
+                    if kind == "attn_moe"
+                    else mlp_init(generator, d, cfg.d_ff, cfg.mlp, dtype,
+                                  device, lead))
+    elif kind in ("mamba", "mamba_attn"):
+        p["mamba"] = ssm.mamba_init(generator, cfg, dtype, device, lead)
+    elif kind == "mlstm":
+        p["mlstm"] = xlstm.mlstm_init(generator, cfg, dtype, device, lead)
+    else:
+        p["slstm"] = xlstm.slstm_init(generator, cfg, dtype, device, lead)
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,

@@ -850,6 +850,55 @@ def test_tiny_zamba2_prefill_runs_through_the_kernels(card):
     assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3
 
 
+@pytest.mark.parametrize("arch", [
+    "chatglm3-6b", "gemma-7b", "h2o-danube-1.8b", "starcoder2-15b",
+    "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b", "xlstm-125m"])
+def test_tiny_family_prefill_and_decode_run_on_the_card(card, arch):
+    """Each engine-served family at its tiny size: a prefill launches
+    flash attention once an attention layer (none in xLSTM) and matches
+    the plain versions within 2e-3; two decode steps stay finite."""
+    from repro_torch.models.transformer import layer_kinds
+    cfg = tiny_config(get_arch(arch))
+    params = api.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                             device=card)
+    tok = torch.randint(2, cfg.vocab_size, (2, 128), device=card)
+    ops.reset_launches()
+    lk, sk, lens = api.prefill(params, cfg, tok, max_len=136)
+    n_attn = sum(k.startswith("attn") for k in layer_kinds(cfg))
+    assert ops.LAUNCHES["flash_attention"] == n_attn
+    lr, _, _ = api.prefill(params, cfg, tok, max_len=136, impl="ref")
+    assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3
+    step = torch.argmax(lk, -1).to(torch.int32)
+    for _ in range(2):
+        logits, sk = api.decode_step(params, cfg, sk, step, lens)
+        assert bool(torch.isfinite(logits).all())
+        step, lens = torch.argmax(logits, -1).to(torch.int32), lens + 1
+
+
+@pytest.mark.parametrize("tokens,cf", [(512, 1.25), (4, 1.25), (512, 4.0)])
+def test_moe_dispatch_equals_dense_ref_on_the_card(card, tokens, cf):
+    """The capacity dispatch against every expert on every token, on the
+    card: output within 2e-4 of the largest magnitude, the same tokens
+    kept, the same overflow."""
+    import dataclasses
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(tiny_config(get_arch("llama4-scout-17b-a16e")),
+                              num_experts=16)
+    g = torch.Generator(device=card).manual_seed(tokens)
+    p = moe.moe_init(g, cfg, device=card)
+    x = torch.randn((1, tokens, cfg.d_model), generator=g, device=card)
+    routes = []
+    y, aux = moe.moe_apply(p, x, cfg, cf, on_route=lambda *r: routes.append(r))
+    yr, auxr = moe.moe_dense_ref(p, x, cfg, cf,
+                                 on_route=lambda *r: routes.append(r))
+    assert float((y - yr).abs().max()) <= 2e-4 * float(yr.abs().max())
+    (i, k, _), (ir, kr, _) = routes
+    assert torch.equal(i, ir) and torch.equal(k, kr)
+    assert float(aux["overflow"]) == float(auxr["overflow"])
+    if tokens == 512:       # 40 slots an expert overflow, 128 do not
+        assert (float(aux["overflow"]) > 0) == (cf < 4.0)
+
+
 # --------------------------------------------------------------------------- #
 # paged decode attention and the staged matmul
 # --------------------------------------------------------------------------- #

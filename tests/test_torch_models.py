@@ -22,6 +22,7 @@ from repro.models import layers as jlayers
 from repro.models import ssm as jssm
 from repro.models import transformer as jtr
 from repro.parallel.sharding import single_device_ctx
+from repro_torch.configs import ARCHS as PORT_ARCHS
 from repro_torch.configs import get_arch, tiny_config
 from repro_torch.models import api, attention, decoding, layers, ssm
 from repro_torch.models import transformer
@@ -65,12 +66,15 @@ def _close_trees(got, want, tol):
 # configs and parameters
 # --------------------------------------------------------------------------- #
 def test_config_copy_equals_the_reference():
-    assert dataclasses.asdict(get_arch("zamba2-1.2b")) == \
-        dataclasses.asdict(ARCHS["zamba2-1.2b"])
+    assert sorted(PORT_ARCHS) == sorted(ARCHS) and len(ARCHS) == 10
+    for name, ref in ARCHS.items():
+        full = get_arch(name)
+        assert dataclasses.asdict(full) == dataclasses.asdict(ref)
+        assert transformer.segments(full) == jtr.segments(ref)
+        tiny = tiny_config(full)
+        assert dataclasses.asdict(tiny) == dataclasses.asdict(jtiny(ref))
+        assert transformer.segments(tiny) == jtr.segments(jtiny(ref))
     assert dataclasses.asdict(CFG) == dataclasses.asdict(JCFG)
-    assert transformer.segments(CFG) == jtr.segments(JCFG)
-    full = get_arch("zamba2-1.2b")
-    assert transformer.segments(full) == jtr.segments(ARCHS["zamba2-1.2b"])
 
 
 def test_init_params_has_the_reference_layout():
@@ -122,7 +126,7 @@ def test_params_from_jax_checks_the_layout(params):
         params_from_jax(flat, CFG)
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
 def test_unported_layer_kinds_raise(arch):
     cfg = jtiny(ARCHS[arch])
     with pytest.raises(NotImplementedError, match="not ported"):
