@@ -169,7 +169,7 @@ Each phase prints one JSON line:
     MB bursts, 4 ms), ``pod1024`` (4 x 16 x 16 hosts, 4 ms, a timing row
     with no CPU reference) and ``pod_storm3`` (``pod_storm_grid`` at its
     defaults: 32/64/128 KB buffers, per-TC lossless PFC, 5 ms).  pod64
-    and pod_storm3 first run 500 ticks through the graph and the eager
+    and pod_storm3 first run 250 ticks through the graph and the eager
     loop (``graph_eager`` lines, every output equal).  Every cell counts
     6 grants, 1 admit and 22 segment sums a tick on the card, equal to
     the launches captured x ticks, and records ms a tick with and
@@ -206,17 +206,32 @@ Each phase prints one JSON line:
     senders + victim, 6 points, 2 ms) in chunks of 4 and 2, within 5e-4
     of CPU float64 on goodput and incast completion, identical finite
     masks.
+19. ``scalar`` (printed after the lines of phases 12-18): the card's
+    grids against the port's scalar drivers (host code in Python floats,
+    run in chunks in the oracle pool, each point timed): (a) the main
+    path's incast48 graph result within 5e-4 of ``Scenario.run``
+    (``run_fabric``) on goodput and incast completion (the
+    ``fabric_sweep`` ceilings of ``bench_floors.json``; flow completion
+    and victim goodput recorded), pause fan-out equal point for point,
+    and the main path's CPU float64 run within 1e-9 of it with flow
+    completions equal; (b) ``single_pair`` in both receiver modes at 5 ms
+    through the graph within 1e-3 of ``run_sim`` (the reference's float32
+    tolerance); (c) the 144-point bench sweep within ``0.01 * seq +
+    1e-6`` of ``run_sim``, point by point.  Recorded, not gated: the
+    scalar walls, the card's warm walls and ``speedup_warm`` of (a) and
+    (c).
 
-The card runs of phases 12-17 come first, then ``kernel`` rows of both
+The card runs of phases 12-18 come first (and the single pair of phase
+19), then ``kernel`` rows of both
 water-fills at every shape those fabric grids gave them (grants at each
 grid's [G, Q, P], admit at its [G, Q, R]; bit for bit); ``seg_variants``
 lines run pod64, pod256 and pod1024 through the graph with each
 segment-sum kernel in turn (50 ticks traced whole: the segment sums'
 device µs a tick and launches by name, 22 a tick; at 256 and 1,024
-hosts ms a tick over 300 ticks).  Then the CPU references of phases 12-17
-in spawned worker processes (an ``oracles`` line: workers, host cores,
-wall of each), so that no reference competes with a timed card run for
-the host; the lines of phases 12-17 follow.  The ``pods`` and ``scale``
+hosts ms a tick over 300 ticks).  Then the CPU references of phases
+12-19 in spawned worker processes (an ``oracles`` line: workers, host
+cores, wall of each), so that no reference competes with a timed card
+run for the host; the lines of phases 12-19 follow.  The ``pods`` and ``scale``
 lines carry the segment sums' device µs a tick, and the ``total`` line
 the seconds of each phase.
 
@@ -791,6 +806,7 @@ def main_path() -> dict:
           f"incast completion deviates {dev['incast_completion_us']} > "
           f"{TOL} (inf = finite masks differ)")
     out["result"] = res
+    out["oracle"] = oracle
     return out
 
 
@@ -1009,7 +1025,7 @@ COUNT_SLACK = 8             # messages a point: tests/test_messages.py's
 P99_SLACK_US = 2.0          # + one histogram bucket: its JAX_SLACK_US
 FAULT_TOL = 1e-4            # dropped / retransmitted: tests/test_faults.py
 ORACLE_WORKERS = 4          # CPU reference runs, after the card runs
-GRAPH_EAGER_TICKS = 500     # graph == eager, element for element, per grid
+GRAPH_EAGER_TICKS = 250     # graph == eager, element for element, per grid
 ROUTING_MODES = ("static_ecmp", "weighted_ecmp", "adaptive", "spray")
 CLASS_JOBS = ("qos_mixed", "wrr", "host_gate")
 
@@ -1087,14 +1103,163 @@ def fault_scens(sim_time_s: float):
                                     "crash": ["h1_0", 400.0, 600.0]}]
 
 
+SCALAR_TIME_S = 0.005       # single pair vs run_sim: the reference test's
+                            # depth (tests/test_fabric_vector.py:82)
+PAIR_MODES = ("ddio", "jet")
+PAIR_TOL = 1e-3             # the reference's float32 tolerance there
+CPU_SCALAR_TOL = 1e-9       # its numpy-vs-scalar one (:100)
+SCALAR_JOBS = ("scalar_incast48:0", "scalar_incast48:1", "scalar_incast48:2",
+               "scalar_sweep:0", "scalar_sweep:1", "scalar_pair")
+
+
+def scalar_oracle(job: str) -> dict:
+    """One chunk of the scalar drivers' runs, in a worker process, each
+    point timed on its own: a third of the main path's incast48 through
+    ``Scenario.run`` (``run_fabric``), half of the bench sweep's
+    configurations or the single pair through ``run_sim``."""
+    import numpy as np
+    from repro_torch.core import run_sim, testbed_100g
+    name, _, part = job.partition(":")
+    parts = sum(j.startswith(name + ":") for j in SCALAR_JOBS)
+    walls = []
+
+    def timed(fn, x):
+        t0 = time.perf_counter()
+        r = fn(x)
+        walls.append(time.perf_counter() - t0)
+        return r
+
+    def chunk(items):
+        k = int(part)
+        return items[k * len(items) // parts:(k + 1) * len(items) // parts]
+    if name == "scalar_incast48":
+        scens = chunk(incast_grid(SIM_TIME_S))
+        res = [timed(lambda sc: sc.run(), sc) for sc in scens]
+        F = len(scens[0].flows)
+        out = {k: np.array([[getattr(r, k)[f] for f in range(F)]
+                            for r in res])
+               for k in ("flow_goodput_gbps", "flow_completion_us")}
+        out.update({k: np.array([getattr(r, k) for r in res])
+                    for k in ("incast_completion_us", "victim_goodput_gbps",
+                              "pause_fanout")})
+    elif name == "scalar_sweep":
+        cfgs = chunk(sweep_configs(False, SWEEP_TIME_S))
+        out = {"goodput_gbps": np.array(
+            [timed(run_sim, c).goodput_gbps for c in cfgs])}
+    else:
+        out = {"goodput_gbps": np.array(
+            [timed(run_sim, testbed_100g(m, sim_time_s=SCALAR_TIME_S))
+             .goodput_gbps for m in PAIR_MODES])}
+    out["point_wall_s"] = walls
+    return out
+
+
+def pair_phase() -> dict:
+    """``single_pair`` in both receiver modes at 5 ms through the captured
+    graph on the card: the card half of the scalar phase's pair check."""
+    from repro_torch.fabric import single_pair
+    fsp, res, head = fabric_run([single_pair(m, sim_time_s=SCALAR_TIME_S)
+                                 for m in PAIR_MODES])
+    check(launches_per_tick(head, fsp.ticks),
+          f"single pair: launches {head['launches']} (captured "
+          f"{head['launches_captured']}), want {4 * fsp.ticks} / "
+          f"{fsp.ticks}")
+    return {"recv_goodput_gbps": res["recv_goodput_gbps"][:, 0],
+            "ticks": fsp.ticks, "run_s": head["run_s"],
+            "ms_per_tick": head["ms_per_tick"], "launches": head["launches"]}
+
+
+def scalar_merged(name: str, oracles) -> dict:
+    """The chunks of one scalar job, in point order."""
+    import numpy as np
+    parts = [oracles[j][0] for j in SCALAR_JOBS
+             if j.partition(":")[0] == name]
+    return {k: (sum((p[k] for p in parts), []) if k == "point_wall_s"
+                else np.concatenate([p[k] for p in parts]))
+            for k in parts[0]}
+
+
+def scalar_phase(main: dict, card: dict, cpu64: dict, pair: dict,
+                 sweep: dict, oracles) -> dict:
+    """The card's grids against the port's scalar drivers (host code,
+    Python floats, run in the oracle pool): (a) incast48's float32 graph
+    result within the ``fabric_sweep`` ceilings of ``run_fabric`` with
+    ``pause_fanout`` equal, and the CPU float64 grid within 1e-9 with
+    completions equal; (b) the single pair within 1e-3 of ``run_sim``;
+    (c) the 144-point receiver sweep within ``0.01 * seq + 1e-6`` of
+    ``run_sim`` point by point.  Scalar walls are summed per point;
+    ``speedup_warm`` is scalar over the card's warm run."""
+    import numpy as np
+    inc = scalar_merged("scalar_incast48", oracles)
+    seq = scalar_merged("scalar_sweep", oracles)
+    sim = scalar_merged("scalar_pair", oracles)
+    dev = {f"dev_{name}_vs_scalar": rel(card[k], inc[k]) for name, k in (
+        ("goodput", "flow_goodput_gbps"),
+        ("incast_fct", "incast_completion_us"),
+        ("completion", "flow_completion_us"),
+        ("victim_goodput", "victim_goodput_gbps"))}
+    fanout = card["pause_fanout"].tolist() == inc["pause_fanout"].tolist()
+    cpu_dev = rel(cpu64["flow_goodput_gbps"], inc["flow_goodput_gbps"])
+    cpu_completion = bool(np.array_equal(cpu64["flow_completion_us"],
+                                         inc["flow_completion_us"]))
+    incast_wall = float(sum(inc["point_wall_s"]))
+    pair_dev = rel(pair["recv_goodput_gbps"], sim["goodput_gbps"])
+    got, want = sweep["goodput_gbps"].astype(np.float64), seq["goodput_gbps"]
+    sweep_ok = bool(np.all(np.abs(got - want) <= 0.01 * want + 1e-6))
+    sweep_dev = rel(got, want)
+    sweep_wall = float(sum(seq["point_wall_s"]))
+    out = {"incast48": {
+               "points": len(inc["point_wall_s"]), "sim_time_s": SIM_TIME_S,
+               **dev, "pause_fanout_equal": fanout,
+               "cpu_float64_dev_goodput_vs_scalar": cpu_dev,
+               "cpu_float64_completion_equal": cpu_completion,
+               "scalar_wall_s": incast_wall,
+               "card_graph_run_s": main["run_s"],
+               "card_graph_wall_with_capture_s": main["wall_s"],
+               "speedup_warm": incast_wall / main["run_s"],
+               "speedup_with_capture": incast_wall / main["wall_s"]},
+           "single_pair": {
+               "sim_time_s": SCALAR_TIME_S, "modes": list(PAIR_MODES),
+               "card_recv_goodput_gbps": pair["recv_goodput_gbps"].tolist(),
+               "run_sim_goodput_gbps": sim["goodput_gbps"].tolist(),
+               "dev_vs_run_sim": pair_dev, "ticks": pair["ticks"],
+               "card_ms_per_tick": pair["ms_per_tick"]},
+           "receiver_sweep": {
+               "points": len(want), "sim_time_s": SWEEP_TIME_S,
+               "within_one_percent": sweep_ok,
+               "max_rel_dev_vs_run_sim": sweep_dev,
+               "seq_run_sim_wall_s": sweep_wall,
+               "card_warm_wall_s": sweep["wall_s"],
+               "speedup_warm": sweep_wall / sweep["wall_s"]},
+           "nvidia_smi": card_line()}
+    emit("scalar", **out)
+    check(dev["dev_goodput_vs_scalar"] <= TOL
+          and dev["dev_incast_fct_vs_scalar"] <= TOL,
+          f"incast48 on the card vs run_fabric: {dev} (inf = finite masks "
+          "differ)")
+    check(fanout, "incast48: pause fan-out differs from run_fabric: "
+          f"{card['pause_fanout'].tolist()} vs "
+          f"{inc['pause_fanout'].tolist()}")
+    check(cpu_dev <= CPU_SCALAR_TOL and cpu_completion,
+          f"incast48 CPU float64 vs run_fabric: goodput {cpu_dev}, "
+          f"completions equal {cpu_completion}")
+    check(pair_dev <= PAIR_TOL, f"single pair vs run_sim: {pair_dev}")
+    check(sweep_ok, "the receiver sweep is more than 1 % off run_sim: max "
+          f"relative {sweep_dev}")
+    return out
+
+
 def oracle(job: str, threads: int):
     """A CPU reference run, in a worker process: the sweep in float32,
-    the fabric grids in float64."""
+    the fabric grids in float64, a chunk of the scalar drivers' runs in
+    Python floats."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     torch.set_num_threads(threads)
     t0 = time.perf_counter()
-    if job.startswith("sweep"):
+    if job.startswith("scalar"):
+        out = scalar_oracle(job)
+    elif job.startswith("sweep"):
         from repro_torch.fabric import run_sweep
         out = run_sweep(sweep_configs(job == "sweep_dense", SWEEP_TIME_S),
                         device="cpu")
@@ -1130,7 +1295,7 @@ def run_oracles() -> dict:
     jobs = {"sweep_dense": 2, "messages": 1, "routing": 1, "faults": 1,
             "adaptive": 1, "pod256": 1, "pod64": 1, "pod_storm3": 1,
             "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1,
-            "mixed_fleet6": 1}
+            "mixed_fleet6": 1, **{job: 1 for job in SCALAR_JOBS}}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=ORACLE_WORKERS,
@@ -1225,9 +1390,10 @@ def fabric_profile(scens, ticks: int, top: int = 0,
 
 def sweep_phase(label: str, dense: bool):
     """The receiver-datapath sweep on the card, both modes, full depth.
-    Runs and times the card now; returns the function that, given the
-    CPU references, holds every output within SWEEP_TOL of the port's
-    CPU float32 run (bitwise expected), with identical finite masks."""
+    Runs and times the card now; returns its goodput and warm wall, and
+    the function that, given the CPU references, holds every output
+    within SWEEP_TOL of the port's CPU float32 run (bitwise expected),
+    with identical finite masks."""
     import numpy as np
     import torch
     from repro_torch.fabric import SweepParams, run_sweep
@@ -1265,7 +1431,8 @@ def sweep_phase(label: str, dense: bool):
         check(bool(np.isfinite(gp).all()), f"{label}: non-finite goodput")
         check(gp[:n].min() < gp[:n].max(), f"{label}: DDIO goodput is flat")
         return out
-    return finish
+    return {"goodput_gbps": res["goodput_gbps"], "wall_s": wall,
+            "points": sp.n_points, "ticks": sp.ticks}, finish
 
 
 def fabric_vs_cpu(job: str, fsp, res, head: dict, oracles):
@@ -1842,8 +2009,8 @@ def seg_variants_phase(job: str) -> dict:
 
 def pods_phase(dense: dict):
     """The pod cells on the card, every one at dt 1 µs through the
-    captured graph: pod64 and pod_storm3 also graph == eager at 500
-    ticks; pod64, pod256, pod1024 (the timing row) and pod_storm3 with
+    captured graph: pod64 and pod_storm3 also graph == eager over
+    ``GRAPH_EAGER_TICKS`` ticks; pod64, pod256, pod1024 (the timing row) and pod_storm3 with
     their launches a tick (6 grants, 1 admit, 22 segment sums,
     device-counted, equal to captured x ticks), ms a tick with and
     without the capture and a 50-tick profile (kernels a tick, busy
@@ -3509,6 +3676,7 @@ def run() -> int:
         profile_phase()
         lap("profile")
         main_result = main.pop("result")
+        main_oracle = main.pop("oracle")
         unit_stride_phase(main_result)
         adaptive_fsp, adaptive_finish = adaptive_phase()
         lap("adaptive")
@@ -3527,8 +3695,9 @@ def run() -> int:
         torch.cuda.empty_cache()
         # the card runs of the last three phases first, timed with no
         # CPU reference running beside them; then the references
-        finish = [sweep_phase("bench 144", False),
-                  sweep_phase("dense 9216", True)]
+        bench_sweep, bench_finish = sweep_phase("bench 144", False)
+        _, dense_finish = sweep_phase("dense 9216", True)
+        finish = [bench_finish, dense_finish]
         lap("receiver_sweep")
         routing_fsp, routing_finish = routing_phase()
         lap("routing")
@@ -3543,6 +3712,8 @@ def run() -> int:
         farm_finish = farm_phase()
         farm_workers_phase()
         lap("farm")
+        pair = pair_phase()
+        lap("scalar_card")
         waterfill_path_rows({"routing8": routing_fsp, **class_fsps,
                              "messages18": msg_fsp, "lossy9": flt_fsp,
                              "adaptive8": adaptive_fsp, **pod_fsps}, 40)
@@ -3557,6 +3728,9 @@ def run() -> int:
                               adaptive_finish, pods_finish, farm_finish]:
             done(oracles)
         lap("checks_vs_oracles")
+        scalar_phase(main, main_result, main_oracle, pair, bench_sweep,
+                     oracles)
+        lap("scalar")
         traced = main_path_traced(main_result)
         lap("main_path_traced")
         # each kernel's launches on the path that runs it

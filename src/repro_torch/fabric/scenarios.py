@@ -19,7 +19,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from ..core.datapath import QoS
 from ..core.simulator import SimConfig, testbed_100g
 from .cc import CcConfig
-from .fabric import FabricConfig, Flow
+from .fabric import FabricConfig, FabricResult, Flow, run_fabric
 from .faults import FaultConfig
 from .messages import MessageConfig
 from .routing import RoutingConfig
@@ -34,6 +34,11 @@ class Scenario:
     topology: Topology
     flows: List[Flow]
     fabric: FabricConfig
+
+    def run(self) -> FabricResult:
+        """Advance this one scenario with the scalar driver
+        (:func:`repro_torch.fabric.fabric.run_fabric`, host code)."""
+        return run_fabric(self.topology, self.flows, self.fabric)
 
 
 def fabric_grid(mk: Callable[..., Scenario],

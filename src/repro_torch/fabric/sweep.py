@@ -95,7 +95,8 @@ class SweepParams:
                 raise ValueError("sweep points must share dt and sim_time")
             if c.cpu_membw_schedule is not None:
                 raise ValueError("cpu_membw_schedule is not sweepable; "
-                                 "use run_sim for scheduled contention")
+                                 "use repro_torch.core.run_sim for "
+                                 "scheduled contention")
         vals = {name: np.array([fn(c) for c in configs], dtype=_F)
                 for name, fn in _SCALARS}
         d_b, d_s = [], []

@@ -5,8 +5,9 @@ that run them (the sparse pod tick through its captured graph equal to
 its eager loop, its launches counted on the card; the dense tick under
 dynamic routing and a link failure, under the CC zoo with verbs messages,
 and under loss, recovery and a receiver crash, each against CPU float64;
-its captured CUDA graphs equal to the eager loop, and adaptive dt within
-its bound of the CPU run; the sweep farm's chunks equal to the
+its captured CUDA graphs equal to the eager loop and within 5e-4 of the
+scalar driver ``run_fabric``, and adaptive dt within its bound of the
+CPU run; the sweep farm's chunks equal to the
 monolithic run, a captured run re-armed by ``FabricRun.load`` equal to a
 fresh capture; the receiver sweep bit for bit against the CPU); flash
 attention, the SSD scan, the paged decode attention and the staged
@@ -126,6 +127,28 @@ def test_engine_runs_through_the_kernels(card):
         assert np.array_equal(np.isfinite(a), np.isfinite(b)), k
         m = np.isfinite(b)
         assert np.allclose(a[m], b[m], rtol=5e-4, atol=0.0), k
+
+
+def test_graph_matches_the_scalar_driver(card):
+    """A 4-point incast grid (DDIO / Jet x PFC off / on) at 2 ms through
+    the captured graph, against the port's scalar ``run_fabric`` (host
+    code, Python floats): goodput and incast completion within 5e-4
+    (``bench_floors.json``'s ``fabric_sweep`` ceilings), identical finite
+    masks, pause fan-out equal point for point."""
+    scens = [TSC.incast(8, mode=m, pfc=p, burst_mb=1.0, sim_time_s=0.002)
+             for m in ("ddio", "jet") for p in (False, True)]
+    got, launches, captured = _counted(scens)
+    assert launches == captured == {"priority_grants": 8000,
+                                    "priority_admit": 2000, "seg_sum": 0}
+    res = [s.run() for s in scens]
+    F = len(scens[0].flows)
+    want = {"flow_goodput_gbps": np.array(
+                [[r.flow_goodput_gbps[f] for f in range(F)] for r in res]),
+            "incast_completion_us": np.array(
+                [r.incast_completion_us for r in res])}
+    _held_to_cpu(got, want, sorted(want))
+    assert got["pause_fanout"].tolist() == [r.pause_fanout for r in res]
+    assert max(r.pause_fanout for r in res) >= 2
 
 
 def test_receiver_sweep_on_the_card_equals_the_cpu_run(card):
