@@ -30,7 +30,9 @@ Each phase prints one JSON line:
    ``mma_bf16`` or the float32 ``mma_3xtf32``; CUDA cores: ``simt``) and
    must have run the one its type and head dim select; two rows are the
    prefill shapes of danube (32 heads of 80 over 8 KV heads, window
-   4096) and scout (40 heads of 128 over 8) at 1,024 tokens in float32;
+   4096) and scout (40 heads of 128 over 8) at 1,024 tokens in float32,
+   one llama-3.2-vision's cross-attention (1,024 tokens over 1,600
+   patches, 32 heads of 128 over 8, no mask) in float32;
    two are at gemma-7b's attention width (16 heads of 256), in bfloat16
    and float32,
    and four at head dims of 20 and 100, on ``simt`` in both types.  Each
@@ -123,7 +125,25 @@ Each phase prints one JSON line:
     sLSTM, d_model 768, 4 heads of 192, vocab 50,304): prompts of 64,
     128, 256 and 512 tokens (the mLSTM prefill needs whole chunks of
     128), 16 new each; no kernel is on its path.
-12. ``receiver_sweep`` (two lines): ``run_sweep`` on the card over
+12. ``api_vision``, ``api_musicgen``: llama-3.2-vision-11b (40 layers,
+    every 5th a cross-attention layer over 1,600 image patches, d_model
+    4096, 32 heads / 8 KV heads of 128, vocab 128,256; 10.1 B
+    parameters) and musicgen-large (48 layers, d_model 2048, 32 heads of
+    64, 4 codebooks of 2,048) at full width and depth, float32, seeded
+    random weights, through the model API, not the engine (which feeds
+    token prompts only): prompts of 64, 256 and 1,024 tokens (vision:
+    each with its own seeded unit-normal image; musicgen: ``[1, 4, T]``
+    codebook tokens), each prefilled with the kernels and with the plain
+    versions (logits and every state leaf, the patch K/V ``xkv``
+    included, within 2e-3) and decoded 16 greedy steps from both (tokens
+    equal except after a plain top-2 margin below 1e-3); vision also
+    prefills one prompt with two images as a batch of two, each row
+    within 2e-3 of its one-row prefill; ``forward`` of the 256-token
+    prompt (last logits against the prefill's, logits against the plain
+    forward) and ``loss_fn`` on seeded targets against the plain loss,
+    within 2e-3; flash attention launched 48 times a prefill or forward
+    (vision: 40 self- and 8 cross-attention layers), nowhere else.
+13. ``receiver_sweep`` (two lines): ``run_sweep`` on the card over
    ``benchmarks/bench_fabric.py``'s sweep axes (msg_bytes x CPU memory
    traffic x DDIO, 6 x 6 x 2) in both receiver modes, 144 points, at the
    bench's full 10 ms (10,000 ticks), then the same ranges densified to
@@ -132,20 +152,20 @@ Each phase prints one JSON line:
    the port's CPU float32 run (``sweep.max_rel_dev_vs_numpy`` of
    ``bench_floors.json``; bit-equal expected), DDIO's and Jet's goodput
    ranges.
-13. ``routing``: ``routing_grid`` (static ECMP, weighted ECMP, adaptive,
+14. ``routing``: ``routing_grid`` (static ECMP, weighted ECMP, adaptive,
     spray x {no failure, leaf0 -> spine0 down at 150 us}), 8 senders,
     1 MB bursts, depth cut from 20 ms to 8 ms: within 5e-4 of CPU float64
     on goodput and completion times with identical finite masks, reroute
     counts equal, 4 grants and 1 admit launch a tick; static ECMP never
     finishes under the failure while adaptive and spray do, adaptive
     reroutes and static does not; a 50-tick profiler window.
-14. ``classes``: the QoS-mixed grid (legacy vs per-TC pause), the
+15. ``classes``: the QoS-mixed grid (legacy vs per-TC pause), the
     strict/WRR pair (LOW under 1 Gbps with strict priority, over 15 with
     WRR) and the host-gate pair (HIGH at 0.95 Gbps or more behind the
     per-class receiver gate, 0.85 or less behind the whole-link gate),
     4 ms each, each within 5e-4 of CPU float64 with the same launch
     counts, each with a 50-tick profiler window.
-15. ``messages``: ``benchmarks/bench_fabric.py``'s whole messages grid
+16. ``messages``: ``benchmarks/bench_fabric.py``'s whole messages grid
     (``message_sweep_grid``: 16/64/256 KB verbs writes x windows 4/16 x
     DCQCN/Timely/HPCC, 18 points, 8 senders into one receiver, 10 ms =
     10,000 ticks, nothing cut): per-point message counts within 8 of CPU
@@ -153,7 +173,7 @@ Each phase prints one JSON line:
     within 5e-4 with identical finite masks, 4 grants and 1 admit launch
     a tick; the p99 of each controller at window 16 for each size, and a
     50-tick profiler window.
-16. ``faults``: the bench's faults grid (``lossy_incast_grid``: loss
+17. ``faults``: the bench's faults grid (``lossy_incast_grid``: loss
     0 / 0.2 / 1 / 5 % x go-back-N / selective) and its crash case
     (selective at 0.5 % loss, ``h1_0`` down 400-600 us) as a ninth point,
     4 ms: dropped packets and retransmitted bytes within 1e-4 of CPU
@@ -162,7 +182,7 @@ Each phase prints one JSON line:
     point, and at 5 % loss selective retransmitting less than half of
     go-back-N's bytes and completing more messages; 4 grants and 1 admit
     a tick; a 50-tick profiler window.
-17. ``pods``: the sparse-incidence engine on pod-scale (3-level Clos)
+18. ``pods``: the sparse-incidence engine on pod-scale (3-level Clos)
     grids, each at dt 1 µs through the captured graph: ``pod64`` and
     ``pod256`` (``benchmarks/bench_fabric.py:run_scale_bench``'s 2 x 2 x
     16 and 4 x 4 x 16 hosts: cross-pod incast, receiver mode x PFC, 0.2
@@ -183,7 +203,7 @@ Each phase prints one JSON line:
     hosts, ``growth_exponent`` = log(busy256 / busy64) / log 4 and its
     ms a tick twin, both <= 1.6 (``bench_floors.json``), and the 256 ->
     1,024 exponent, recorded.
-18. ``farm``: the sweep farm (``repro_torch.fabric.farm.run_farm``) on
+19. ``farm``: the sweep farm (``repro_torch.fabric.farm.run_farm``) on
     the card, every chunk through the captured tick.  incast64
     (``build_grid("incast")``, the reference bench's farm grid: {jet,
     ddio} x PFC {off, on} x 16 bursts 0.25-4 MB, 4 senders, 2 ms) in
@@ -206,7 +226,7 @@ Each phase prints one JSON line:
     senders + victim, 6 points, 2 ms) in chunks of 4 and 2, within 5e-4
     of CPU float64 on goodput and incast completion, identical finite
     masks.
-19. ``scalar`` (printed after the lines of phases 12-18): the card's
+20. ``scalar`` (printed after the lines of phases 13-19): the card's
     grids against the port's scalar drivers (host code in Python floats,
     run in chunks in the oracle pool, each point timed): (a) the main
     path's incast48 graph result within 5e-4 of ``Scenario.run``
@@ -221,17 +241,17 @@ Each phase prints one JSON line:
     scalar walls, the card's warm walls and ``speedup_warm`` of (a) and
     (c).
 
-The card runs of phases 12-18 come first (and the single pair of phase
-19), then ``kernel`` rows of both
+The card runs of phases 13-19 come first (and the single pair of phase
+20), then ``kernel`` rows of both
 water-fills at every shape those fabric grids gave them (grants at each
 grid's [G, Q, P], admit at its [G, Q, R]; bit for bit); ``seg_variants``
 lines run pod64, pod256 and pod1024 through the graph with each
 segment-sum kernel in turn (50 ticks traced whole: the segment sums'
 device µs a tick and launches by name, 22 a tick; at 256 and 1,024
 hosts ms a tick over 300 ticks).  Then the CPU references of phases
-12-19 in spawned worker processes (an ``oracles`` line: workers, host
+13-20 in spawned worker processes (an ``oracles`` line: workers, host
 cores, wall of each), so that no reference competes with a timed card
-run for the host; the lines of phases 12-19 follow.  The ``pods`` and ``scale``
+run for the host; the lines of phases 13-20 follow.  The ``pods`` and ``scale``
 lines carry the segment sums' device µs a tick, and the ``total`` line
 the seconds of each phase.
 
@@ -274,9 +294,9 @@ staged matmul twice: its float32 kernel and its bfloat16 wgmma kernel,
 each at zamba2's up-projection with its launches in the ``staged``
 phase; the segment sum at pod256's [4, 1158] -> 693 bins with its
 launches in pod256's run; and flash attention at zamba2's prefill shape
-with its launches summed over the three serve runs that reach it
-(``serve``, ``serve_danube``, ``serve_scout``), each first checked
-against its own count.  Inputs smaller than the L2 cache are timed
+with its launches summed over the runs that reach it (``serve``,
+``serve_danube``, ``serve_scout``, ``api_vision``, ``api_musicgen``),
+each first checked against its own count.  Inputs smaller than the L2 cache are timed
 over copies that the calls cycle through (not the segment sum's: at the
 path's shapes its calls are launch-bound).
 
@@ -352,6 +372,14 @@ FAMILY_SERVES = {
                     None),
     "serve_xlstm": ("xlstm-125m", None, [64, 128, 256, 512], 640, None),
 }
+# the model API on the card, after FAMILY_SERVES: phase -> (arch, layers
+# kept (None: all)).  llama-3.2-vision reads 1,600 image patches in every
+# 5th layer (8 cross-attention layers of 40); musicgen-large sums 4
+# codebooks' embeddings.  Both at full width and depth, float32.
+API_PHASES = {"api_vision": ("llama-3.2-vision-11b", None),
+              "api_musicgen": ("musicgen-large", None)}
+API_PROMPTS = [64, 256, 1024]
+API_FORWARD_T = 256         # forward, loss_fn and the batched prefill
 PAGED_TOL = 2e-4            # paged decode vs the dense ring decode
                             # (tests/test_serving.py, tests/test_kernels.py)
 TIME_LIMIT_S = 1200         # the script's own limit, builds included
@@ -3437,6 +3465,186 @@ def family_phase(phase: str, dev) -> dict:
     return serve_phase(cfg, dev, phase, prompt_lens, max_len, pool_bytes)
 
 
+def batch_row(state, b: int):
+    """Row ``b`` of a decode state (pattern leaves ``[n_units, B, ...]``,
+    remainder leaves ``[B, ...]``), as a one-row state."""
+    from repro_torch.models.decoding import tree_map
+    return {"pattern": tree_map(lambda t: t[:, b:b + 1], state["pattern"]),
+            "remainder": tree_map(lambda t: t[b:b + 1], state["remainder"])}
+
+
+def api_phase(phase: str, dev) -> dict:
+    """One of ``API_PHASES`` through the model API (``api.prefill`` with
+    patches or codebook tokens, ``api.decode_step``, ``api.forward``,
+    ``api.loss_fn``) at full width, on a card whose earlier models are
+    freed.  Each prompt of ``API_PROMPTS`` (vision: with its own seeded
+    image) is prefilled with the kernels and with their plain versions
+    (logits and every state leaf, ``xkv`` included, within
+    ``STATE_TOL``), then decoded ``SERVE_NEW`` greedy steps from each
+    prefill (a codebook model feeds its argmax tiled over the codebooks,
+    as the reference's smoke test does): tokens equal, except after a
+    step whose plain top-2 margin is below ``MARGIN``.  Vision also
+    prefills a batch of two rows, one token prompt with two images: each
+    row within ``STATE_TOL`` of its one-row prefill.  ``forward`` of the
+    ``API_FORWARD_T``-token prompt: its last logits against the prefill's
+    and its logits against the plain forward, ``loss_fn`` on seeded
+    targets against the plain loss, all within ``STATE_TOL``.  Flash
+    attention launches once a self- and once a cross-attention layer a
+    pass with the kernels, and nowhere else."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.transformer import layer_kinds, tree_map
+    arch, layers = API_PHASES[phase]
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kinds = layer_kinds(cfg)
+    per_pass = len(kinds) + kinds.count("attn_cross")
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    rng = np.random.default_rng(11)
+
+    def tokens(t: int):
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, api.token_shape(cfg, 1, t))).to(dev)
+
+    def image(seed: int):
+        if not cfg.num_patches:
+            return None
+        return torch.randn((1, cfg.num_patches, cfg.d_model), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def greedy(logits):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        if cfg.num_codebooks:
+            tok = tok[:, None].repeat(1, cfg.num_codebooks)
+        return tok
+
+    requests = [(tokens(t), image(100 + i))
+                for i, t in enumerate(API_PROMPTS)]
+    ops.reset_launches()
+    passes = 0
+    rows, prefill_ms, decode_ms, diverged, excused = [], [], [], [], True
+    last_logits = {}
+    for (tok, img), t in zip(requests, API_PROMPTS):
+        (lk, sk, lens), ms = timed(lambda: api.prefill(
+            params, cfg, tok, img, max_len=t + SERVE_NEW))
+        lr, sr, _ = api.prefill(params, cfg, tok, img, max_len=t + SERVE_NEW,
+                                impl="ref")
+        passes += 1
+        prefill_ms.append(ms)
+        last_logits[t] = lk
+        row = {"prompt": t, "logits": tree_rel(lk, lr),
+               "state": tree_rel(sk, sr)}
+        seq_k, seq_r, margins = [], [], []
+        for step in range(SERVE_NEW + 1):
+            if step:
+                (lk, sk), ms = timed(lambda: api.decode_step(
+                    params, cfg, sk, greedy(lk), lens))
+                decode_ms.append(ms)
+                lr, sr = api.decode_step(params, cfg, sr, greedy(lr), lens)
+                lens = lens + 1
+            seq_k.append(int(torch.argmax(lk)))
+            seq_r.append(int(torch.argmax(lr)))
+            top = torch.topk(lr.float(), 2, dim=-1).values[0]
+            margins.append(float(top[0] - top[1]))
+        k = next((i for i, (a, b) in enumerate(zip(seq_k, seq_r)) if a != b),
+                 None)
+        row.update(tokens_equal_plain=k is None, first_diff=k,
+                   min_plain_margin=min(margins))
+        if k is not None:
+            diverged.append(t)
+            excused &= min(margins[:k + 1]) < MARGIN
+        rows.append(row)
+        del sk, sr
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "patches": cfg.num_patches, "codebooks": cfg.num_codebooks,
+           "params": sum(sizes), "dtype": "float32", "init_s": init_s,
+           "prompts": API_PROMPTS, "prefill_ms": prefill_ms,
+           "prefill_vs_plain": rows, "decode_steps": len(decode_ms),
+           "decode_ms_mean": float(np.mean(decode_ms)),
+           "decode_ms_median": float(np.median(decode_ms)),
+           "tokens_equal_plain": not diverged, "diverged": diverged}
+    tok, img = requests[API_PROMPTS.index(API_FORWARD_T)]
+    max_len = API_FORWARD_T + SERVE_NEW
+    if cfg.num_patches:
+        # one prompt, two images: a batch mix-up of the patch state shows
+        imgs = [img, image(200)]
+        one = [api.prefill(params, cfg, tok, im, max_len=max_len)[:2]
+               for im in imgs]
+        lb, sb, _ = api.prefill(params, cfg, tok.repeat(2, 1),
+                                torch.cat(imgs), max_len=max_len)
+        passes += 3
+        out["batched"] = [{"row": b, "logits": tree_rel(lb[b:b + 1], l1),
+                           "state": tree_rel(batch_row(sb, b), s1)}
+                          for b, (l1, s1) in enumerate(one)]
+        del one, sb
+    (fk, aux), fwd_ms = timed(lambda: api.forward(params, cfg, tok, img))
+    fr, _ = api.forward(params, cfg, tok, img, impl="ref")
+    targets = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, API_FORWARD_T))).to(dev)
+    batch = {"tokens": tok, "targets": targets}
+    if img is not None:
+        batch["patches"] = img
+    loss, metrics = api.loss_fn(params, cfg, batch)
+    loss_r, _ = api.loss_fn(params, cfg, batch, impl="ref")
+    passes += 2
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = {"flash_attention": per_pass * passes, "ssd_scan": 0,
+            "decode_attention_paged": 0, "staged_matmul": 0}
+    out["forward"] = {
+        "tokens": API_FORWARD_T, "ms": fwd_ms,
+        "last_vs_prefill": tree_rel(fk[:, -1], last_logits[API_FORWARD_T]),
+        "vs_plain": tree_rel(fk, fr), "loss": float(loss),
+        "loss_plain": float(loss_r),
+        "loss_rel": abs(float(loss) - float(loss_r)) / abs(float(loss_r)),
+        "lb_loss": float(metrics["lb_loss"]),
+        "overflow": float(metrics["overflow"])}
+    out.update(launches=launches, want_launches=want, passes=passes,
+               flash_per_pass=per_pass,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit(phase, **out)
+    for row in rows:
+        check(row["logits"] <= STATE_TOL and row["state"] <= STATE_TOL,
+              f"{phase}: prefill with kernels deviates from the plain one: "
+              f"{row}")
+    check(excused, f"{phase}: tokens of prompts {diverged} differ from the "
+                   f"plain run after a confident step")
+    for row in out.get("batched", []):
+        check(row["logits"] <= STATE_TOL and row["state"] <= STATE_TOL,
+              f"{phase}: a row of the batched prefill deviates from its "
+              f"one-row prefill: {row}")
+    f = out["forward"]
+    check(f["last_vs_prefill"] <= STATE_TOL and f["vs_plain"] <= STATE_TOL
+          and math.isfinite(f["loss"]) and f["loss_rel"] <= STATE_TOL,
+          f"{phase}: forward / loss_fn deviate: {f}")
+    check(launches == want, f"{phase}: launches {launches}, want {want}")
+    return out
+
+
 def profile_serve(cfg, dev) -> None:
     """One 1024-token prefill and 8 four-lane decode steps under the
     profiler."""
@@ -3593,6 +3801,11 @@ def run() -> int:
         flash_phase("llama4-scout prefill", 1, 40, 8, 1024, 1024, 128, True,
                     None, "float32", 40, iters=20, plain_iters=3,
                     expect="mma_3xtf32")
+        # llama-3.2-vision's cross-attention: 1,024 tokens over 1,600
+        # patches, no mask
+        flash_phase("llama-3.2-vision cross-attention", 1, 32, 8, 1024, 1600,
+                    128, False, None, "float32", 41, iters=20, plain_iters=3,
+                    expect="mma_3xtf32")
         flash_phase("gemma-7b bf16", 1, 16, 16, 1024, 1024, 256, True, None,
                     "bfloat16", 33, iters=20, plain_iters=3,
                     expect="mma_bf16")
@@ -3688,9 +3901,12 @@ def run() -> int:
         lap("profile_serve")
         paged, staged = paged_phase(zamba2, torch.device("cuda"))
         lap("paged_staged")
-        families = {}
+        model_runs = {}
         for phase in FAMILY_SERVES:
-            families[phase] = family_phase(phase, torch.device("cuda"))
+            model_runs[phase] = family_phase(phase, torch.device("cuda"))
+            lap(phase)
+        for phase in API_PHASES:
+            model_runs[phase] = api_phase(phase, torch.device("cuda"))
             lap(phase)
         torch.cuda.empty_cache()
         # the card runs of the last three phases first, timed with no
@@ -3737,7 +3953,7 @@ def run() -> int:
         launches = {**traced["launches_by_name"],
                     "flash_attention": sum(
                         r["launches"]["flash_attention"]
-                        for r in [serve, *families.values()]),
+                        for r in [serve, *model_runs.values()]),
                     "ssd_scan": serve["launches"]["ssd_scan"],
                     "decode_attention_paged":
                         paged["launches"]["decode_attention_paged"],

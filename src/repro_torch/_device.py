@@ -26,7 +26,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError("CUDA is not available: the port runs on the "
                            "card by default; pass device='cpu' to run on "
                            "the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):   # meta: shapes, no data
         raise ValueError(f"unsupported device {dev}")
     full_fp32_matmul()
     return dev

@@ -1,13 +1,13 @@
 """Config registry of the port: ``get_arch(name)`` / ``--arch <id>``.
 
 The registry holds all ten architectures of the reference, each config
-file copied unchanged.  The serving path runs the eight whose layer kinds
-the engine feeds with token prompts: the dense attention models
-(chatglm3-6b, gemma-7b, h2o-danube-1.8b, starcoder2-15b), the MoE ones
-(llama4-scout-17b-a16e, llama4-maverick-400b-a17b), xlstm-125m and
-zamba2-1.2b.  llama-3.2-vision-11b (cross-attention over image patches)
-and musicgen-large (codebook embeddings) are registered, but building
-their parameters raises ``NotImplementedError`` naming what is missing.
+file copied unchanged, and the model API (``repro_torch.models.api``)
+runs all ten.  The serving engine runs the eight it feeds with token
+prompts: the dense attention models (chatglm3-6b, gemma-7b,
+h2o-danube-1.8b, starcoder2-15b), the MoE ones (llama4-scout-17b-a16e,
+llama4-maverick-400b-a17b), xlstm-125m and zamba2-1.2b.
+llama-3.2-vision-11b (cross-attention over image patches) and
+musicgen-large (codebook tokens) run through the model API only.
 ``tiny_config`` is the reference's reduction for CPU tests (small widths
 and layers, structure kept), copied unchanged so that both packages build
 the same tiny model.

@@ -6,9 +6,10 @@ the card unless ``--device cpu`` (the counterpart of
       --tiny --device cpu --requests 6 --prompt-len 16 --max-new 8
 
 ``--arch`` takes every architecture of the registry; llama-3.2-vision-11b
-and musicgen-large raise ``NotImplementedError`` (cross-attention and
-codebook inputs are not ported).  xlstm-125m's prefill needs a prompt
-length that is a multiple of 128 above 128 tokens.
+and musicgen-large raise ``ValueError`` (the engine feeds token prompts;
+their patches and codebook tokens go through ``repro_torch.models.api``).
+xlstm-125m's prefill needs a prompt length that is a multiple of 128
+above 128 tokens.
 """
 from __future__ import annotations
 

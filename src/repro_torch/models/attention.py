@@ -1,9 +1,10 @@
-"""Self-attention (``repro.models.attention``): prefill through the flash
-attention kernel (returns the KV to cache), one-token decode over a ring
-KV cache.
+"""Attention (``repro.models.attention``): causal self-attention and
+non-causal cross-attention over image patches, both through the flash
+attention kernel (each can return the KV to cache), and one-token decode
+over a ring KV cache.
 
-Cross-attention is on no path the port serves yet.  The reference's
-``ParallelCtx`` argument is dropped: the port runs on one card.
+The reference's ``ParallelCtx`` argument is dropped: the port runs on one
+card.
 """
 from __future__ import annotations
 
@@ -57,6 +58,27 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
     out = o.transpose(1, 2).reshape(b, t, cfg.attn_dim) @ params["wo"]
     if return_kv:
         return out, (k, v)   # [B, T, Hkv, hd]: the prefill cache build
+    return out
+
+
+def cross_attention(params: dict, x: torch.Tensor, kv_src: torch.Tensor,
+                    cfg: ArchConfig, return_kv: bool = False,
+                    impl: str = "auto"):
+    """x: [B, T, D] attends over kv_src: [B, P, D] (patch embeddings), no
+    RoPE, no mask.  ``return_kv`` also returns the patch (k, v), each
+    [B, P, Hkv, hd]: the prefill's cross-attention state."""
+    b, t, _ = x.shape
+    p = kv_src.shape[1]
+    q = (x @ params["wq"]).reshape(b, t, cfg.num_heads, cfg.hd)
+    k = (kv_src @ params["wk"]).reshape(b, p, cfg.num_kv_heads, cfg.hd)
+    v = (kv_src @ params["wv"]).reshape(b, p, cfg.num_kv_heads, cfg.hd)
+    o = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                            k.transpose(1, 2).contiguous(),
+                            v.transpose(1, 2).contiguous(),
+                            causal=False, impl=impl)
+    out = o.transpose(1, 2).reshape(b, t, cfg.attn_dim) @ params["wo"]
+    if return_kv:
+        return out, (k, v)
     return out
 
 

@@ -5,7 +5,9 @@
 tensors: the port keeps the reference's layout (pattern tuple with leaves
 stacked ``[n_units, ...]`` (expert stacks and xLSTM blocks alike),
 remainder tuple, ``shared_attn``, ``final_norm``, ``unembed`` unless the
-embedding is tied), so the carry is a plain mapping, and both
+embedding is tied; a codebook model's ``embed`` is ``[K, V, D]``, a
+cross-attention layer adds ``ln_x`` and ``xattn``), so the carry is a
+plain mapping, and both
 packages then compute the same function.  It reads arrays through
 ``numpy.asarray`` and imports nothing of the reference.
 """
@@ -18,8 +20,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
-from .decoding import tree_map
-from .transformer import segments
+from .transformer import segments, tree_map
 
 
 def tree_from_numpy(tree: Any, device: DeviceLike = None,
@@ -60,6 +61,19 @@ def params_from_jax(tree: Any, cfg: ArchConfig, device: DeviceLike = None,
         raise ValueError(f"{len(tree['pattern'])} pattern / "
                          f"{len(tree['remainder'])} remainder layers, "
                          f"{cfg.name} has {len(pattern)} / {len(rem)}")
+    embed = (cfg.vocab_size, cfg.d_model)
+    if cfg.num_codebooks:
+        embed = (cfg.num_codebooks,) + embed
+    if tuple(np.shape(tree["embed"])) != embed:
+        raise ValueError(f"embed is {np.shape(tree['embed'])}, the layout "
+                         f"of {cfg.name} wants {embed}")
+    for where, kinds, layers in (("pattern", pattern, tree["pattern"]),
+                                 ("remainder", rem, tree["remainder"])):
+        for pos, (kind, layer) in enumerate(zip(kinds, layers)):
+            if ("xattn" in layer) != (kind == "attn_cross"):
+                raise ValueError(f"{where} position {pos} ({kind}): the "
+                                 f"cross-attention layout of {cfg.name} "
+                                 f"wants ln_x and xattn only in attn_cross")
     for pos, layer in enumerate(tree["pattern"]):
         lead = set()
         tree_map(lambda leaf: lead.add(np.shape(leaf)[:1]), layer)

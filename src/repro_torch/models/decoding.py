@@ -10,9 +10,10 @@ Unlike the reference, ``decode_step`` updates the state it is given in
 place (one token's KV slot, the new conv and SSM states) and returns that
 same state: the functional form would copy every cache on every step.
 Attention decode runs the plain ring decode (``ref.decode_attention_naive``)
-as the reference does; an MoE block runs the capacity dispatch over every
-lane of the step, idle lanes included (the reference's capacity counts
-them too).
+as the reference does, and a cross-attention layer decodes the same way
+over the patch K/V its prefill cached (``xkv``, every patch valid); an
+MoE block runs the capacity dispatch over every lane of the step, idle
+lanes included (the reference's capacity counts them too).
 """
 from __future__ import annotations
 
@@ -23,11 +24,12 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
+from ..kernels import ref as kref
 from . import attention as attn
 from . import moe, ssm, xlstm
 from .layers import mlp_apply, rms_norm
-from .transformer import (cast_tree, check_served, embed_tokens,
-                          segments, unembed)
+from .transformer import (cast_tree, embed_tokens, segments, tree_map,
+                          unembed, unit)
 
 State = Dict[str, Any]
 
@@ -41,20 +43,6 @@ def cache_len_for(cfg: ArchConfig, max_len: int) -> int:
 # --------------------------------------------------------------------------- #
 # tree helpers (dicts and tuples of tensors)
 # --------------------------------------------------------------------------- #
-def tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, tuple):
-        return tuple(tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
-
-
-def unit(tree, u: int):
-    """Unit ``u`` of a pattern-stacked tree (views, no copy)."""
-    return tree_map(lambda leaf: leaf[u], tree)
-
-
 def _stack(trees: List):
     return tree_map(lambda *leaves: torch.stack(leaves, 0), *trees)
 
@@ -73,12 +61,15 @@ def _assign(dst, src) -> None:
 # --------------------------------------------------------------------------- #
 def _layer_state(kind: str, cfg: ArchConfig, batch: int, s_cache: int,
                  dtype, device, lead: tuple = ()) -> State:
-    check_served(kind)
     st: State = {}
     if kind.startswith("attn") or kind == "mamba_attn":
         kv_shape = lead + (batch, s_cache, cfg.num_kv_heads, cfg.hd)
         st["kv"] = (torch.zeros(kv_shape, dtype=dtype, device=device),
                     torch.zeros(kv_shape, dtype=dtype, device=device))
+    if kind == "attn_cross":
+        x_shape = lead + (batch, cfg.num_patches, cfg.num_kv_heads, cfg.hd)
+        st["xkv"] = (torch.zeros(x_shape, dtype=dtype, device=device),
+                     torch.zeros(x_shape, dtype=dtype, device=device))
     if kind in ("mamba", "mamba_attn"):
         st["mamba"] = ssm.mamba_state_init(cfg, batch, dtype, device, lead)
     elif kind == "mlstm":
@@ -92,7 +83,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.float32,
                       device: DeviceLike = None) -> State:
     """Zero decode state of ``batch`` lanes on ``device`` (CUDA unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU; ``"meta"``: shapes and types only)."""
     device = resolve_device(device)
     pattern, n_units, rem = segments(cfg)
     s_cache = cache_len_for(cfg, max_len)
@@ -127,9 +118,8 @@ def _ffn_block(kind: str, p, x, cfg,
     return x + mlp_apply(p["ffn"], h, cfg.mlp)
 
 
-def _prefill_layer(kind: str, p, x, cfg, shared, s_cache, impl,
+def _prefill_layer(kind: str, p, x, cfg, shared, patches, s_cache, impl,
                    on_route: Optional[moe.RouteObserver] = None):
-    check_served(kind)
     st: State = {}
     h = rms_norm(x, p["ln1"])
     if kind.startswith("attn"):
@@ -137,6 +127,12 @@ def _prefill_layer(kind: str, p, x, cfg, shared, s_cache, impl,
                                         impl=impl)
         x = x + y
         st["kv"] = (_ring_place(k, s_cache), _ring_place(v, s_cache))
+        if kind == "attn_cross":
+            # the patch K/V the cross-attention computes are the state
+            y, st["xkv"] = attn.cross_attention(
+                p["xattn"], rms_norm(x, p["ln_x"]), patches, cfg,
+                return_kv=True, impl=impl)
+            x = x + y
         return _ffn_block(kind, p, x, cfg, on_route), st
     if kind == "mlstm":
         y, st["mlstm"] = xlstm.mlstm_apply(p["mlstm"], h, cfg,
@@ -161,20 +157,24 @@ def _prefill_layer(kind: str, p, x, cfg, shared, s_cache, impl,
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
-            max_len: int = 0, compute_dtype=torch.float32,
-            impl: str = "auto",
+            patches: Optional[torch.Tensor] = None, max_len: int = 0,
+            compute_dtype=torch.float32, impl: str = "auto",
             on_route: Optional[moe.RouteObserver] = None):
     """Process the prompt; returns (last-position logits [B,V], state,
-    lengths [B]).  ``max_len`` sizes the decode cache (default: the prompt
-    length).  ``impl`` goes to the kernels (``"ref"``: their plain
-    versions).  ``on_route`` sees each MoE block's routing, layer by
-    layer (:func:`repro_torch.models.moe.moe_apply`).  Runs where
-    ``tokens`` and ``params`` lie."""
+    lengths [B]).  tokens: [B, T] (or [B, K, T] codebook ids);
+    ``patches`` [B, P, D] feed the cross-attention layers.  ``max_len``
+    sizes the decode cache (default: the prompt length).  ``impl`` goes
+    to the kernels (``"ref"``: their plain versions).  ``on_route`` sees
+    each MoE block's routing, layer by layer
+    (:func:`repro_torch.models.moe.moe_apply`).  Runs where ``tokens``
+    and ``params`` lie."""
     resolve_device(tokens.device)
     pattern, n_units, rem = segments(cfg)
     t = tokens.shape[-1]
     s_cache = cache_len_for(cfg, max_len or t)
     x = embed_tokens(params, tokens, cfg, compute_dtype)
+    if patches is not None:
+        patches = patches.to(compute_dtype)
     shared = cast_tree(params.get("shared_attn"), compute_dtype)
     per_pos: List[List[State]] = [[] for _ in pattern]
     for u in range(n_units):
@@ -182,12 +182,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             x, st = _prefill_layer(
                 kind, cast_tree(unit(params["pattern"][pos], u),
                                 compute_dtype),
-                x, cfg, shared, s_cache, impl, on_route)
+                x, cfg, shared, patches, s_cache, impl, on_route)
             per_pos[pos].append(st)
     rem_states = []
     for p_l, kind in zip(params["remainder"], rem):
         x, st = _prefill_layer(kind, cast_tree(p_l, compute_dtype), x, cfg,
-                               shared, s_cache, impl, on_route)
+                               shared, patches, s_cache, impl, on_route)
         rem_states.append(st)
     logits = unembed(params, x[:, -1:, :], cfg)[:, 0]
     lengths = torch.full((tokens.shape[0],), t, dtype=torch.int32,
@@ -201,7 +201,6 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
 # decode
 # --------------------------------------------------------------------------- #
 def _decode_layer(kind: str, p, st: State, x, lengths, cfg, shared):
-    check_served(kind)
     new: State = {}
     h = rms_norm(x, p["ln1"])
     if kind.startswith("attn"):
@@ -209,6 +208,16 @@ def _decode_layer(kind: str, p, st: State, x, lengths, cfg, shared):
                                                st["kv"][1], lengths, cfg)
         x = x + y
         new["kv"] = (ck, cv)
+        if kind == "attn_cross":
+            xk, xv = st["xkv"]
+            new["xkv"] = (xk, xv)
+            b = x.shape[0]
+            q = (rms_norm(x, p["ln_x"]) @ p["xattn"]["wq"]).reshape(
+                b, cfg.num_heads, cfg.hd)
+            every = torch.full((b,), xk.shape[1], dtype=torch.int32,
+                               device=x.device)
+            o, _ = kref.decode_attention_naive(q, xk, xv, every)
+            x = x + o.reshape(b, 1, cfg.attn_dim) @ p["xattn"]["wo"]
         return _ffn_block(kind, p, x, cfg), new
     if kind == "mlstm":
         y, new["mlstm"] = xlstm.mlstm_decode(p["mlstm"], h, st["mlstm"], cfg)
@@ -232,9 +241,9 @@ def _decode_layer(kind: str, p, st: State, x, lengths, cfg, shared):
 def decode_step(params, cfg: ArchConfig, state: State,
                 tokens: torch.Tensor, lengths: torch.Tensor,
                 compute_dtype=torch.float32):
-    """One decode step. tokens: [B]; lengths: [B] tokens already in the
-    cache.  Returns (logits [B,V], state), the state updated in place.
-    Runs where ``tokens`` and ``state`` lie."""
+    """One decode step. tokens: [B] (or [B, K] codebook ids); lengths:
+    [B] tokens already in the cache.  Returns (logits [B,V], state), the
+    state updated in place.  Runs where ``tokens`` and ``state`` lie."""
     resolve_device(tokens.device)
     pattern, n_units, rem = segments(cfg)
     x = embed_tokens(params, tokens[..., None], cfg, compute_dtype)

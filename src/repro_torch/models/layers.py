@@ -1,5 +1,5 @@
 """Shared neural layers (``repro.models.layers``): RMS norm, RoPE (full or
-partial), MLP variants and the initialisers.
+partial), MLP variants, the initialisers and the cross-entropy loss.
 
 Three conventions of the reference that PyTorch habit would get wrong:
 ``rms_norm`` multiplies by ``(1 + scale)`` (zero-initialised scales);
@@ -98,3 +98,16 @@ def mlp_init(generator: torch.Generator, d: int, f: int, kind: str,
 def embed_init(generator: torch.Generator, v: int, d: int,
                dtype=torch.float32, device=None) -> torch.Tensor:
     return normal((v, d), d ** -0.5, generator, dtype, device)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token CE with the z-loss term, in float32.  logits
+    [..., V]; targets [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse ** 2)
+    return loss

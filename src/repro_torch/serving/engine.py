@@ -13,7 +13,10 @@ lane's slice (the reference rebuilds the slab with ``.at[].set``) and a
 decode step writes its states into the slab (see
 :func:`repro_torch.models.decoding.decode_step`); the lane tokens and
 lengths stay on the device.  The engine runs on the card unless the
-caller asks for the CPU.
+caller asks for the CPU.  As the reference's, it feeds token prompts
+only: an architecture that reads image patches or codebook tokens
+(llama-3.2-vision-11b, musicgen-large) raises ``ValueError`` at
+construction and runs through the model API instead.
 """
 from __future__ import annotations
 
@@ -66,6 +69,12 @@ class ServingEngine:
                  impl: str = "auto",
                  on_logits: Optional[Callable[[List[int], torch.Tensor],
                                               None]] = None):
+        if cfg.num_patches or cfg.num_codebooks:
+            what = "image patches" if cfg.num_patches else "codebook tokens"
+            raise ValueError(
+                f"{cfg.name} reads {what} and the engine feeds token "
+                f"prompts only: use the model API (repro_torch.models.api"
+                f".prefill(..., patches=...), decode_step, forward)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "

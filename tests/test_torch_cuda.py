@@ -12,7 +12,9 @@ monolithic run, a captured run re-armed by ``FabricRun.load`` equal to a
 fresh capture; the receiver sweep bit for bit against the CPU); flash
 attention, the SSD scan, the paged decode attention and the staged
 matmul within the tolerances of ``tests/test_kernels.py``, each
-flash case on the kernel variant its type and head dim select, each
+flash case on the kernel variant its type and head dim select (two at
+llama-3.2-vision's cross-attention over 1,600 patches), tiny vision and
+musicgen prefills through the kernels against the plain versions, each
 SSD case on the variant its widths select, and the staged matmul's
 wgmma kernel bit for bit on small-integer operands; each against its
 plain version, each staged matmul shape on the kernel variant its type
@@ -31,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_arch, tiny_config
+from repro_torch.configs import ShapeConfig, get_arch, tiny_config
 from repro_torch.fabric import CcConfig, fused
 from repro_torch.fabric import scenarios as TSC
 from repro_torch.fabric.tickgraph import TickChain
@@ -704,7 +706,10 @@ FLASH = [(1, 32, 32, 1024, 1024, 64, True, None, torch.float32),
          (1, 4, 4, 70, 70, 20, True, None, torch.float32),
          (1, 4, 2, 70, 70, 20, True, 16, torch.bfloat16),
          (1, 4, 2, 130, 200, 100, True, None, torch.float32),
-         (1, 4, 1, 130, 130, 100, False, None, torch.bfloat16)]
+         (1, 4, 1, 130, 130, 100, False, None, torch.bfloat16),
+         # llama-3.2-vision's cross-attention over 1,600 patches
+         (1, 32, 8, 256, 1600, 128, False, None, torch.float32),
+         (1, 32, 8, 1024, 1600, 128, False, None, torch.bfloat16)]
 
 
 def _close(got, want, tol):
@@ -896,6 +901,42 @@ def test_tiny_family_prefill_and_decode_run_on_the_card(card, arch):
         logits, sk = api.decode_step(params, cfg, sk, step, lens)
         assert bool(torch.isfinite(logits).all())
         step, lens = torch.argmax(logits, -1).to(torch.int32), lens + 1
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
+def test_tiny_cross_and_codebook_prefill_run_on_the_card(card, arch):
+    """Tiny vision (two rows, two images) and tiny musicgen ([2, 4, T]
+    codebook tokens): a prefill launches flash attention once a self-
+    and once a cross-attention layer and matches the plain versions
+    within 2e-3, logits and states; ``forward``'s last logits equal the
+    prefill's; a decode step stays finite."""
+    from repro_torch.models.decoding import tree_map
+    from repro_torch.models.transformer import layer_kinds
+    cfg = tiny_config(get_arch(arch))
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = api.init_params(cfg, gen, device=card)
+    batch = api.synthetic_inputs(cfg, ShapeConfig("t", "prefill", 128, 2),
+                                 gen, torch.float32, card)
+    tok, patches = batch["tokens"], batch.get("patches")
+    kinds = layer_kinds(cfg)
+    ops.reset_launches()
+    lk, sk, lens = api.prefill(params, cfg, tok, patches, max_len=136)
+    assert ops.LAUNCHES["flash_attention"] == len(kinds) + kinds.count(
+        "attn_cross")
+    lr, sr, _ = api.prefill(params, cfg, tok, patches, max_len=136,
+                            impl="ref")
+    worst = []
+    tree_map(lambda g, w: worst.append(float(
+        (g - w).abs().max() / w.abs().max().clamp_min(1e-30))), sk, sr)
+    assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3
+    assert max(worst) <= 2e-3
+    full, _ = api.forward(params, cfg, tok, patches)
+    assert float((full[:, -1] - lk).abs().max() / lk.abs().max()) <= 2e-3
+    step = torch.argmax(lk, -1).to(torch.int32)
+    if cfg.num_codebooks:
+        step = step[:, None].repeat(1, cfg.num_codebooks)
+    logits, _ = api.decode_step(params, cfg, sk, step, lens)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("tokens,cf", [(512, 1.25), (4, 1.25), (512, 4.0)])
