@@ -193,7 +193,7 @@ Each phase prints one JSON line:
     loop (``graph_eager`` lines, every output equal).  Every cell counts
     6 grants, 1 admit and 22 segment sums a tick on the card, equal to
     the launches captured x ticks, and records ms a tick with and
-    without the capture, kernels a tick and the busy share (a 50-tick
+    without the capture, kernels a tick and the busy share (a 20-tick
     profile); pod64, pod256 and pod_storm3 are within 5e-4 of CPU
     float64 on the reference's pod outputs and ``uplink_util_max``, with
     identical finite masks.  Before it, an ``incast48_sparse`` line: the
@@ -304,6 +304,32 @@ A ``wgmma_widths`` line records both tile widths of the wgmma kernel,
 timed in turns on the same inputs, at shapes on either side of the rule
 that picks between them.
 
+Training.  Right after the flash rows, ``kernel`` rows of the flash
+attention backward (``csrc/flash_attention_bwd.cu``) against its plain
+version, autograd's gradient of the plain forward: the train path's
+danube shape (q [2, 32, 4096, 80], 8 KV heads, window 4,096, float32), a
+window that binds (1,024 tokens, window 256), vision's cross-attention
+(non-causal, 1,024 over 1,600), MHA at head dim 64 and gemma-7b's 256 in
+bfloat16; dq, dk, dv each within 2e-5 (float32) or 2e-2 (bfloat16) of
+its largest magnitude, the forward's lse within 1e-4 of the plain
+log-sum-exp, two launches bit-equal; kernel, plain and SDPA-backward ms
+and the bound (10·D flops a visible pair at the float32 peak).  After
+the api phases: ``train_danube`` (h2o-danube-1.8b whole, float32, batch
+2 x 4,096 tokens of the ``for_arch`` pipeline, ``remat="full"``, AdamW
+with float32 moments, through ``train.steps``: one warm-up and three
+timed steps; every loss and gradient norm finite, the first loss within
+1e-5 of the plain versions' on the same state, flash attention 48 and its
+backward 24 launches a step; ms a step, tokens/s, peak memory, and a
+fifth step traced in its two halves, gradient and AdamW, by kernel
+name); ``train_vs_plain`` (danube at full width cut to 2 layers, 2 x
+1,024 tokens: loss and gradient norm within 1e-5, every gradient leaf
+within 1e-4 of its largest magnitude, of the plain versions');
+``train_loop`` (``train.loop.run`` on tiny danube: 6 steps, a checkpoint
+every 2, a fault at step 4 and a resume, final loss within 1e-5 of the
+uninterrupted run's, equality recorded; one int8-moment step).  The
+``kernels`` line lists ``flash_attention_bwd`` with its launches in
+``train_danube``, whose flash forward launches add to flash attention's.
+
 Then the card line as ``nvidia-smi`` prints it, the ``kernels`` summary
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero; without CUDA, or without the package beside it, the script exits
@@ -328,7 +354,9 @@ TOL = 5e-4                  # bench_floors.json dev_goodput_vs_numpy
 SIM_TIME_S = 0.002          # depth cut: 20 ms -> 2 ms (2000 ticks)
 BURSTS_MB = [0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0]
 BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
-SOURCES = {"priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
+SOURCES = {"flash_attention_bwd":
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
            "priority_admit": "src/repro_torch/csrc/fused_waterfill.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
@@ -338,7 +366,9 @@ SOURCES = {"priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
            "staged_matmul_wgmma_bf16":
                "src/repro_torch/csrc/staged_matmul.cu",
            "seg_sum": "src/repro_torch/csrc/seg_sum.cu"}
-REPLACES = {"priority_grants": "src/repro/fabric/fused.py:99",
+REPLACES = {"flash_attention_bwd":
+                "src/repro/kernels/jet_flash_attention.py:77",
+            "priority_grants": "src/repro/fabric/fused.py:99",
             "priority_admit": "src/repro/fabric/fused.py:142",
             "flash_attention": "src/repro/kernels/jet_flash_attention.py:77",
             "ssd_scan": "src/repro/kernels/mamba2_ssd.py:63",
@@ -405,6 +435,24 @@ SPARSE_2TIER_LAUNCHES = {"priority_grants": 4, "priority_admit": 1,
                          "seg_sum": 15}
 
 
+# training (the flash backward, the train step): each gradient of the
+# backward kernel within this share of its largest magnitude of the plain
+# version's, by input type; the forward's lse within LSE_TOL of the plain
+# log-sum-exp; a train step's loss and gradient norm within TRAIN_TOL
+# (relative) of the plain versions', every gradient leaf within GRAD_TOL
+# of its largest magnitude
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LSE_TOL = 1e-4
+TRAIN_TOL = 1e-5
+GRAD_TOL = 1e-4
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096      # danube's train_4k rows, batch cut
+# the train step's kernels by a piece of their device name
+TRAIN_KERNELS = {"gemm": ("gemm", "Gemm", "GEMM", "cutlass", "xmma"),
+                 "flash_fwd": ("flash_mma_kernel", "flash_simt_kernel"),
+                 "flash_bwd": ("bwd_delta_kernel", "bwd_dkdv_kernel",
+                               "bwd_dq_kernel")}
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -465,6 +513,26 @@ def flash_build(log):
         else:                       # 16 * n output columns a row
             key = f"simt_{'f32' if ty == 'f' else 'bf16'}/{16 * n}"
         out[key] = r
+    return out
+
+
+def flash_bwd_build(log):
+    """:func:`ptxas_report` of each flash backward instantiation, keyed
+    ``<pass>/<type>/<head-dim width>`` (the width a thread's DJ columns
+    cover: 64, 80, 128, 256; the delta pass has none); None when this run
+    did not build it."""
+    import re
+    if not log:
+        return None
+    out = {}
+    for name, r in ptxas_report(log).items():
+        mt = re.search(r"bwd_(delta|dkdv|dq)_kernelI(f|13__nv_bfloat16)"
+                       r"(?:Li\d+ELi\d+ELi(\d+)E)?", name)
+        if not mt:
+            continue
+        ty = "f32" if mt.group(2) == "f" else "bf16"
+        width = f"/{16 * int(mt.group(3))}" if mt.group(3) else ""
+        out[f"{mt.group(1)}/{ty}{width}"] = r
     return out
 
 
@@ -539,12 +607,13 @@ def rel(a, b) -> float:
                         / np.maximum(np.abs(b[m]), 1e-9)))
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     """Per-call time from CUDA events around ``iters`` back-to-back calls
-    (after a warm-up): device time when the card is the bottleneck, the
-    host's issue time per call when the calls are too small to be."""
+    (after ``warmup`` calls): device time when the card is the
+    bottleneck, the host's issue time per call when the calls are too
+    small to be."""
     import torch
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -1052,7 +1121,8 @@ COUNT_SLACK = 8             # messages a point: tests/test_messages.py's
                             # float32 tier
 P99_SLACK_US = 2.0          # + one histogram bucket: its JAX_SLACK_US
 FAULT_TOL = 1e-4            # dropped / retransmitted: tests/test_faults.py
-ORACLE_WORKERS = 4          # CPU reference runs, after the card runs
+ORACLE_WORKERS = 6          # CPU reference runs, after the card runs
+                            # (4 until PR 28), on a host of 8 cores
 GRAPH_EAGER_TICKS = 250     # graph == eager, element for element, per grid
 ROUTING_MODES = ("static_ecmp", "weighted_ecmp", "adaptive", "spray")
 CLASS_JOBS = ("qos_mixed", "wrr", "host_gate")
@@ -1320,10 +1390,13 @@ def run_oracles() -> dict:
     (outputs, wall seconds)}``."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    jobs = {"sweep_dense": 2, "messages": 1, "routing": 1, "faults": 1,
-            "adaptive": 1, "pod256": 1, "pod64": 1, "pod_storm3": 1,
-            "sweep": 1, "qos_mixed": 1, "wrr": 1, "host_gate": 1,
-            "mixed_fleet6": 1, **{job: 1 for job in SCALAR_JOBS}}
+    # longest first (their walls in PR 28's run), so the pool ends with
+    # the short ones
+    jobs = {"messages": 1, "routing": 1, "faults": 1, "pod_storm3": 1,
+            "sweep_dense": 2, "pod256": 1, "pod64": 1, "wrr": 1,
+            "host_gate": 1, "qos_mixed": 1, "adaptive": 1,
+            **{job: 1 for job in SCALAR_JOBS}, "mixed_fleet6": 1,
+            "sweep": 1}
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=ORACLE_WORKERS,
@@ -1710,6 +1783,9 @@ POD_HOSTS = {"pod64": (2, 2), "pod256": (4, 4), "pod1024": (4, 16)}
                             # (pods, leaves a pod), 16 hosts a leaf:
                             # bench_fabric.py:run_scale_bench's points
                             # (64, 256) and a 1,024-host timing row
+POD_PROFILE_TICKS = 20      # the pod cells' profiler window (50 until
+                            # PR 28: parsing the eager window took 15-19 s
+                            # a cell)
 POD_TIMES = {"pod64": 0.004, "pod256": 0.004, "pod1024": 0.004,
              "pod_storm3": 0.005}   # the scale bench's 4 ms, kept whole;
                                     # pod_storm_grid's own 5 ms
@@ -2041,7 +2117,7 @@ def pods_phase(dense: dict):
     ``GRAPH_EAGER_TICKS`` ticks; pod64, pod256, pod1024 (the timing row) and pod_storm3 with
     their launches a tick (6 grants, 1 admit, 22 segment sums,
     device-counted, equal to captured x ticks), ms a tick with and
-    without the capture and a 50-tick profile (kernels a tick, busy
+    without the capture and a 20-tick profile (kernels a tick, busy
     share); and incast48_sparse, the main path's grid on the sparse
     engine, against the dense graph run ``dense`` (within TOL, finite
     masks identical: cuBLAS sums the dense one-hot products in its own
@@ -2055,8 +2131,9 @@ def pods_phase(dense: dict):
     runs = {}
     for job, t in POD_TIMES.items():
         fsp, res, head = fabric_run(pod_scens(job, t), sparse=True)
-        head["profile"] = fabric_profile(pod_scens(job, 50e-6), 50,
-                                         sparse=True)
+        head["profile"] = fabric_profile(
+            pod_scens(job, POD_PROFILE_TICKS * 1e-6), POD_PROFILE_TICKS,
+            sparse=True)
         runs[job] = (fsp, res, head)
     fsp2, sp, h2 = fabric_run(incast_grid(SIM_TIME_S), sparse=True)
     dev2 = {k: rel(sp[k], dense[k]) for k in
@@ -3027,8 +3104,9 @@ def staged_path(params, cfg, dev) -> dict:
            "tol": 1e-4, "ok": ok, "bf16_max_abs_err_vs_f32_product": err_b,
            "bf16_tol": 2e-2, "bf16_ok": ok_b}
     emit("staged", **out)
-    check(launches == {"flash_attention": 0, "ssd_scan": 0,
-                       "decode_attention_paged": 0, "staged_matmul": 2},
+    check(launches == {"flash_attention": 0, "flash_attention_bwd": 0,
+                       "ssd_scan": 0, "decode_attention_paged": 0,
+                       "staged_matmul": 2},
           f"staged path launches {launches}")
     check(variants == {"simt_f32": 1, "mma_sync_bf16": 0, "wgmma_bf16": 0,
                        "wgmma_bf16_n256": 1},
@@ -3172,8 +3250,8 @@ def paged_phase(cfg, dev):
                      "table": [0, 1, -1, -1], "length": 2 * page + 1,
                      "available": 0, "escape_write_in_page0": True},
           f"the escape path differs from the reference's: {escape}")
-    check(launches == {"flash_attention": 0, "ssd_scan": 0,
-                       "decode_attention_paged": calls,
+    check(launches == {"flash_attention": 0, "flash_attention_bwd": 0,
+                       "ssd_scan": 0, "decode_attention_paged": calls,
                        "staged_matmul": 0},
           f"paged path launches {launches}, want {calls} decode launches")
     return out, staged
@@ -3425,6 +3503,7 @@ def serve_phase(cfg, dev, phase: str = "serve", prompt_lens=SERVE_PROMPTS,
            "decode_ms_median": float(np.median(dec)) * 1e3,
            "launches": launches,
            "want_launches": {"flash_attention": n_attn * len(prompts),
+                             "flash_attention_bwd": 0,
                              "ssd_scan": n_ssd * len(prompts),
                              "decode_attention_paged": 0,
                              "staged_matmul": 0},
@@ -3613,8 +3692,8 @@ def api_phase(phase: str, dev) -> dict:
     passes += 2
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    want = {"flash_attention": per_pass * passes, "ssd_scan": 0,
-            "decode_attention_paged": 0, "staged_matmul": 0}
+    want = {"flash_attention": per_pass * passes, "flash_attention_bwd": 0,
+            "ssd_scan": 0, "decode_attention_paged": 0, "staged_matmul": 0}
     out["forward"] = {
         "tokens": API_FORWARD_T, "ms": fwd_ms,
         "last_vs_prefill": tree_rel(fk[:, -1], last_logits[API_FORWARD_T]),
@@ -3705,6 +3784,421 @@ def profile_serve(cfg, dev) -> None:
 
 
 
+# --------------------------------------------------------------------------- #
+# training: the flash attention backward and the train step
+# --------------------------------------------------------------------------- #
+def lse_plain(q, k, causal: bool, window, heads: int = 8):
+    """Each row's log-sum-exp of the masked, scaled scores, float32
+    [B, Hq, T], a few heads at a time (the plain statistic the forward
+    kernel writes for the backward)."""
+    import torch
+    b, hq, t, d = q.shape
+    s = k.shape[2]
+    kr = k.float().repeat_interleave(hq // k.shape[1], dim=1)
+    tq = torch.arange(t, device=q.device)[:, None] + (s - t)
+    sk = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= tq >= sk
+    if window:
+        mask &= tq - sk < window
+    out = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    for h0 in range(0, hq, heads):
+        sc = torch.einsum("bhtd,bhsd->bhts",
+                          q[:, h0:h0 + heads].float() * d ** -0.5,
+                          kr[:, h0:h0 + heads])
+        out[:, h0:h0 + heads] = torch.logsumexp(
+            sc.masked_fill(~mask, -1e30), dim=-1)
+    return out
+
+
+def flash_bwd_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
+                    d: int, causal: bool, window, dtype: str, seed: int,
+                    iters: int, plain_iters: int, dev=None) -> dict:
+    """Hold the flash attention backward kernel against its plain version
+    (autograd's gradient of the plain forward), each of dq, dk, dv within
+    FLASH_BWD_TOL of its largest magnitude; the forward's lse against the
+    plain log-sum-exp; two launches bit-equal (no atomics); and time it
+    beside the plain backward and one backward of
+    ``F.scaled_dot_product_attention`` on the same case (timed, unused by
+    the port)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import jet_flash_attention as jfa
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    dev = dev or torch.device("cuda")
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(tdt)
+    q, k, v = draw((b, hq, t, d)), draw((b, hkv, s, d)), draw((b, hkv, s, d))
+    do = draw((b, hq, t, d))
+    o, lse = jfa.flash_attention(q, k, v, causal, window, with_lse=True)
+    lse_err = float((lse - lse_plain(q, k, causal, window)).abs().max())
+
+    def kernel():
+        return jfa.flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, do, causal, window)
+    jfa.VARIANT_LAUNCHES.reset()
+    got = kernel()
+    torch.cuda.synchronize()
+    ran = [n for n, c in jfa.VARIANT_LAUNCHES.items() if c]
+    again = kernel()
+    deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    want = plain()
+    tol = FLASH_BWD_TOL[dtype]
+    errs, ok = {}, True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        errs[name] = {"max_abs_err": err, "max_abs": top,
+                      "rel_to_max": err / max(top, 1e-30)}
+        ok = ok and bool(torch.isfinite(g).all()) and g.dtype == tdt \
+            and err <= tol * top
+    del got, want
+    # the yardstick: SDPA's backward alone, on its own forward's graph; a
+    # window no shorter than S masks nothing
+    win = window if window and window < s else None
+    lib_kw = {"enable_gqa": True} if hkv != hq else {}
+    if causal and t == s and not win:
+        lib_kw["is_causal"] = True
+    elif causal or win:
+        tq = torch.arange(t, device=q.device)[:, None] + (s - t)
+        sk = torch.arange(s, device=q.device)[None, :]
+        mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= tq >= sk
+        if win:
+            mask &= tq - sk < win
+        lib_kw["attn_mask"] = mask
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, **lib_kw)
+
+    def library():
+        return torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
+    lib_ms = cuda_ms(library, iters, warmup=1)
+    del lib_out, leaves
+    ms = cuda_ms(kernel, iters, warmup=2)
+    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+    esize = q.element_size()
+    nbytes = (q.numel() * 4 + k.numel() * 2 + v.numel() * 2) * esize \
+        + lse.numel() * 4
+    pairs = visible_pairs(t, s, causal, window)
+    nops = 10.0 * b * hq * d * pairs
+    # the card's peak for the input type: bfloat16 on the tensor cores,
+    # float32 on the CUDA cores (the SIMT kernel's own ceiling) with the
+    # 3xTF32 ceiling the forward's mma_3xtf32 reaches beside it
+    bms, by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
+                    else FP32_OPS_PER_S)
+    b3, _ = bound(nbytes, nops, TF32_OPS_PER_S / 3)
+    row = {"name": "flash_attention_bwd", "case": label,
+           "q": [b, hq, t, d], "kv": [b, hkv, s, d], "causal": causal,
+           "window": window, "dtype": dtype, "variant": ran,
+           "smem_bytes": jfa.bwd_smem_bytes(d), "tol": tol, "ok": ok,
+           "errors": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "lse_max_abs_err": lse_err, "deterministic": deterministic,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           **({"bound_3xtf32_ms": b3} if dtype == "float32" else {}),
+           "library_ms": lib_ms, "tflops": nops / ms * 1e-9,
+           "gflop": nops / 1e9, "bytes": nbytes}
+    emit("kernel", **row)
+    check(ran == ["bwd_simt"], f"flash_attention_bwd ({label}) ran {ran}")
+    check(ok, f"flash_attention_bwd kernel != plain version ({label}): "
+              f"{errs}, tol {tol} of each gradient's largest magnitude")
+    check(lse_err <= LSE_TOL, f"flash_attention lse ({label}) deviates "
+                              f"{lse_err} from the plain log-sum-exp")
+    check(deterministic, f"flash_attention_bwd ({label}): two launches "
+                         f"differ")
+    return row
+
+
+def flash_bwd_rows() -> dict:
+    """The backward kernel at the train path's shape (danube: 32 heads
+    of 80 over 8 KV heads, 4,096 tokens, window 4,096, batch 2), with a
+    window that binds, at vision's cross-attention (non-causal T < S),
+    MHA at D = 64, and gemma-7b's D = 256 in bfloat16 (the 32-row
+    tiles)."""
+    rows = {"path": flash_bwd_phase(
+        "danube-1.8b train", 2, 32, 8, 4096, 4096, 80, True, 4096,
+        "float32", 50, iters=3, plain_iters=1)}
+    flash_bwd_phase("window binds", 1, 32, 8, 1024, 1024, 80, True, 256,
+                    "float32", 51, iters=5, plain_iters=2)
+    flash_bwd_phase("llama-3.2-vision cross-attention", 1, 32, 8, 1024,
+                    1600, 128, False, None, "float32", 52, iters=5,
+                    plain_iters=2)
+    flash_bwd_phase("mha D=64", 1, 32, 32, 1024, 1024, 64, True, None,
+                    "float32", 53, iters=5, plain_iters=2)
+    flash_bwd_phase("gemma-7b bf16", 1, 16, 16, 1024, 1024, 256, True, None,
+                    "bfloat16", 54, iters=5, plain_iters=2)
+    return rows
+
+
+def profile_grads_and_update(cfg, state, batch, opt_cfg) -> dict:
+    """One train step, its two halves traced apart (the loss and
+    gradient, then AdamW): device ms by kernel name (GEMMs, flash
+    forward and backward, the rest), the optimizer's device ms, and the
+    device-busy share of each half's wall."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for half in ("grads", "adamw"):
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            if half == "grads":
+                grads, _, _ = steps.loss_and_grads(
+                    cfg, state["params"], batch, remat="full")
+            else:
+                new = adamw.update(grads, state["opt"], state["params"],
+                                   opt_cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by = dict.fromkeys((*TRAIN_KERNELS, "other"), 0.0)
+        counts = dict.fromkeys((*TRAIN_KERNELS, "other"), 0)
+        busy = 0.0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != cuda:
+                continue
+            name, ns = e.name(), e.duration_ns()
+            busy += ns
+            cat = next((c for c, tags in TRAIN_KERNELS.items()
+                        if any(tag in name for tag in tags)), "other")
+            by[cat] += ns * 1e-6
+            counts[cat] += 1
+        out[half] = {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e-6,
+                     "busy_share": busy * 1e-9 / wall,
+                     "device_ms_by_kind": by, "kernels_by_kind": counts}
+    del grads, new
+    return out
+
+
+def train_danube_phase(cfg=None, dev=None, seq: int = TRAIN_SEQ) -> dict:
+    """h2o-danube-1.8b at full depth and width (24 layers, d_model 2560,
+    32 / 8 heads of 80, window 4,096, d_ff 6,912, vocab 32,000; 1.83 B
+    parameters, float32) trained on the card through
+    ``train.steps.make_train_step``: batch 2 x 4,096 tokens of the
+    ``for_arch`` pipeline (seed 0), ``remat="full"``, AdamW with float32
+    moments; one warm-up step and three timed ones.  The first step's
+    loss within TRAIN_TOL of the plain versions' loss on the same state,
+    every loss and gradient norm finite, flash attention launched 48
+    times a step (24 layers and 24 replays) and its backward 24; then a
+    fifth step traced in two halves."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import jet_flash_attention as jfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    dev = dev or torch.device("cuda")
+    cfg = cfg or get_arch("h2o-danube-1.8b")
+    b, t = TRAIN_BATCH, seq
+    data = pipeline.for_arch(cfg, ShapeConfig("train_danube", "train", t, b),
+                             seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.next_batch().items()} for _ in range(5)]
+    opt_cfg = adamw.OptConfig()
+    state = steps.init_state(cfg, opt_cfg,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in _leaves(state["params"]))
+    with torch.no_grad():
+        plain, _ = transformer.loss_fn(state["params"], cfg, batches[0],
+                                       impl="ref")
+        plain = float(plain)
+    step = steps.make_train_step(cfg, opt_cfg, remat="full")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    jfa.VARIANT_LAUNCHES.reset()
+    rows = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        loss = float(m["loss"])           # waits for the card
+        wall = time.perf_counter() - t0
+        rows.append({"step": i + 1, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "ms": wall * 1e3})
+    launches = ops.LAUNCHES.read()
+    variants = dict(jfa.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = [r["ms"] for r in rows[1:]]
+    ms = float(np.mean(timed))
+    prof = profile_grads_and_update(cfg, state, batches[4], opt_cfg)
+    per_step = {k: v / len(rows) for k, v in launches.items()}
+    out = {"arch": cfg.name, "params": n_params, "batch": b, "seq": t,
+           "remat": "full", "dtype": "float32", "steps": rows,
+           "ms_per_step": ms, "ms_per_step_timed": timed,
+           "tokens_per_s": b * t / (ms * 1e-3),
+           "first_loss_plain": plain,
+           "first_loss_rel": abs(rows[0]["loss"] - plain) / abs(plain),
+           "launches": launches, "launches_per_step": per_step,
+           "variants": variants, "peak_mem_gb": peak, "profile": prof}
+    emit("train_danube", **out)
+    n = len(rows)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in rows), f"train_danube: a step is not finite: {rows}")
+    check(out["first_loss_rel"] <= TRAIN_TOL,
+          f"train_danube: first loss {rows[0]['loss']} vs plain {plain}")
+    want = {"flash_attention": 2 * cfg.num_layers * n,
+            "flash_attention_bwd": cfg.num_layers * n, "ssd_scan": 0,
+            "decode_attention_paged": 0, "staged_matmul": 0}
+    check(launches == want,
+          f"train_danube: launches {launches}, want {want}")
+    check(variants["mma_3xtf32"] == want["flash_attention"]
+          and variants["bwd_simt"] == want["flash_attention_bwd"],
+          f"train_danube: flash variants {variants}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree) -> list:
+    from repro_torch import _tree
+    return _tree.leaves(tree)
+
+
+def train_vs_plain_phase(cfg=None, dev=None, seq: int = 1024) -> dict:
+    """danube at full width, depth cut to 2 layers, batch 2 x 1,024
+    tokens: one train step's loss and gradient with the kernels and with
+    the plain versions from the same state (loss and gradient norm
+    within TRAIN_TOL, every gradient leaf within GRAD_TOL of its largest
+    magnitude: gradients, not updated parameters, since AdamW's first
+    step is about lr times the gradient's sign), then the full step with
+    each (losses and gradient norms within TRAIN_TOL)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    dev = dev or torch.device("cuda")
+    cfg = cfg or dataclasses.replace(get_arch("h2o-danube-1.8b"),
+                                     num_layers=2)
+    data = pipeline.for_arch(cfg, ShapeConfig("v", "train", seq, 2), seed=1)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.next_batch().items()}
+    opt_cfg = adamw.OptConfig()
+    state = steps.init_state(cfg, opt_cfg,
+                             torch.Generator(device=dev).manual_seed(1), dev)
+    g_k, l_k, _ = steps.loss_and_grads(cfg, state["params"], batch)
+    g_p, l_p, _ = steps.loss_and_grads(cfg, state["params"], batch,
+                                       impl="ref")
+    n_k, n_p = float(adamw.global_norm(g_k)), float(adamw.global_norm(g_p))
+    leaf_rel = {}
+    from repro_torch import _tree
+    for (path, gk), gp in zip(_tree.flatten(g_k), _tree.leaves(g_p)):
+        leaf_rel[_tree.key(path)] = float(
+            (gk - gp).abs().max() / gp.abs().max().clamp(min=1e-30))
+    del g_k, g_p
+    _, m_k = steps.make_train_step(cfg, opt_cfg)(state, batch)
+    _, m_p = steps.make_train_step(cfg, opt_cfg, impl="ref")(state, batch)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": 2,
+           "seq": seq, "loss": float(l_k), "loss_plain": float(l_p),
+           "loss_rel": abs(float(l_k) - float(l_p)) / abs(float(l_p)),
+           "grad_norm": n_k, "grad_norm_plain": n_p,
+           "grad_norm_rel": abs(n_k - n_p) / n_p,
+           "grad_leaf_rel_max": max(leaf_rel.values()),
+           "grad_leaf_rel": leaf_rel,
+           "step_loss_rel": abs(float(m_k["loss"]) - float(m_p["loss"]))
+           / abs(float(m_p["loss"])),
+           "step_grad_norm_rel": abs(float(m_k["grad_norm"])
+                                     - float(m_p["grad_norm"]))
+           / float(m_p["grad_norm"])}
+    emit("train_vs_plain", **out)
+    check(out["loss_rel"] <= TRAIN_TOL and out["grad_norm_rel"] <= TRAIN_TOL
+          and out["step_loss_rel"] <= TRAIN_TOL
+          and out["step_grad_norm_rel"] <= TRAIN_TOL,
+          f"train_vs_plain: loss / grad_norm deviate: {out}")
+    check(out["grad_leaf_rel_max"] <= GRAD_TOL,
+          f"train_vs_plain: a gradient leaf deviates: {leaf_rel}")
+    return out
+
+
+def train_loop_phase(dev=None) -> dict:
+    """``train.loop.run`` on the card: tiny danube (2 layers) for 6 steps
+    with a checkpoint every 2, once straight through and once with a
+    fault injected at step 4 and a resume from the latest checkpoint;
+    the final losses must agree within 1e-5
+    (``tests/test_fault_tolerance.py``), and whether they are equal bit
+    for bit is recorded.  Then one step with int8 moments.  Checkpoints
+    go under ``build/`` in the checkout and are removed."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch, tiny_config
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, steps
+    dev = dev or torch.device("cuda")
+    cfg = dataclasses.replace(tiny_config(get_arch("h2o-danube-1.8b")),
+                              num_layers=2)
+    root = ROOT / "build" / "train_loop_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def data():
+        return pipeline.SyntheticPipeline(pipeline.PipelineConfig(
+            vocab_size=cfg.vocab_size, global_batch=2, seq_len=64))
+    opt_cfg = adamw.OptConfig(lr=1e-3, total_steps=6)
+
+    def lcfg(name):
+        return loop.LoopConfig(total_steps=6, ckpt_every=2, log_every=1,
+                               ckpt_dir=str(root / name))
+    gen = torch.Generator(device=dev)
+    ref = loop.run(cfg, opt_cfg, lcfg("ref"), data(), gen.manual_seed(0),
+                   device=dev)
+    crashed = []
+
+    class Fault(RuntimeError):
+        pass
+
+    def injector(step):
+        if step == 4 and not crashed:
+            crashed.append(step)
+            raise Fault("simulated node failure")
+    try:
+        loop.run(cfg, opt_cfg, lcfg("crash"), data(), gen.manual_seed(0),
+                 fault_injector=injector, device=dev)
+    except Fault:
+        pass
+    out2 = loop.run(cfg, opt_cfg, lcfg("crash"), data(), None,
+                    fault_injector=injector, device=dev)
+    want, got = ref["history"][-1]["loss"], out2["history"][-1]["loss"]
+    o8 = adamw.OptConfig(lr=1e-3, int8_moments=True)
+    st8 = steps.init_state(cfg, o8, gen.manual_seed(0), dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data().next_batch().items()}
+    st8, m8 = steps.make_train_step(cfg, o8)(st8, batch)
+    q = st8["opt"]["m"]["pattern"][0]["attn"]["wq"]
+    out = {"arch": cfg.name, "layers": 2, "steps": 6, "ckpt_every": 2,
+           "crash_at": crashed, "resumed_from": out2["history"][0]["step"]
+           - 1, "final_loss": want, "final_loss_resumed": got,
+           "abs_diff": abs(got - want), "bitwise_equal": got == want,
+           "int8_loss": float(m8["loss"]),
+           "int8_grad_norm": float(m8["grad_norm"]),
+           "int8_moment_dtype": str(q["q"].dtype)}
+    emit("train_loop", **out)
+    shutil.rmtree(root, ignore_errors=True)
+    check(crashed == [4] and out2["final_step"] == 6,
+          f"train_loop: the fault or the resume did not happen: {out}")
+    check(abs(got - want) < 1e-5,
+          f"train_loop: resumed final loss {got} vs {want}")
+    check(math.isfinite(out["int8_loss"]) and q["q"].dtype == torch.int8,
+          f"train_loop: the int8-moment step failed: {out}")
+    return out
+
+
 PHASE_S: dict = {}           # seconds of each phase of run(), in order
 _LAP = [0.0]
 
@@ -3742,13 +4236,15 @@ def run() -> int:
         flash = flash_build(_build.BUILD_LOG.get("flash_attention"))
         ssd = ssd_build(_build.BUILD_LOG.get("ssd_scan"))
         decode = decode_build(_build.BUILD_LOG.get("decode_attention"))
+        flash_bwd = flash_bwd_build(_build.BUILD_LOG.get(
+            "flash_attention_bwd"))
         emit("card", nvidia_smi=card, torch=torch.__version__,
              cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
              build_s=time.perf_counter() - t0, builds=builds,
              ptxas=[ln.strip() for log in _build.BUILD_LOG.values()
                     for ln in log.splitlines() if "registers" in ln],
              wgmma_spill_bytes=spills, flash_build=flash, ssd_build=ssd,
-             decode_build=decode)
+             decode_build=decode, flash_bwd_build=flash_bwd)
         lap("build")
         check(spills is None or (len(spills) == 4 and not any(spills)),
               f"the wgmma kernel spills registers: {spills}")
@@ -3770,6 +4266,13 @@ def run() -> int:
         check(decode is None or (len(decode) == 24 and not any(
             r["spill_bytes"] for r in decode.values())),
             f"a paged decode kernel spills: {decode}")
+        # the backward: 2 types x (delta + 4 widths x (dk/dv, dq)); none
+        # of head dim <= 128 may spill
+        check(flash_bwd is None or (len(flash_bwd) == 18 and not any(
+            r["spill_bytes"] for key, r in flash_bwd.items()
+            if key.count("/") == 2 and int(key.split("/")[2]) <= 128)),
+            f"a flash backward kernel of head dim <= 128 spills: "
+            f"{flash_bwd}")
         rows = {}
         for name, main_shape, seed in (
                 ("priority_grants", (48, 3, 14), 1),
@@ -3820,6 +4323,9 @@ def run() -> int:
                         True, None, dtype, seed, iters=10, plain_iters=3,
                         expect="simt")
         lap("kernel_flash")
+        rows["flash_attention_bwd"] = flash_bwd_rows()["path"]
+        torch.cuda.empty_cache()
+        lap("kernel_flash_bwd")
         rows["ssd_scan"] = ssd_phase(
             "serve path", 1, 1024, 64, 64, 1, 64, 256, 7, iters=50,
             plain_iters=5, expect="mma_3xtf32", prev_iters=20)
@@ -3909,6 +4415,13 @@ def run() -> int:
             model_runs[phase] = api_phase(phase, torch.device("cuda"))
             lap(phase)
         torch.cuda.empty_cache()
+        model_runs["train_danube"] = train = train_danube_phase()
+        lap("train_danube")
+        train_vs_plain_phase()
+        lap("train_vs_plain")
+        train_loop_phase()
+        lap("train_loop")
+        torch.cuda.empty_cache()
         # the card runs of the last three phases first, timed with no
         # CPU reference running beside them; then the references
         bench_sweep, bench_finish = sweep_phase("bench 144", False)
@@ -3954,6 +4467,8 @@ def run() -> int:
                     "flash_attention": sum(
                         r["launches"]["flash_attention"]
                         for r in [serve, *model_runs.values()]),
+                    "flash_attention_bwd":
+                        train["launches"]["flash_attention_bwd"],
                     "ssd_scan": serve["launches"]["ssd_scan"],
                     "decode_attention_paged":
                         paged["launches"]["decode_attention_paged"],

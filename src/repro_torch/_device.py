@@ -8,7 +8,8 @@ CUDA the engines compute in float32 (as the JAX reference does); on the
 CPU float32 and float64 are both allowed, float64 being the oracle mode.
 
 Every kernel wrapper dispatches through :func:`resolve_impl` and counts
-its launches in a :class:`LaunchCounts`.
+its launches in a :class:`LaunchCounts`.  A kernel without a backward
+calls :func:`require_no_grad` before it launches.
 """
 from __future__ import annotations
 
@@ -71,6 +72,23 @@ def resolve_impl(impl: str, device: torch.device) -> str:
         raise ValueError("impl='cuda' needs CUDA tensors; CPU tensors run "
                          "the plain version (impl='auto')")
     return "ref"
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise where a kernel with no backward would be asked for a
+    gradient.  A kernel's output comes through ``ctypes`` and carries no
+    ``grad_fn``, so autograd would treat it as a constant and silently
+    leave its inputs without a gradient.  The CUDA branch of every
+    kernel wrapper but flash attention's (which has its backward kernel)
+    calls this; the plain versions on the CPU keep autograd."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad; run it under torch.no_grad(), or train on "
+            f"the CPU's plain version, until its backward kernel is "
+            f"ported")
 
 
 class LaunchCounts(dict):

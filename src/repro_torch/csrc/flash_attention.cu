@@ -8,7 +8,10 @@
 //
 // Layout: q [B, Hq, T, D], k / v [B, Hkv, S, D], out [B, Hq, T, D], all
 // contiguous; float32 or bfloat16 in, float32 accumulation, out in q's
-// type.  The query's kv head is hq / (Hq / Hkv).
+// type.  The query's kv head is hq / (Hq / Hkv).  When lse is not null,
+// each variant also writes the natural-log m + log l of each row in
+// float32 (lse [B, Hq, T]), the statistic csrc/flash_attention_bwd.cu
+// recomputes the probabilities from; the serve paths pass null.
 //
 // Arithmetic, as the reference: scores are q . k scaled by D**-0.5;
 // masked scores are the sentinel -1e30, never -inf (exp(-inf - -inf) is
@@ -113,7 +116,8 @@ size_t simt_smem_bytes(int d) {
 template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int hq,
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, int hq,
                   int hkv, int t_len, int s_len, int d, int causal,
                   int window, float scale) {
   extern __shared__ float smem[];
@@ -242,6 +246,8 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = t0 + ty * 4 + i;
     if (t >= t_len) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(long long)bh * t_len + t] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < DJ; ++c) {
       const int col = tx + 16 * c;
@@ -253,8 +259,9 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DJ>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int bsz, int hq, int hkv, int t_len, int s_len, int d,
-                int causal, int window, float scale, cudaStream_t stream) {
+                float* lse, int bsz, int hq, int hkv, int t_len, int s_len,
+                int d, int causal, int window, float scale,
+                cudaStream_t stream) {
   const size_t smem = simt_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_simt_kernel<T, DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -262,21 +269,22 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(bsz * hq), (unsigned)((t_len + kBQ - 1) / kBQ));
   flash_simt_kernel<T, DJ><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, hq, hkv, t_len, s_len,
-      d, causal, window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, hq, hkv, t_len,
+      s_len, d, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_simt(const void* q, const void* k, const void* v, void* out,
-                  int bsz, int hq, int hkv, int t_len, int s_len, int d,
-                  int causal, int window, float scale, cudaStream_t st) {
+                  float* lse, int bsz, int hq, int hkv, int t_len,
+                  int s_len, int d, int causal, int window, float scale,
+                  cudaStream_t st) {
   // two widths keep the build short: D <= 64 and D <= 128; columns past D
   // are guarded off
   if (d <= 64)
-    return launch_simt<T, 4>(q, k, v, out, bsz, hq, hkv, t_len, s_len, d,
-                             causal, window, scale, st);
-  return launch_simt<T, 8>(q, k, v, out, bsz, hq, hkv, t_len, s_len, d,
+    return launch_simt<T, 4>(q, k, v, out, lse, bsz, hq, hkv, t_len, s_len,
+                             d, causal, window, scale, st);
+  return launch_simt<T, 8>(q, k, v, out, lse, bsz, hq, hkv, t_len, s_len, d,
                            causal, window, scale, st);
 }
 
@@ -463,7 +471,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 template <typename T, int DT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int hq,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int hq,
                  int hkv, int t_len, int s_len, int d, int causal,
                  int window, float scale) {
   using TL = Tile<T, DT>;
@@ -716,6 +725,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = r_lo + g + 8 * r;
     if (t >= t_len) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tq == 0)
+      lse[(size_t)bh * t_len + t] = m[r] + logf(l[r]);
     T* orow = out + ((size_t)bh * t_len + t) * d;
 #pragma unroll
     for (int dt = 0; dt < TL::kDTiles; ++dt) {
@@ -728,8 +739,9 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DT>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               int bsz, int hq, int hkv, int t_len, int s_len, int d,
-               int causal, int window, float scale, cudaStream_t stream) {
+               float* lse, int bsz, int hq, int hkv, int t_len, int s_len,
+               int d, int causal, int window, float scale,
+               cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<T, DT>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -738,18 +750,19 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)(bsz * hq),
                   (unsigned)((t_len + kMmaBQ - 1) / kMmaBQ));
   flash_mma_kernel<T, DT><<<grid, kMmaThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, hq, hkv, t_len, s_len,
-      d, causal, window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, hq, hkv, t_len,
+      s_len, d, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_mma(const void* q, const void* k, const void* v, void* out,
-                 int bsz, int hq, int hkv, int t_len, int s_len, int d,
-                 int causal, int window, float scale, cudaStream_t st) {
+                 float* lse, int bsz, int hq, int hkv, int t_len,
+                 int s_len, int d, int causal, int window, float scale,
+                 cudaStream_t st) {
   return with_d_tile(d, [&](auto dt) {
-    return launch_mma<T, decltype(dt)::value>(q, k, v, out, bsz, hq, hkv,
-                                              t_len, s_len, d, causal,
+    return launch_mma<T, decltype(dt)::value>(q, k, v, out, lse, bsz, hq,
+                                              hkv, t_len, s_len, d, causal,
                                               window, scale, st);
   });
 }
@@ -758,30 +771,32 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt (1 <= D <= 128),
 // 1 = mma (D a multiple of 8, D <= 256; mma_3xtf32 for float32, mma_bf16
-// for bfloat16).  window <= 0 means no window.  Returns the CUDA error of
-// the launch (0 on success).
+// for bfloat16).  window <= 0 means no window.  lse: float32 [B, Hq, T]
+// or null.  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int bsz,
-                                   int hq, int hkv, int t_len, int s_len,
-                                   int d, int causal, int window,
+                                   const void* v, void* out, void* lse_out,
+                                   int bsz, int hq, int hkv, int t_len,
+                                   int s_len, int d, int causal, int window,
                                    float scale, int dtype, int variant,
                                    void* stream) {
   if (hkv < 1 || hq % hkv != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_out;
   if (variant == 0) {
     if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-      return dispatch_simt<float>(q, k, v, out, bsz, hq, hkv, t_len, s_len,
-                                  d, causal, window, scale, st);
-    return dispatch_simt<__nv_bfloat16>(q, k, v, out, bsz, hq, hkv, t_len,
-                                        s_len, d, causal, window, scale, st);
+      return dispatch_simt<float>(q, k, v, out, lse, bsz, hq, hkv, t_len,
+                                  s_len, d, causal, window, scale, st);
+    return dispatch_simt<__nv_bfloat16>(q, k, v, out, lse, bsz, hq, hkv,
+                                        t_len, s_len, d, causal, window,
+                                        scale, st);
   }
   if (variant != 1 || d < 8 || d > 256 || d % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_mma<float>(q, k, v, out, bsz, hq, hkv, t_len, s_len, d,
-                               causal, window, scale, st);
-  return dispatch_mma<__nv_bfloat16>(q, k, v, out, bsz, hq, hkv, t_len,
+    return dispatch_mma<float>(q, k, v, out, lse, bsz, hq, hkv, t_len,
+                               s_len, d, causal, window, scale, st);
+  return dispatch_mma<__nv_bfloat16>(q, k, v, out, lse, bsz, hq, hkv, t_len,
                                      s_len, d, causal, window, scale, st);
 }

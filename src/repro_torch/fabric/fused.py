@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from .._build import library
-from .._device import LaunchCounts, resolve_impl
+from .._device import LaunchCounts, require_no_grad, resolve_impl
 
 _SOURCE = "fused_waterfill"
 _SEG_SOURCE = "seg_sum"
@@ -333,6 +333,7 @@ def seg_sum(vals, plan: SegPlan, impl: str = "auto",
         raise ValueError(f"unknown seg_sum variant {_variant!r} "
                          f"({' | '.join(SEG_VARIANTS)})")
     if resolve_impl(impl, vals.device) == "cuda":
+        require_no_grad("seg_sum", vals)
         return _seg_sum_cuda(vals, plan, _variant or "warp_fold")
     return seg_sum_ref(vals, plan.idx, plan.size)
 
@@ -341,6 +342,7 @@ def priority_grants(demand, can, budget, crumb, impl: str = "auto"):
     """Strict-priority drain water-fill (see :func:`priority_grants_ref`):
     the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
     if resolve_impl(impl, demand.device) == "cuda":
+        require_no_grad("priority_grants", demand, budget, crumb)
         return _grants_cuda(demand, can, budget, crumb)
     return priority_grants_ref(demand, can, budget, crumb)
 
@@ -349,6 +351,7 @@ def priority_admit(demand, space, impl: str = "auto"):
     """QoS admission water-fill (see :func:`priority_admit_ref`): the CUDA
     kernel for CUDA tensors, the plain version for CPU ones."""
     if resolve_impl(impl, demand.device) == "cuda":
+        require_no_grad("priority_admit", demand, space)
         return _admit_cuda(demand, space)
     return priority_admit_ref(demand, space)
 

@@ -37,7 +37,25 @@ another: a build or launch error raises.
 This wrapper checks what the kernel takes (CUDA, float32 or bfloat16,
 contiguous, the head dim its variant takes, Hq a multiple of Hkv, 16-byte
 aligned for the mma variants) and raises on the rest, allocates the
-output, and launches on the current stream.
+output, and launches on the current stream.  Asked for it, each variant
+also writes the row log-sum-exp ``lse`` (float32 ``[B, Hq, T]``); the
+serve paths do not ask.
+
+**The gradient.**  The reference's kernel is forward-only (JAX
+differentiates its plain attention); here the output comes through
+``ctypes``, which autograd cannot see into.  :class:`FlashAttention`, the
+``torch.autograd.Function`` that ``ops.flash_attention`` runs whenever an
+input requires grad, saves q, k, v, the output and ``lse`` and runs the
+backward kernel, ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`:
+three passes, delta = rowsum(do o), dk and dv per key tile, dq per query
+tile; float32 on the CUDA cores, variant ``bwd_simt``; D a multiple of 8
+up to 256, other head dims raise).  Bound: operations, 10·D flops per
+visible (query, key) pair for the gradient (the kernel does 14·D: two
+passes recompute the scores).  Its plain version is
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`, autograd's
+gradient of the plain forward.  A row with no visible key (causal with
+T > S) gets zero gradients.  No pass uses atomics: the gradients are the
+same bits run to run.
 """
 from __future__ import annotations
 
@@ -57,7 +75,9 @@ SIMT_MAX_HEAD_DIM = 128
 BLOCK_Q = 64                        # query rows a block (16 a warp, 4 warps)
 D_TILES = (32, 64, 80, 128, 256)    # head-dim tiles of the mma kernel
 STAGES = 2                          # K/V ring depth of the mma kernel
-VARIANT_LAUNCHES = LaunchCounts(mma_bf16=0, mma_3xtf32=0, simt=0)
+_BWD_SOURCE = "flash_attention_bwd"
+VARIANT_LAUNCHES = LaunchCounts(mma_bf16=0, mma_3xtf32=0, simt=0,
+                                bwd_simt=0)
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
@@ -110,14 +130,56 @@ def smem_bytes(name: str, d: int) -> int:
     return row * (BLOCK_Q + 2 * STAGES * block_kv(name, d))
 
 
+def bwd_variant(dtype: torch.dtype, d: int) -> str:
+    """The backward kernel that takes head dim ``d`` in ``dtype``:
+    ``bwd_simt`` (float32 on the CUDA cores, bfloat16 widened as it is
+    staged) for ``d`` a multiple of 8 up to :data:`MAX_HEAD_DIM`, every
+    registry head dim; other head dims raise."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if not 8 <= d <= MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"the flash attention backward takes head dims "
+                         f"that are multiples of 8 up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    return "bwd_simt"
+
+
+def bwd_tiles(d: int) -> int:
+    """Rows of the backward's query and key tiles at head dim ``d``: 64 up
+    to D = 128, 32 past it (64-row tiles would not fit shared memory)."""
+    return 64 if d <= 128 else 32
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the backward's dk/dv and dq
+    passes (one plan): k and v tiles (rows padded to D + 1 words), q and
+    do tiles (D + 4), one P / dS tile (BK + 1) and the q tile's lse and
+    delta, all float32 (``bwd_smem_bytes`` in
+    ``csrc/flash_attention_bwd.cu``)."""
+    t = bwd_tiles(d)
+    return 4 * (2 * t * (d + 1) + 2 * t * (d + 4) + t * (t + 1) + 2 * t)
+
+
 def _lib():
     lib = library(_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32,
-                                            i32, i32, i32, i32,
+        lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i32, i32, i32,
+                                            i32, i32, i32, i32, i32,
                                             ctypes.c_float, i32, i32, p]
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib():
+    lib = library(_BWD_SOURCE)
+    if not getattr(lib, "_typed", False):
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd.argtypes = [p] * 10 + [i32] * 8 + [
+            ctypes.c_float, i32, p]
+        lib.flash_attention_bwd.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -158,23 +220,94 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    with_lse: bool = False):
     """q:[B,Hq,T,D] k/v:[B,Hkv,S,D] -> [B,Hq,T,D] in q's type, by one
-    launch of the kernel that :func:`variant` picks."""
+    launch of the kernel that :func:`variant` picks; ``with_lse`` also
+    returns each row's log-sum-exp, float32 ``[B, Hq, T]``."""
     name = _check(q, k, v, window)
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    err = _lib().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-        hkv, t, s, d, int(causal), int(window or 0), d ** -0.5,
-        _DTYPES[q.dtype], _VARIANT_IDS[name],
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if out.numel():
+        err = _lib().flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, hq, hkv, t, s, d,
+            int(causal), int(window or 0), d ** -0.5, _DTYPES[q.dtype],
+            _VARIANT_IDS[name],
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed "
+                               f"({name}): CUDA error {err}")
+        VARIANT_LAUNCHES[name] += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at upstream
+    ``dout``, from its inputs, its output ``out`` and its ``lse``, by one
+    call that enqueues the backward kernel's three passes (counted once
+    in :data:`VARIANT_LAUNCHES` under ``bwd_simt``).  Gradients come in
+    the inputs' type; a row with no visible key gets zeros."""
+    _check(q, k, v, window)
+    name = bwd_variant(q.dtype, q.shape[-1])
+    for n, t_ in (("out", out), ("dout", dout)):
+        if t_.shape != q.shape or t_.dtype != q.dtype or \
+                t_.device != q.device or not t_.is_contiguous():
+            raise ValueError(f"{n} must be a contiguous {q.dtype} tensor of "
+                             f"q's shape {tuple(q.shape)} on {q.device}")
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if lse.shape != (b, hq, t) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 [{b}, {hq}, "
+                         f"{t}] tensor on {q.device}")
+    if t == 0 or s == 0 or b == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    err = _bwd_lib().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d, int(causal),
+        int(window or 0), d ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed ({name}): "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"({name}): CUDA error {err}")
     VARIANT_LAUNCHES[name] += 1
-    return out
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel with its gradient: the forward launches
+    :func:`flash_attention` with ``lse`` and saves q, k, v, the output and
+    ``lse``; the backward launches :func:`flash_attention_bwd`.
+    ``launches`` (``ops.LAUNCHES``) counts each forward under
+    ``flash_attention`` (a replay under activation checkpointing runs the
+    forward, and its launch, again) and each backward under
+    ``flash_attention_bwd``.  A head dim the backward does not take
+    raises before the forward launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, launches):
+        bwd_variant(q.dtype, q.shape[-1])
+        out, lse = flash_attention(q, k, v, causal, window, with_lse=True)
+        launches["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.launches = causal, window, launches
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, ctx.causal, ctx.window)
+        ctx.launches["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None

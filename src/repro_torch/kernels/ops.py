@@ -11,6 +11,14 @@
 Nothing falls back: a build or launch failure propagates (the policy is
 ``_device.resolve_impl``, shared with the fabric's water-fills).  Each
 kernel launch adds one to :data:`LAUNCHES` under the kernel's name.
+
+Gradients: flash attention on the card runs through
+``jet_flash_attention.FlashAttention`` whenever an input requires grad,
+whose backward is the kernel ``flash_attention_bwd``.  The other kernels
+have no backward: on the card they raise under grad
+(``_device.require_no_grad``) instead of returning an output that
+autograd would treat as a constant.  Their plain versions on the CPU
+keep autograd.
 """
 from __future__ import annotations
 
@@ -18,15 +26,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._device import LaunchCounts, resolve_impl
+from .._device import LaunchCounts, require_no_grad, resolve_impl
 from . import ref
 from .jet_decode_attention import decode_attention_paged as _decode_cuda
+from .jet_flash_attention import FlashAttention
 from .jet_flash_attention import flash_attention as _flash_cuda
 from .jet_staged_matmul import staged_matmul as _matmul_cuda
 from .mamba2_ssd import ssd_scan as _ssd_cuda
 
-LAUNCHES = LaunchCounts(flash_attention=0, ssd_scan=0,
-                        decode_attention_paged=0, staged_matmul=0)
+LAUNCHES = LaunchCounts(flash_attention=0, flash_attention_bwd=0,
+                        ssd_scan=0, decode_attention_paged=0,
+                        staged_matmul=0)
 reset_launches = LAUNCHES.reset
 
 
@@ -47,6 +57,7 @@ def staged_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto",
                         f"kernel's tiles are fixed (jet_staged_matmul.TILES)")
     if resolve_impl(impl, a.device) == "ref":
         return ref.matmul_naive(a, b, out_dtype)
+    require_no_grad("staged_matmul", a, b)
     out = _matmul_cuda(a, b, out_dtype)
     LAUNCHES["staged_matmul"] += 1
     return out
@@ -60,9 +71,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``jet_flash_attention.variant``: ``mma.sync`` on the tensor cores,
     bfloat16 or float32 through a 3xTF32 split, for D % 8 == 0 up to 256;
     the CUDA cores otherwise, D <= 128), counted in
-    ``jet_flash_attention.VARIANT_LAUNCHES``."""
+    ``jet_flash_attention.VARIANT_LAUNCHES``.  When grad is enabled and
+    an input requires it, the launch goes through
+    ``jet_flash_attention.FlashAttention``, whose backward launches
+    ``flash_attention_bwd`` (counted under that name)."""
     if resolve_impl(impl, q.device) == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, LAUNCHES)
     out = _flash_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
     return out
@@ -84,6 +100,7 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if resolve_impl(impl, q.device) == "ref":
         return ref.decode_attention_paged_ref(q, k_pages, v_pages,
                                               page_table, lengths)
+    require_no_grad("decode_attention_paged", q, k_pages, v_pages)
     out = _decode_cuda(q, k_pages, v_pages, page_table, lengths)
     LAUNCHES["decode_attention_paged"] += 1
     return out
@@ -104,6 +121,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"chunk {chunk} (pad the sequence)")
     if resolve_impl(impl, x.device) == "ref":
         return ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
+    require_no_grad("ssd_scan", x, dt, a, b, c)
     out = _ssd_cuda(x, dt, a, b, c, chunk)
     LAUNCHES["ssd_scan"] += 1
     return out

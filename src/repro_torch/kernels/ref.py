@@ -116,6 +116,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, t, d).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True,
+                            window: Optional[int] = None):
+    """(dq, dk, dv): autograd's gradient of :func:`flash_attention_ref` at
+    upstream ``dout``, the plain version of
+    ``csrc/flash_attention_bwd.cu``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 # --------------------------------------------------------------------------- #
 # decode attention
 # --------------------------------------------------------------------------- #

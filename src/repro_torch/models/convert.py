@@ -8,8 +8,11 @@ remainder tuple, ``shared_attn``, ``final_norm``, ``unembed`` unless the
 embedding is tied; a codebook model's ``embed`` is ``[K, V, D]``, a
 cross-attention layer adds ``ln_x`` and ``xattn``), so the carry is a
 plain mapping, and both
-packages then compute the same function.  It reads arrays through
-``numpy.asarray`` and imports nothing of the reference.
+packages then compute the same function.  ``state_from_jax`` carries a
+whole train state across (parameters, AdamW moments, float32 or int8
+``{"q", "s"}``, the step count), so both packages step from one state.
+It reads arrays through ``numpy.asarray`` and imports nothing of the
+reference.
 """
 from __future__ import annotations
 
@@ -81,3 +84,24 @@ def params_from_jax(tree: Any, cfg: ArchConfig, device: DeviceLike = None,
             raise ValueError(f"pattern position {pos} is not stacked over "
                              f"{n_units} units")
     return tree_from_numpy(tree, device, dtype)
+
+
+def state_from_jax(state: Any, cfg: ArchConfig, device: DeviceLike = None
+                   ) -> dict:
+    """The reference's train state (``repro.train.steps.init_state``'s
+    tree, numpy leaves) -> the port's (``repro_torch.train.steps``), on
+    ``device`` (CUDA unless the caller asks for the CPU): ``params`` via
+    :func:`params_from_jax`, ``opt`` ``{"m", "v", "count"}`` and ``step``
+    leaf for leaf, types kept (int8 moment codes, int32 counts)."""
+    if set(state) != {"params", "opt", "step"}:
+        raise ValueError(f"train state has {sorted(state)}; want params, "
+                         f"opt and step (the compressed_pod_grads "
+                         f"residuals 'err' need a device mesh: ROADMAP "
+                         f"Queue 1 A4)")
+    opt = state["opt"]
+    if set(opt) != {"m", "v", "count"}:
+        raise ValueError(f"optimizer state has {sorted(opt)}; want m, v, "
+                         f"count")
+    return {"params": params_from_jax(state["params"], cfg, device),
+            "opt": tree_from_numpy(opt, device),
+            "step": tree_from_numpy(state["step"], device)}

@@ -14,16 +14,29 @@ kinds and the xLSTM blocks; tokens are ``[B, T]`` ids, or ``[B, K, T]``
 codebook ids whose embeddings are summed (musicgen).  ``forward`` returns
 the logits of every position and the MoE aux, ``loss_fn`` the mean
 next-token cross-entropy; prefill and decode are in
-:mod:`repro_torch.models.decoding`.  The reference's remat policies and
-``bf16_weight_gather`` are training and mesh knobs and are not ported.
+:mod:`repro_torch.models.decoding`.
+
+Activation checkpointing (the reference's ``_remat``) is applied per
+pattern unit with ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``: ``remat="none"`` keeps every activation,
+``"full"`` keeps a unit's input and replays the unit in the backward,
+``"dots"`` also keeps the outputs of its matrix products (a selective
+checkpoint policy).  Every policy gives the same gradients.  The
+reference's ``"layer_out"`` saves the tensor-parallel all-reduced
+sublayer outputs, and ``bf16_weight_gather`` casts before the FSDP
+gathers: both are mesh knobs (ROADMAP Queue 1 A4), and ``"layer_out"``
+raises.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import DeviceLike, resolve_device
+from .._tree import tree_map
 from ..configs.base import ArchConfig
 from . import attention as attn
 from . import moe as moe_mod
@@ -140,20 +153,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 # --------------------------------------------------------------------------- #
-# tree helpers (dicts and tuples of tensors)
+# tree helpers (dicts and tuples of tensors; ``tree_map`` is ``_tree``'s)
 # --------------------------------------------------------------------------- #
-def tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, tuple):
-        return tuple(tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
-
-
 def unit(tree, u: int):
     """Unit ``u`` of a pattern-stacked tree (views, no copy)."""
     return tree_map(lambda leaf: leaf[u], tree)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` units of a pattern-stacked tree, each a tree of views:
+    one ``unbind`` a leaf, whose gradient is one ``stack`` (indexing each
+    unit apart would fill a zero tensor of the whole stack per unit)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in tree} for u in range(n)]
+    if isinstance(tree, tuple):
+        parts = [unstack(v, n) for v in tree]
+        return [tuple(p[u] for p in parts) for u in range(n)]
+    return list(tree.unbind(0))
 
 
 # --------------------------------------------------------------------------- #
@@ -169,8 +186,10 @@ def _shared_block(shared: Params, x: torch.Tensor, cfg: ArchConfig,
 
 def _apply_layer(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
                  shared: Optional[Params], patches: Optional[torch.Tensor],
-                 aux: Dict[str, torch.Tensor], impl: str = "auto"):
-    """One layer of the forward pass -> (x, aux), the MoE aux added."""
+                 aux: Dict[str, torch.Tensor], impl: str = "auto",
+                 cap_factor: Optional[float] = None):
+    """One layer of the forward pass -> (x, aux), the MoE aux added.
+    ``cap_factor``: the MoE capacity factor (None: the config's)."""
     h = rms_norm(x, p["ln1"])
     if kind.startswith("attn"):
         x = x + attn.self_attention(p["attn"], h, cfg, impl=impl)
@@ -179,7 +198,7 @@ def _apply_layer(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
                                          patches, cfg, impl=impl)
         h2 = rms_norm(x, p["ln2"])
         if kind == "attn_moe":
-            y, a = moe_mod.moe_apply(p["ffn"], h2, cfg)
+            y, a = moe_mod.moe_apply(p["ffn"], h2, cfg, cap_factor)
             aux = {k: aux[k] + a[k] for k in aux}
             x = x + y
         else:
@@ -236,43 +255,98 @@ def cast_tree(tree: Optional[Any], dtype) -> Optional[Any]:
 
 
 # --------------------------------------------------------------------------- #
+# activation checkpointing
+# --------------------------------------------------------------------------- #
+REMATS = ("none", "full", "dots")
+# the matrix products whose outputs "dots" keeps (jax's checkpoint_dots)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def check_remat(remat: str) -> None:
+    if remat == "layer_out":
+        raise ValueError("remat='layer_out' saves the tensor-parallel "
+                         "all-reduced sublayer outputs: a mesh knob, which "
+                         "needs a device mesh the port does not have yet "
+                         "(ROADMAP Queue 1 A4)")
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r} ({' | '.join(REMATS)})")
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the policy ``remat`` (the reference's ``_remat``); a
+    pass without grad keeps nothing anyway and runs ``fn`` itself."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"context_fn": _dots_context} if remat == "dots" else {}
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+# --------------------------------------------------------------------------- #
 # forward and loss
 # --------------------------------------------------------------------------- #
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             patches: Optional[torch.Tensor] = None,
-            compute_dtype=torch.float32,
-            impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
+            compute_dtype=torch.float32, impl: str = "auto",
+            remat: str = "none",
+            cap_factor: Optional[float] = None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits [B, T, V], aux ``{"lb_loss",
     "overflow"}`` summed over the MoE layers).  ``patches`` [B, P, D]
     feed the cross-attention layers.  ``impl`` goes to the kernels
-    (``"ref"``: their plain versions).  Runs where ``tokens`` and
-    ``params`` lie."""
+    (``"ref"``: their plain versions).  ``remat`` checkpoints each
+    pattern unit (:data:`REMATS`); ``cap_factor`` is the MoE capacity
+    factor (None: the config's).  Runs where ``tokens`` and ``params``
+    lie."""
+    check_remat(remat)
     dev = resolve_device(tokens.device)
     pattern, n_units, rem = segments(cfg)
     x = embed_tokens(params, tokens, cfg, compute_dtype)
     if patches is not None:
         patches = patches.to(compute_dtype)
     shared = cast_tree(params.get("shared_attn"), compute_dtype)
-    aux = {k: torch.tensor(v, device=dev) for k, v in AUX0.items()}
-    for u in range(n_units):
+
+    def unit_body(x, unit_params):
+        aux = dict(AUX0)    # Python floats: a unit without MoE copies none
         for pos, kind in enumerate(pattern):
-            p = cast_tree(unit(params["pattern"][pos], u), compute_dtype)
-            x, aux = _apply_layer(kind, p, x, cfg, shared, patches, aux,
-                                  impl)
+            x, aux = _apply_layer(kind, cast_tree(unit_params[pos],
+                                                  compute_dtype),
+                                  x, cfg, shared, patches, aux, impl,
+                                  cap_factor)
+        return x, aux["lb_loss"], aux["overflow"]
+
+    body = _remat(unit_body, remat)
+    aux = {k: torch.tensor(v, device=dev) for k, v in AUX0.items()}
+    units = list(zip(*(unstack(p, n_units) for p in params["pattern"])))
+    for unit_params in units:
+        x, lb, of = body(x, unit_params)
+        aux = {"lb_loss": aux["lb_loss"] + lb,
+               "overflow": aux["overflow"] + of}
     for p_l, kind in zip(params["remainder"], rem):
         x, aux = _apply_layer(kind, cast_tree(p_l, compute_dtype), x, cfg,
-                              shared, patches, aux, impl)
+                              shared, patches, aux, impl, cap_factor)
     return unembed(params, x, cfg), aux
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            compute_dtype=torch.float32,
-            impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
+            compute_dtype=torch.float32, impl: str = "auto",
+            remat: str = "none",
+            cap_factor: Optional[float] = None) -> Tuple[torch.Tensor, Dict]:
     """``batch``: ``tokens``, ``targets`` [B, T], and ``patches`` where
     the model reads them -> (loss, metrics ``{"loss", "lb_loss",
-    "overflow"}``).  MoE models add ``0.01 * lb_loss / num_layers``."""
+    "overflow"}``).  MoE models add ``0.01 * lb_loss / num_layers``.
+    ``remat`` and ``cap_factor`` as :func:`forward`."""
     logits, aux = forward(params, cfg, batch["tokens"], batch.get("patches"),
-                          compute_dtype, impl)
+                          compute_dtype, impl, remat, cap_factor)
     loss = cross_entropy(logits, batch["targets"])
     if cfg.num_experts:
         loss = loss + 0.01 * aux["lb_loss"] / max(1, cfg.num_layers)

@@ -18,7 +18,13 @@ musicgen prefills through the kernels against the plain versions, each
 SSD case on the variant its widths select, and the staged matmul's
 wgmma kernel bit for bit on small-integer operands; each against its
 plain version, each staged matmul shape on the kernel variant its type
-and shape select.
+and shape select.  Training: the flash attention backward against its
+plain version (autograd's gradient of the plain forward) at the train
+path's shapes, deterministic, zero for rows that see no key; the serve
+path's flash launches unchanged without grad; the kernels with no
+backward raising under grad (an SSD family cannot train on the card);
+tiny models' gradients through the kernels against the plain versions
+under each remat policy.
 
 Needs an NVIDIA card and ``nvcc``; every test skips without one.  The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -872,8 +878,9 @@ def test_tiny_zamba2_prefill_runs_through_the_kernels(card):
     tok = torch.randint(2, cfg.vocab_size, (2, 64), device=card)
     ops.reset_launches()
     lk, sk, _ = api.prefill(params, cfg, tok, max_len=80)
-    assert ops.LAUNCHES == {"flash_attention": 1, "ssd_scan": 7,
-                            "decode_attention_paged": 0, "staged_matmul": 0}
+    assert ops.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 0,
+                            "ssd_scan": 7, "decode_attention_paged": 0,
+                            "staged_matmul": 0}
     lr, sr, _ = api.prefill(params, cfg, tok, max_len=80, impl="ref")
     assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3
 
@@ -1187,3 +1194,151 @@ def test_paged_and_matmul_wrappers_reject_what_they_do_not_take(card):
         ops.staged_matmul(a.T, a)
     with pytest.raises(TypeError, match="block_n"):
         ops.staged_matmul(a, a.T.contiguous(), block_n=128)
+
+
+# --------------------------------------------------------------------------- #
+# training: the flash attention backward and the train step
+# --------------------------------------------------------------------------- #
+# (b, hq, hkv, t, s, d, causal, window, dtype): the train path's danube
+# shape, a window that binds, vision's cross-attention (non-causal T < S),
+# MHA at head dim 64, gemma-7b's 256 in bfloat16 and in float32 (the
+# 32-row tiles), causal T < S, a ragged GQA case at head dim 32, and
+# danube's widths in bfloat16
+FLASH_BWD = [(2, 32, 8, 4096, 4096, 80, True, 4096, torch.float32),
+             (1, 32, 8, 1024, 1024, 80, True, 256, torch.float32),
+             (1, 32, 8, 1024, 1600, 128, False, None, torch.float32),
+             (1, 32, 32, 1024, 1024, 64, True, None, torch.float32),
+             (1, 16, 16, 1024, 1024, 256, True, None, torch.bfloat16),
+             (1, 4, 4, 300, 300, 256, True, None, torch.float32),
+             (1, 4, 2, 100, 333, 64, True, None, torch.float32),
+             (2, 8, 2, 77, 77, 32, True, 20, torch.float32),
+             (1, 32, 8, 300, 300, 80, True, 64, torch.bfloat16)]
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # of max |g|
+
+
+def _qkv_do(card, b, hq, hkv, t, s, d, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=card).to(dtype)
+            for shape in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d),
+                          (b, hq, t, d))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window,dtype", FLASH_BWD)
+def test_flash_backward_matches_plain(card, b, hq, hkv, t, s, d, causal,
+                                      window, dtype):
+    from repro_torch.kernels import ref
+    q, k, v, do = _qkv_do(card, b, hq, hkv, t, s, d, dtype, t + s + d)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ops.reset_launches()
+    jfa.VARIANT_LAUNCHES.reset()
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    assert jfa.VARIANT_LAUNCHES["bwd_simt"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal, window)
+    for gk, gp in zip(got, want):
+        assert gk.dtype == dtype and torch.isfinite(gk).all()
+        err = float((gk.float() - gp.float()).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(gp.float().abs().max())
+
+
+def test_flash_backward_is_deterministic_and_lse_is_right(card):
+    q, k, v, do = _qkv_do(card, 1, 16, 4, 512, 512, 80, torch.float32, 3)
+    o, lse = jfa.flash_attention(q, k, v, True, 128, with_lse=True)
+    o2 = jfa.flash_attention(q, k, v, True, 128)
+    assert torch.equal(o, o2)          # the lse output leaves o alone
+    scores = torch.einsum("bhtd,bhsd->bhts", q * 80 ** -0.5,
+                          k.repeat_interleave(4, dim=1))
+    tt = torch.arange(512, device=card)
+    mask = (tt[:, None] >= tt[None, :]) & (tt[:, None] - tt[None, :] < 128)
+    want = torch.logsumexp(scores.masked_fill(~mask, -1e30), -1)
+    assert float((lse - want).abs().max()) <= 1e-4
+    a = jfa.flash_attention_bwd(q, k, v, o, do, lse, True, 128)
+    b = jfa.flash_attention_bwd(q, k, v, o, do, lse, True, 128)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_backward_rows_without_a_key_get_zeros(card):
+    """Causal with T > S: the first T - S rows see no key.  Their dq is
+    zero, and dk, dv equal the plain gradient of the other rows alone."""
+    from repro_torch.kernels import ref
+    q, k, v, do = _qkv_do(card, 1, 4, 2, 96, 64, 32, torch.float32, 4)
+    o, lse = jfa.flash_attention(q, k, v, True, None, with_lse=True)
+    dq, dk, dv = jfa.flash_attention_bwd(q, k, v, o, do, lse, True, None)
+    assert float(dq[:, :, :32].abs().max()) == 0.0
+    do_seen = do.clone()
+    do_seen[:, :, :32] = 0.0
+    wq, wk, wv = ref.flash_attention_bwd_ref(q, k, v, do_seen, True, None)
+    for got, want in ((dq[:, :, 32:], wq[:, :, 32:]), (dk, wk), (dv, wv)):
+        assert float((got - want).abs().max()) <= \
+            2e-5 * float(want.abs().max())
+
+
+def test_serve_path_flash_is_unchanged_without_grad(card):
+    q, k, v, _ = _qkv_do(card, 1, 8, 2, 256, 256, 64, torch.float32, 5)
+    ops.reset_launches()
+    jfa.VARIANT_LAUNCHES.reset()
+    with torch.no_grad():
+        out = ops.flash_attention(q.requires_grad_(True), k, v)
+    plain = ops.flash_attention(q.detach(), k, v)
+    assert out.grad_fn is None and torch.equal(out, plain)
+    assert ops.LAUNCHES["flash_attention"] == 2
+    assert ops.LAUNCHES["flash_attention_bwd"] == 0
+    assert jfa.VARIANT_LAUNCHES["mma_3xtf32"] == 2
+    assert jfa.VARIANT_LAUNCHES["bwd_simt"] == 0
+
+
+def test_kernels_without_backward_raise_under_grad_on_the_card(card):
+    x = torch.zeros((1, 64, 4, 64), device=card, requires_grad=True)
+    dt = torch.zeros((1, 64, 4), device=card)
+    a = -torch.ones((4,), device=card)
+    bc = torch.zeros((1, 64, 1, 64), device=card)
+    with pytest.raises(RuntimeError, match="ssd_scan: .*no backward"):
+        ops.ssd(x, dt, a, bc, bc, chunk=64)
+    m = torch.zeros((64, 64), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="staged_matmul: .*no backward"):
+        ops.staged_matmul(m, m.detach())
+    qd, kp, vp, table, lens = _paged(card, 2, 4, 2, 64, 16, [5, 40],
+                                     torch.float32, torch.float32, 6)
+    with pytest.raises(RuntimeError,
+                       match="decode_attention_paged: .*no backward"):
+        ops.decode_attention(qd.requires_grad_(True), kp, vp, table, lens)
+    with torch.no_grad():               # without grad they run
+        ops.ssd(x, dt, a, bc, bc, chunk=64)
+        ops.staged_matmul(m, m)
+    # an SSD family cannot train on the card yet: it raises, naming it
+    cfg = tiny_config(get_arch("zamba2-1.2b"))
+    from repro_torch.train import steps
+    params = api.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                             device=card)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        steps.loss_and_grads(cfg, params, {"tokens": tok, "targets": tok})
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "llama4-scout-17b-a16e",
+                                  "llama-3.2-vision-11b"])
+def test_tiny_gradients_on_the_card_match_plain(card, arch):
+    """The tiny model's loss and gradient through the kernels (flash
+    forward and backward) against the plain versions on the card, with
+    each remat policy; MoE and cross-attention included."""
+    from repro_torch import _tree
+    from repro_torch.train import steps
+    cfg = tiny_config(get_arch(arch))
+    g = torch.Generator(device=card).manual_seed(0)
+    params = api.init_params(cfg, g, device=card)
+    batch = api.synthetic_inputs(cfg, ShapeConfig("t", "train", 64, 2), g,
+                                 torch.float32, card)
+    gp, lp, _ = steps.loss_and_grads(cfg, params, batch, impl="ref",
+                                     remat="none")
+    for remat in ("none", "full", "dots"):
+        ops.reset_launches()
+        gk, lk, _ = steps.loss_and_grads(cfg, params, batch, remat=remat)
+        assert ops.LAUNCHES["flash_attention_bwd"] > 0
+        assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+        for x, y in zip(_tree.leaves(gk), _tree.leaves(gp)):
+            assert float((x - y).abs().max()) <= \
+                1e-4 * float(y.abs().max().clamp(min=1e-30))

@@ -41,7 +41,9 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_covers_the_package_and_the_smoke_script():
     names = {p.name for p in FILES}
     assert {"vector.py", "fused.py", "ops.py", "ssm.py", "engine.py",
-            "cc.py", "messages.py", "faults.py", "chip_smoke.py"} <= names
+            "cc.py", "messages.py", "faults.py", "chip_smoke.py",
+            "adamw.py", "compression.py", "pipeline.py", "ckpt.py",
+            "steps.py", "loop.py", "train.py", "_tree.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -56,7 +58,8 @@ def test_detector_flags_banned_imports(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["fabric.cc", "fabric.messages",
-                                    "fabric.faults", "fabric.vector"])
+                                    "fabric.faults", "fabric.vector",
+                                    "train.loop", "launch.train"])
 def test_fabric_layers_load_without_jax(module):
     """Importing each fabric layer in a fresh interpreter loads neither
     ``jax`` nor the reference package."""

@@ -160,8 +160,9 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     for impl in ("auto", "ref"):
         ops.flash_attention(q, q, q, impl=impl)
         ops.ssd(x, dt, a, b, c, impl=impl)
-    assert ops.LAUNCHES == {"flash_attention": 0, "ssd_scan": 0,
-                            "decode_attention_paged": 0, "staged_matmul": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
+                            "ssd_scan": 0, "decode_attention_paged": 0,
+                            "staged_matmul": 0}
 
 
 def test_dispatch_rejects_cuda_on_cpu_and_unknown_impls():
