@@ -310,10 +310,15 @@ version, autograd's gradient of the plain forward: the train path's
 danube shape (q [2, 32, 4096, 80], 8 KV heads, window 4,096, float32), a
 window that binds (1,024 tokens, window 256), vision's cross-attention
 (non-causal, 1,024 over 1,600), MHA at head dim 64 and gemma-7b's 256 in
-bfloat16; dq, dk, dv each within 2e-5 (float32) or 2e-2 (bfloat16) of
-its largest magnitude, the forward's lse within 1e-4 of the plain
-log-sum-exp, two launches bit-equal; kernel, plain and SDPA-backward ms
-and the bound (10·D flops a visible pair at the float32 peak).  After
+bfloat16; each on the variant its type picks (``bwd_mma_3xtf32``,
+``bwd_mma_bf16``: the tensor cores), its tile plan from the C launcher
+equal to ``jet_flash_attention``'s; dq, dk, dv each within 2e-5
+(float32) or 2e-2 (bfloat16) of its largest magnitude, the forward's lse
+within 1e-4 of the plain log-sum-exp, two launches bit-equal; kernel,
+plain and SDPA-backward ms, the first design (``bwd_simt``) forced in
+the same call as ``prev_ms``, and the bound (10·D flops a visible pair at
+the tensor cores' peak for the type: 989 TFLOP/s bf16, 495 / 3 = 165 for
+3xTF32; the CUDA cores' 67 beside it as ``bound_simt_ms``).  After
 the api phases: ``train_danube`` (h2o-danube-1.8b whole, float32, batch
 2 x 4,096 tokens of the ``for_arch`` pipeline, ``remat="full"``, AdamW
 with float32 moments, through ``train.steps``: one warm-up and three
@@ -449,8 +454,9 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096      # danube's train_4k rows, batch cut
 # the train step's kernels by a piece of their device name
 TRAIN_KERNELS = {"gemm": ("gemm", "Gemm", "GEMM", "cutlass", "xmma"),
                  "flash_fwd": ("flash_mma_kernel", "flash_simt_kernel"),
-                 "flash_bwd": ("bwd_delta_kernel", "bwd_dkdv_kernel",
-                               "bwd_dq_kernel")}
+                 "flash_bwd": ("bwd_delta_kernel", "bwd_dkdv_mma_kernel",
+                               "bwd_dq_mma_kernel", "bwd_dkdv_simt_kernel",
+                               "bwd_dq_simt_kernel")}
 
 
 class SmokeFailure(Exception):
@@ -518,20 +524,27 @@ def flash_build(log):
 
 def flash_bwd_build(log):
     """:func:`ptxas_report` of each flash backward instantiation, keyed
-    ``<pass>/<type>/<head-dim width>`` (the width a thread's DJ columns
-    cover: 64, 80, 128, 256; the delta pass has none); None when this run
-    did not build it."""
+    ``<pass>/<type>/<head-dim width>``: the passes ``dkdv_mma``,
+    ``dq_mma`` (width: the head-dim tile, 32, 64, 80, 128, 256),
+    ``dkdv_simt``, ``dq_simt`` (the width a thread's DJ columns cover:
+    64, 80, 128, 256) and ``delta`` (no width); None when this run did
+    not build it."""
     import re
     if not log:
         return None
     out = {}
     for name, r in ptxas_report(log).items():
-        mt = re.search(r"bwd_(delta|dkdv|dq)_kernelI(f|13__nv_bfloat16)"
-                       r"(?:Li\d+ELi\d+ELi(\d+)E)?", name)
+        mt = re.search(r"bwd_(delta|dkdv_mma|dq_mma|dkdv_simt|dq_simt)"
+                       r"_kernelI(f|13__nv_bfloat16)"
+                       r"(?:Li(\d+)E(?:Li\d+ELi(\d+)E)?)?", name)
         if not mt:
             continue
         ty = "f32" if mt.group(2) == "f" else "bf16"
-        width = f"/{16 * int(mt.group(3))}" if mt.group(3) else ""
+        width = ""
+        if mt.group(4):
+            width = f"/{16 * int(mt.group(4))}"
+        elif mt.group(3):
+            width = f"/{mt.group(3)}"
         out[f"{mt.group(1)}/{ty}{width}"] = r
     return out
 
@@ -3814,14 +3827,18 @@ def lse_plain(q, k, causal: bool, window, heads: int = 8):
 
 def flash_bwd_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
                     d: int, causal: bool, window, dtype: str, seed: int,
-                    iters: int, plain_iters: int, dev=None) -> dict:
-    """Hold the flash attention backward kernel against its plain version
-    (autograd's gradient of the plain forward), each of dq, dk, dv within
-    FLASH_BWD_TOL of its largest magnitude; the forward's lse against the
-    plain log-sum-exp; two launches bit-equal (no atomics); and time it
-    beside the plain backward and one backward of
-    ``F.scaled_dot_product_attention`` on the same case (timed, unused by
-    the port)."""
+                    iters: int, plain_iters: int, prev_iters: int,
+                    dev=None) -> dict:
+    """Hold the flash attention backward kernel, on the variant its type
+    picks (``bwd_mma_3xtf32`` / ``bwd_mma_bf16``), against its plain
+    version (autograd's gradient of the plain forward), each of dq, dk,
+    dv within FLASH_BWD_TOL of its largest magnitude; the forward's lse
+    against the plain log-sum-exp; two launches bit-equal (no atomics);
+    the C launcher's tile plan against ``jet_flash_attention``'s; and
+    time it beside the plain backward, the first design (``bwd_simt``)
+    forced in the same call (``prev_ms``; its gradients held to the same
+    tolerance) and one backward of ``F.scaled_dot_product_attention`` on
+    the same case (timed, unused by the port)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3842,8 +3859,15 @@ def flash_bwd_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
     def kernel():
         return jfa.flash_attention_bwd(q, k, v, o, do, lse, causal, window)
 
+    def prev():
+        return jfa.flash_attention_bwd(q, k, v, o, do, lse, causal, window,
+                                       variant="bwd_simt")
+
     def plain():
         return ref.flash_attention_bwd_ref(q, k, v, do, causal, window)
+    name = jfa.bwd_variant(tdt, d)
+    plan = list(jfa.bwd_plan(name, d))
+    plan_c = list(jfa.bwd_plan_c(name, d))
     jfa.VARIANT_LAUNCHES.reset()
     got = kernel()
     torch.cuda.synchronize()
@@ -3853,15 +3877,21 @@ def flash_bwd_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
     del again
     want = plain()
     tol = FLASH_BWD_TOL[dtype]
-    errs, ok = {}, True
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = float((g.float() - w.float()).abs().max())
-        top = float(w.float().abs().max())
-        errs[name] = {"max_abs_err": err, "max_abs": top,
-                      "rel_to_max": err / max(top, 1e-30)}
-        ok = ok and bool(torch.isfinite(g).all()) and g.dtype == tdt \
-            and err <= tol * top
-    del got, want
+
+    def held(grads):
+        errs, ok = {}, True
+        for n, g, w in zip(("dq", "dk", "dv"), grads, want):
+            err = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            errs[n] = {"max_abs_err": err, "max_abs": top,
+                       "rel_to_max": err / max(top, 1e-30)}
+            ok = ok and bool(torch.isfinite(g).all()) and g.dtype == tdt \
+                and err <= tol * top
+        return errs, ok
+    errs, ok = held(got)
+    del got
+    prev_errs, prev_ok = held(prev())
+    del want
     # the yardstick: SDPA's backward alone, on its own forward's graph; a
     # window no shorter than S masks nothing
     win = window if window and window < s else None
@@ -3884,34 +3914,49 @@ def flash_bwd_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
         return torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
     lib_ms = cuda_ms(library, iters, warmup=1)
     del lib_out, leaves
-    ms = cuda_ms(kernel, iters, warmup=2)
+    # the new kernel and the first design in turns: prev, new, new, prev
+    prev_ms = [cuda_ms(prev, prev_iters, warmup=1)]
+    ms = [cuda_ms(kernel, iters, warmup=2) for _ in range(2)]
+    prev_ms.append(cuda_ms(prev, prev_iters, warmup=0))
     plain_ms = cuda_ms(plain, plain_iters, warmup=1)
     esize = q.element_size()
     nbytes = (q.numel() * 4 + k.numel() * 2 + v.numel() * 2) * esize \
         + lse.numel() * 4
     pairs = visible_pairs(t, s, causal, window)
     nops = 10.0 * b * hq * d * pairs
-    # the card's peak for the input type: bfloat16 on the tensor cores,
-    # float32 on the CUDA cores (the SIMT kernel's own ceiling) with the
-    # 3xTF32 ceiling the forward's mma_3xtf32 reaches beside it
+    # the card's peak for the route the type takes: bfloat16 on the tensor
+    # cores, float32 through 3xTF32 (the TF32 rate over 3); the CUDA
+    # cores' float32 peak, the first design's ceiling, beside it
     bms, by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
-                    else FP32_OPS_PER_S)
-    b3, _ = bound(nbytes, nops, TF32_OPS_PER_S / 3)
+                    else TF32_OPS_PER_S / 3)
+    b_simt, _ = bound(nbytes, nops, FP32_OPS_PER_S)
     row = {"name": "flash_attention_bwd", "case": label,
            "q": [b, hq, t, d], "kv": [b, hkv, s, d], "causal": causal,
            "window": window, "dtype": dtype, "variant": ran,
-           "smem_bytes": jfa.bwd_smem_bytes(d), "tol": tol, "ok": ok,
+           "plan": plan, "plan_c": plan_c, "tol": tol, "ok": ok,
            "errors": errs,
            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
            "lse_max_abs_err": lse_err, "deterministic": deterministic,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           **({"bound_3xtf32_ms": b3} if dtype == "float32" else {}),
-           "library_ms": lib_ms, "tflops": nops / ms * 1e-9,
+           "ms": min(ms), "ms_runs": ms, "plain_ms": plain_ms,
+           "prev_ms": min(prev_ms), "prev_ms_runs": prev_ms,
+           "prev_ok": prev_ok,
+           "prev_max_abs_err": max(e["max_abs_err"]
+                                   for e in prev_errs.values()),
+           "bound_ms": bms, "bound_by": by, "bound_simt_ms": b_simt,
+           "library_ms": lib_ms, "tflops": nops / min(ms) * 1e-9,
            "gflop": nops / 1e9, "bytes": nbytes}
     emit("kernel", **row)
-    check(ran == ["bwd_simt"], f"flash_attention_bwd ({label}) ran {ran}")
+    check(ran == [name], f"flash_attention_bwd ({label}) ran {ran}, "
+                         f"want {name}")
+    check(plan == plan_c, f"flash_attention_bwd ({label}): the C plan "
+                          f"{plan_c} != jet_flash_attention's {plan}")
     check(ok, f"flash_attention_bwd kernel != plain version ({label}): "
               f"{errs}, tol {tol} of each gradient's largest magnitude")
+    check(prev_ok, f"flash_attention_bwd bwd_simt forced != plain version "
+                   f"({label}): {prev_errs}")
+    check(min(ms) < min(prev_ms), f"flash_attention_bwd ({label}): {name} "
+                                  f"{ms} ms is not faster than bwd_simt "
+                                  f"forced, {prev_ms} ms")
     check(lse_err <= LSE_TOL, f"flash_attention lse ({label}) deviates "
                               f"{lse_err} from the plain log-sum-exp")
     check(deterministic, f"flash_attention_bwd ({label}): two launches "
@@ -3927,16 +3972,16 @@ def flash_bwd_rows() -> dict:
     tiles)."""
     rows = {"path": flash_bwd_phase(
         "danube-1.8b train", 2, 32, 8, 4096, 4096, 80, True, 4096,
-        "float32", 50, iters=3, plain_iters=1)}
+        "float32", 50, iters=5, plain_iters=1, prev_iters=2)}
     flash_bwd_phase("window binds", 1, 32, 8, 1024, 1024, 80, True, 256,
-                    "float32", 51, iters=5, plain_iters=2)
+                    "float32", 51, iters=10, plain_iters=2, prev_iters=5)
     flash_bwd_phase("llama-3.2-vision cross-attention", 1, 32, 8, 1024,
-                    1600, 128, False, None, "float32", 52, iters=5,
-                    plain_iters=2)
+                    1600, 128, False, None, "float32", 52, iters=10,
+                    plain_iters=2, prev_iters=3)
     flash_bwd_phase("mha D=64", 1, 32, 32, 1024, 1024, 64, True, None,
-                    "float32", 53, iters=5, plain_iters=2)
+                    "float32", 53, iters=10, plain_iters=2, prev_iters=5)
     flash_bwd_phase("gemma-7b bf16", 1, 16, 16, 1024, 1024, 256, True, None,
-                    "bfloat16", 54, iters=5, plain_iters=2)
+                    "bfloat16", 54, iters=10, plain_iters=2, prev_iters=3)
     return rows
 
 
@@ -4057,7 +4102,8 @@ def train_danube_phase(cfg=None, dev=None, seq: int = TRAIN_SEQ) -> dict:
     check(launches == want,
           f"train_danube: launches {launches}, want {want}")
     check(variants["mma_3xtf32"] == want["flash_attention"]
-          and variants["bwd_simt"] == want["flash_attention_bwd"],
+          and variants["bwd_mma_3xtf32"] == want["flash_attention_bwd"]
+          and variants["bwd_simt"] == 0,
           f"train_danube: flash variants {variants}")
     del state
     torch.cuda.empty_cache()
@@ -4266,9 +4312,10 @@ def run() -> int:
         check(decode is None or (len(decode) == 24 and not any(
             r["spill_bytes"] for r in decode.values())),
             f"a paged decode kernel spills: {decode}")
-        # the backward: 2 types x (delta + 4 widths x (dk/dv, dq)); none
+        # the backward: 2 types x (delta + 5 head-dim tiles x (dk/dv, dq)
+        # on the tensor cores + 4 widths x (dk/dv, dq) of bwd_simt); none
         # of head dim <= 128 may spill
-        check(flash_bwd is None or (len(flash_bwd) == 18 and not any(
+        check(flash_bwd is None or (len(flash_bwd) == 38 and not any(
             r["spill_bytes"] for key, r in flash_bwd.items()
             if key.count("/") == 2 and int(key.split("/")[2]) <= 128)),
             f"a flash backward kernel of head dim <= 128 spills: "

@@ -46,12 +46,24 @@ differentiates its plain attention); here the output comes through
 ``ctypes``, which autograd cannot see into.  :class:`FlashAttention`, the
 ``torch.autograd.Function`` that ``ops.flash_attention`` runs whenever an
 input requires grad, saves q, k, v, the output and ``lse`` and runs the
-backward kernel, ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`:
-three passes, delta = rowsum(do o), dk and dv per key tile, dq per query
-tile; float32 on the CUDA cores, variant ``bwd_simt``; D a multiple of 8
-up to 256, other head dims raise).  Bound: operations, 10·D flops per
-visible (query, key) pair for the gradient (the kernel does 14·D: two
-passes recompute the scores).  Its plain version is
+backward kernel, ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`): three passes, FA2's split — (lse, delta =
+rowsum(do o)) a row, dk and dv per 64-key tile, dq per 64-row query tile —
+for D a multiple of 8 up to 256 (other head dims raise).
+:func:`bwd_variant` picks its design from the type: ``bwd_mma_3xtf32``
+(float32) and ``bwd_mma_bf16`` (bfloat16) run all five products on the
+tensor cores through ``mma.sync``, the dk/dv pass with the operands
+turned so that Pᵀ and dSᵀ feed the next products from registers;
+``bwd_simt``, the first design on the CUDA cores, is reached only by
+asking for it (``variant="bwd_simt"``), as a comparison.  The float32
+variant adds its accumulators into the output every
+:data:`BWD_FLUSH_ROWS` rows: the tensor core truncates each step's sum,
+and one accumulator chained over a key's 16,384 rows at the train path
+drifted 1.2e-4 off.  The plan (tiles, shared memory, flush interval) is
+:func:`bwd_plan`, equal to the C launcher's (:func:`bwd_plan_c`).
+Bound: operations, 10·D flops per visible (query, key) pair for the
+gradient (the kernel does 14·D: both passes recompute the scores; 18·D
+at D = 256, whose dk/dv accumulators split in two).  Its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`, autograd's
 gradient of the plain forward.  A row with no visible key (causal with
 T > S) gets zero gradients.  No pass uses atomics: the gradients are the
@@ -76,7 +88,14 @@ BLOCK_Q = 64                        # query rows a block (16 a warp, 4 warps)
 D_TILES = (32, 64, 80, 128, 256)    # head-dim tiles of the mma kernel
 STAGES = 2                          # K/V ring depth of the mma kernel
 _BWD_SOURCE = "flash_attention_bwd"
+_BWD_VARIANT_IDS = {"bwd_simt": 0, "bwd_mma_bf16": 1,
+                    "bwd_mma_3xtf32": 1}
+BWD_BLOCK = 64      # keys of a dk/dv block, query rows of a dq block
+BWD_PAD_T = 64      # the (lse, delta) scratch pads each head's rows to this
+BWD_FLUSH_ROWS = 256  # float32: rows between adds of the accumulators into
+                      # the output (kFlushRows)
 VARIANT_LAUNCHES = LaunchCounts(mma_bf16=0, mma_3xtf32=0, simt=0,
+                                bwd_mma_bf16=0, bwd_mma_3xtf32=0,
                                 bwd_simt=0)
 
 
@@ -132,9 +151,10 @@ def smem_bytes(name: str, d: int) -> int:
 
 def bwd_variant(dtype: torch.dtype, d: int) -> str:
     """The backward kernel that takes head dim ``d`` in ``dtype``:
-    ``bwd_simt`` (float32 on the CUDA cores, bfloat16 widened as it is
-    staged) for ``d`` a multiple of 8 up to :data:`MAX_HEAD_DIM`, every
-    registry head dim; other head dims raise."""
+    ``bwd_mma_bf16`` / ``bwd_mma_3xtf32`` (``mma.sync`` on the tensor
+    cores) for ``d`` a multiple of 8 up to :data:`MAX_HEAD_DIM`, every
+    registry head dim; other head dims raise.  ``bwd_simt`` is never
+    picked: :func:`flash_attention_bwd` runs it only when asked."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{dtype}")
@@ -142,23 +162,79 @@ def bwd_variant(dtype: torch.dtype, d: int) -> str:
         raise ValueError(f"the flash attention backward takes head dims "
                          f"that are multiples of 8 up to {MAX_HEAD_DIM}, "
                          f"got {d}")
-    return "bwd_simt"
+    return "bwd_mma_bf16" if dtype == torch.bfloat16 else "bwd_mma_3xtf32"
 
 
-def bwd_tiles(d: int) -> int:
-    """Rows of the backward's query and key tiles at head dim ``d``: 64 up
-    to D = 128, 32 past it (64-row tiles would not fit shared memory)."""
-    return 64 if d <= 128 else 32
+def bwd_tiles(name: str, d: int) -> tuple:
+    """(query rows a ring stage of the dk/dv pass, keys a ring stage of
+    the dq pass, blocks that split a dk/dv tile's head dim) of backward
+    variant ``name`` at head dim ``d``.  The mma variants hold 16 rows a
+    warp, 4 warps: 64 keys a dk/dv block and 64 query rows a dq block;
+    their stages are 64 rows up to D = 64; float32 32 at D = 80 and 16
+    past it; bfloat16 64 up to D = 80 (dk/dv) or 128 (dq), then 32, and
+    16 for the dk/dv pass at 256 — so that the score accumulators fit
+    beside dk, dv or dq in registers and two blocks share an SM up to
+    D = 128; at D = 256 two blocks each accumulate 128 of dk's and dv's
+    columns.
+    ``bwd_simt``: its 64 x 64 tiles, 32 x 32 past D = 128 (``Plan`` and
+    ``simt_tile`` in ``csrc/flash_attention_bwd.cu``)."""
+    if name == "bwd_simt":
+        t = 64 if d <= 128 else 32
+        return t, t, 1
+    dt = d_tile(d)
+    if name == "bwd_mma_3xtf32":
+        bq = bk = 64 if dt <= 64 else 32 if dt <= 80 else 16
+    elif name == "bwd_mma_bf16":
+        bq = 64 if dt <= 80 else 32 if dt <= 128 else 16
+        bk = 64 if dt <= 128 else 32
+    else:
+        raise ValueError(f"unknown backward variant {name!r}")
+    return bq, bk, 2 if dt > 128 else 1
 
 
-def bwd_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one block of the backward's dk/dv and dq
-    passes (one plan): k and v tiles (rows padded to D + 1 words), q and
-    do tiles (D + 4), one P / dS tile (BK + 1) and the q tile's lse and
-    delta, all float32 (``bwd_smem_bytes`` in
-    ``csrc/flash_attention_bwd.cu``)."""
-    t = bwd_tiles(d)
-    return 4 * (2 * t * (d + 1) + 2 * t * (d + 4) + t * (t + 1) + 2 * t)
+def bwd_smem_bytes(name: str, d: int) -> tuple:
+    """Dynamic shared memory of one block of the dk/dv pass and of the dq
+    pass of backward variant ``name`` at head dim ``d``, in bytes.  The
+    mma variants: the block's own 64-row tiles (K and V; Q and dO) and 2
+    ring stages (Q, dO and their (lse, delta) float2s; K and V), each row
+    the bytes of :func:`d_tile` plus 16.  ``bwd_simt``: k and v tiles
+    (rows padded to D + 1 words), q and do tiles (D + 4), one P / dS tile
+    and the q tile's lse and delta, all float32, one plan for both
+    passes.  What the kernel's launcher sizes its requests by
+    (``flash_attention_bwd_plan`` in the C source returns it)."""
+    bq, bk, _ = bwd_tiles(name, d)
+    if name == "bwd_simt":
+        n = 4 * (2 * bk * (d + 1) + 2 * bq * (d + 4) + bq * (bk + 1)
+                 + 2 * bq)
+        return n, n
+    row = d_tile(d) * (4 if name == "bwd_mma_3xtf32" else 2) + 16
+    own = 2 * BWD_BLOCK * row
+    return (own + STAGES * (2 * bq * row + 8 * bq),
+            own + STAGES * 2 * bk * row)
+
+
+def bwd_plan(name: str, d: int) -> tuple:
+    """Backward variant ``name``'s whole plan at head dim ``d``:
+    :func:`bwd_tiles`, :func:`bwd_smem_bytes` and the rows between the
+    float32 variant's flushes of its accumulators into the output
+    (:data:`BWD_FLUSH_ROWS`; 0 where none: bf16 keeps one accumulator
+    chain, ``bwd_simt`` adds on the CUDA cores) — what
+    ``flash_attention_bwd_plan`` in the C source returns."""
+    flush = BWD_FLUSH_ROWS if name == "bwd_mma_3xtf32" else 0
+    return bwd_tiles(name, d) + bwd_smem_bytes(name, d) + (flush,)
+
+
+def bwd_plan_c(name: str, d: int) -> tuple:
+    """The C launcher's own plan (``flash_attention_bwd_plan``), to be
+    equal to :func:`bwd_plan` (needs the built library, so the card)."""
+    dtype = 1 if name == "bwd_mma_bf16" else 0
+    out = (ctypes.c_int * 6)()
+    err = _bwd_lib().flash_attention_bwd_plan(
+        dtype, _BWD_VARIANT_IDS[name], d, out)
+    if err != 0:
+        raise ValueError(f"flash_attention_bwd_plan refused {name} at "
+                         f"D={d}: CUDA error {err}")
+    return tuple(out)
 
 
 def _lib():
@@ -178,8 +254,10 @@ def _bwd_lib():
     if not getattr(lib, "_typed", False):
         p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_bwd.argtypes = [p] * 10 + [i32] * 8 + [
-            ctypes.c_float, i32, p]
+            ctypes.c_float, i32, i32, p]
         lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_bwd_plan.argtypes = [i32, i32, i32, p]
+        lib.flash_attention_bwd_plan.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -248,19 +326,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        variant: Optional[str] = None):
     """The gradients (dq, dk, dv) of :func:`flash_attention` at upstream
     ``dout``, from its inputs, its output ``out`` and its ``lse``, by one
     call that enqueues the backward kernel's three passes (counted once
-    in :data:`VARIANT_LAUNCHES` under ``bwd_simt``).  Gradients come in
-    the inputs' type; a row with no visible key gets zeros."""
+    in :data:`VARIANT_LAUNCHES` under the variant that ran).  ``variant``
+    None runs the one :func:`bwd_variant` picks; ``"bwd_simt"`` forces
+    the first design (a comparison; no path asks for it).  Gradients come
+    in the inputs' type; a row with no visible key gets zeros."""
     _check(q, k, v, window)
-    name = bwd_variant(q.dtype, q.shape[-1])
+    picked = bwd_variant(q.dtype, q.shape[-1])
+    name = picked if variant is None else variant
+    if name not in (picked, "bwd_simt"):
+        raise ValueError(f"backward variant {name!r} does not take "
+                         f"{q.dtype} (want {picked!r} or 'bwd_simt')")
     for n, t_ in (("out", out), ("dout", dout)):
         if t_.shape != q.shape or t_.dtype != q.dtype or \
                 t_.device != q.device or not t_.is_contiguous():
             raise ValueError(f"{n} must be a contiguous {q.dtype} tensor of "
                              f"q's shape {tuple(q.shape)} on {q.device}")
+    if name != "bwd_simt" and dout.data_ptr() % 16:
+        raise ValueError("dout must be 16-byte aligned")
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if lse.shape != (b, hq, t) or lse.dtype != torch.float32 or \
@@ -271,12 +358,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    t_pad = -(-t // BWD_PAD_T) * BWD_PAD_T
+    stats = torch.empty((b, hq, t_pad, 2), dtype=torch.float32,
+                        device=q.device)
     err = _bwd_lib().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d, int(causal),
         int(window or 0), d ** -0.5, _DTYPES[q.dtype],
+        _BWD_VARIANT_IDS[name],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed "

@@ -20,7 +20,9 @@ wgmma kernel bit for bit on small-integer operands; each against its
 plain version, each staged matmul shape on the kernel variant its type
 and shape select.  Training: the flash attention backward against its
 plain version (autograd's gradient of the plain forward) at the train
-path's shapes, deterministic, zero for rows that see no key; the serve
+path's shapes on the variant its type picks (the first design forced
+too), deterministic, zero for rows that see no key, its tile plan the C
+launcher's; the serve
 path's flash launches unchanged without grad; the kernels with no
 backward raising under grad (an SSD family cannot train on the card);
 tiny models' gradients through the kernels against the plain versions
@@ -1236,12 +1238,53 @@ def test_flash_backward_matches_plain(card, b, hq, hkv, t, s, d, causal,
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == 1
     assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    name = jfa.bwd_variant(dtype, d)
+    assert name == ("bwd_mma_bf16" if dtype == torch.bfloat16
+                    else "bwd_mma_3xtf32")
+    assert jfa.VARIANT_LAUNCHES[name] == 1
+    assert jfa.VARIANT_LAUNCHES["bwd_simt"] == 0
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal, window)
+    for gk, gp in zip(got, want):
+        assert gk.dtype == dtype and torch.isfinite(gk).all()
+        err = float((gk.float() - gp.float()).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(gp.float().abs().max())
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal,window,dtype", [
+    FLASH_BWD[1], FLASH_BWD[4], FLASH_BWD[7]])
+def test_flash_backward_simt_forced_matches_plain(card, b, hq, hkv, t, s,
+                                                  d, causal, window, dtype):
+    """The first design, reached only by asking for it (the timing
+    comparison of ``chip_smoke.py``), stays right: a window, bf16 at
+    D = 256 and a ragged GQA case."""
+    from repro_torch.kernels import ref
+    q, k, v, do = _qkv_do(card, b, hq, hkv, t, s, d, dtype, t + s + d)
+    o, lse = jfa.flash_attention(q, k, v, causal, window, with_lse=True)
+    jfa.VARIANT_LAUNCHES.reset()
+    got = jfa.flash_attention_bwd(q, k, v, o, do, lse, causal, window,
+                                  variant="bwd_simt")
+    torch.cuda.synchronize()
     assert jfa.VARIANT_LAUNCHES["bwd_simt"] == 1
     want = ref.flash_attention_bwd_ref(q, k, v, do, causal, window)
     for gk, gp in zip(got, want):
         assert gk.dtype == dtype and torch.isfinite(gk).all()
         err = float((gk.float() - gp.float()).abs().max())
         assert err <= FLASH_BWD_TOL[dtype] * float(gp.float().abs().max())
+    with pytest.raises(ValueError, match="does not take"):
+        jfa.flash_attention_bwd(q, k, v, o, do, lse, causal, window,
+                                variant="bwd_mma_bf16"
+                                if dtype == torch.float32
+                                else "bwd_mma_3xtf32")
+
+
+@pytest.mark.parametrize("name", ["bwd_mma_3xtf32", "bwd_mma_bf16",
+                                  "bwd_simt"])
+def test_flash_backward_plan_is_the_c_launchers(card, name):
+    """``jet_flash_attention.bwd_plan`` (tiles, shared memory, float32
+    flush interval) mirrors the plan the C launcher sizes its launches
+    by, at every head-dim tile."""
+    for d in (8, 32, 64, 80, 96, 128, 256):
+        assert jfa.bwd_plan_c(name, d) == jfa.bwd_plan(name, d)
 
 
 def test_flash_backward_is_deterministic_and_lse_is_right(card):
@@ -1288,6 +1331,8 @@ def test_serve_path_flash_is_unchanged_without_grad(card):
     assert ops.LAUNCHES["flash_attention"] == 2
     assert ops.LAUNCHES["flash_attention_bwd"] == 0
     assert jfa.VARIANT_LAUNCHES["mma_3xtf32"] == 2
+    assert jfa.VARIANT_LAUNCHES["bwd_mma_3xtf32"] == 0
+    assert jfa.VARIANT_LAUNCHES["bwd_mma_bf16"] == 0
     assert jfa.VARIANT_LAUNCHES["bwd_simt"] == 0
 
 

@@ -11,7 +11,8 @@
   call, the forward counted again on each activation-checkpoint replay)
   and through the plain kernel without; every kernel with no backward
   raises under grad before it launches (``_device.require_no_grad``).
-* The backward kernel's head-dim rule and shared-memory plan.
+* The backward kernel's head-dim rule, variants and tile / shared-memory
+  plan (its arithmetic: ``tests/test_torch_flash_bwd.py``).
 * The activation-checkpoint policies: ``remat`` "none", "full" and
   "dots" give the same gradients.
 """
@@ -227,12 +228,49 @@ def test_require_no_grad():
 # --------------------------------------------------------------------------- #
 # the backward kernel's head dims and shared memory
 # --------------------------------------------------------------------------- #
+# the backward's plan by variant and head-dim tile, as Plan in
+# csrc/flash_attention_bwd.cu sizes it: (dk/dv query stage, dq key stage,
+# dk/dv column split), (dk/dv, dq shared memory in bytes)
+BWD_PLAN = {
+    ("bwd_mma_3xtf32", 32): ((64, 64, 1), (56_320, 55_296)),
+    ("bwd_mma_3xtf32", 64): ((64, 64, 1), (105_472, 104_448)),
+    ("bwd_mma_3xtf32", 80): ((32, 32, 1), (86_528, 86_016)),
+    ("bwd_mma_3xtf32", 128): ((16, 16, 1), (101_632, 101_376)),
+    ("bwd_mma_3xtf32", 256): ((16, 16, 2), (199_936, 199_680)),
+    ("bwd_mma_bf16", 32): ((64, 64, 1), (31_744, 30_720)),
+    ("bwd_mma_bf16", 64): ((64, 64, 1), (56_320, 55_296)),
+    ("bwd_mma_bf16", 80): ((64, 64, 1), (68_608, 67_584)),
+    ("bwd_mma_bf16", 128): ((32, 64, 1), (70_144, 104_448)),
+    ("bwd_mma_bf16", 256): ((16, 32, 2), (101_632, 135_168)),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 32, 64, 80, 128, 256])
 def test_backward_takes_every_mma_head_dim(dtype, d):
-    assert jfa.bwd_variant(dtype, d) == "bwd_simt"
-    assert jfa.bwd_smem_bytes(d) <= 232_448        # the H100's block limit
-    assert jfa.bwd_tiles(d) == (64 if d <= 128 else 32)
+    """Every head dim that is a multiple of 8 runs the tensor-core design
+    of its type, on the plan of its head-dim tile: two blocks share an SM
+    (shared memory ≤ half the SM's 228 KB less 1 KB a block) up to
+    D = 128, every
+    block fits the H100's 227 KB, and the score accumulators beside dk
+    and dv (or dq) stay within 192 floats a thread, so that ptxas has
+    room for the fragments and addresses without spilling."""
+    name = jfa.bwd_variant(dtype, d)
+    assert name == ("bwd_mma_bf16" if dtype == torch.bfloat16
+                    else "bwd_mma_3xtf32")
+    dt = jfa.d_tile(d)
+    tiles, smem = BWD_PLAN[(name, dt)]
+    assert jfa.bwd_tiles(name, d) == tiles
+    assert jfa.bwd_smem_bytes(name, d) == smem
+    bq, bk, split = tiles
+    assert max(smem) <= 232_448                    # the H100's block limit
+    if dt <= 128:
+        assert max(smem) <= 232_448 // 2 - 1024
+    assert dt // split + bq <= 192 and dt // 2 + bk <= 192
+    # the first design, reachable only by asking for it: its plan is kept
+    t = 64 if d <= 128 else 32
+    assert jfa.bwd_tiles("bwd_simt", d) == (t, t, 1)
+    assert jfa.bwd_smem_bytes("bwd_simt", d)[0] <= 232_448
 
 
 @pytest.mark.parametrize("dtype,d,err", [
