@@ -318,22 +318,45 @@ within 1e-4 of the plain log-sum-exp, two launches bit-equal; kernel,
 plain and SDPA-backward ms, the first design (``bwd_simt``) forced in
 the same call as ``prev_ms``, and the bound (10·D flops a visible pair at
 the tensor cores' peak for the type: 989 TFLOP/s bf16, 495 / 3 = 165 for
-3xTF32; the CUDA cores' 67 beside it as ``bound_simt_ms``).  After
-the api phases: ``train_danube`` (h2o-danube-1.8b whole, float32, batch
-2 x 4,096 tokens of the ``for_arch`` pipeline, ``remat="full"``, AdamW
-with float32 moments, through ``train.steps``: one warm-up and three
-timed steps; every loss and gradient norm finite, the first loss within
-1e-5 of the plain versions' on the same state, flash attention 48 and its
-backward 24 launches a step; ms a step, tokens/s, peak memory, and a
-fifth step traced in its two halves, gradient and AdamW, by kernel
-name); ``train_vs_plain`` (danube at full width cut to 2 layers, 2 x
-1,024 tokens: loss and gradient norm within 1e-5, every gradient leaf
-within 1e-4 of its largest magnitude, of the plain versions');
+3xTF32; the CUDA cores' 67 beside it as ``bound_simt_ms``).  After the
+SSD forward rows, ``kernel`` rows of the SSD backward
+(``csrc/ssd_scan_bwd.cu``): the train path's zamba2 shape (x [2, 4096,
+64, 64], N 64, one group, chunk 256, float32), the serve widths at 1,024
+tokens, one chunk, two groups, bfloat16 and the simt widths (P = 20,
+states recomputed); dx, ddt, da, db, dc within 1e-4 (float32) or 2e-2
+(bfloat16) of their largest magnitudes of autograd's gradient of the
+plain forward and of the plain backward (``ssd_chunked_bwd_ref``), with
+dh zero and non-zero; two launches bit-equal; the C plan's shared memory
+equal to ``bwd_smem_bytes``; kernel and plain ms, each pass's device µs,
+and the bound (the work the timed call needs, at dh None, at the tensor
+cores' peak for the type as for flash's backward: 165 TFLOP/s for
+float32, 989 for bfloat16; the CUDA cores' 67, this design's route,
+beside it as ``bound_simt_ms``); no library call computes it; the
+``card`` line reports the backward's 39 instantiations, none of which
+may spill.  After the api phases: ``train_danube`` (h2o-danube-1.8b
+whole, float32, batch 2 x 4,096 tokens of the ``for_arch`` pipeline,
+``remat="full"``, AdamW with float32 moments, through ``train.steps``:
+one warm-up and three timed steps; every loss and gradient norm finite,
+the first loss within 1e-5 of the plain versions' on the same state,
+flash attention 48 and its backward 24 launches a step; ms a step,
+tokens/s, peak memory, and a fifth step traced in its two halves,
+gradient and AdamW, by kernel name); ``train_zamba2`` (zamba2-1.2b
+whole, 38 layers, the same batch, pipeline and optimizer: one warm-up
+and two timed steps, the same checks, the SSD scan 74 launches a step
+(the 36 layers of the six checkpointed units twice, the 2 remainder
+layers once), its backward 38, flash attention 12 and its backward 6);
+``train_vs_plain`` (danube at full width cut to 2 layers, then zamba2 at
+full width cut to 6, 5 Mamba2 layers and one with the shared attention
+block, each 2 x 1,024 tokens: loss and gradient norm within 1e-5, every
+gradient leaf within 1e-4 of its largest magnitude, of the plain
+versions', and the kernels' launches as the step's);
 ``train_loop`` (``train.loop.run`` on tiny danube: 6 steps, a checkpoint
 every 2, a fault at step 4 and a resume, final loss within 1e-5 of the
 uninterrupted run's, equality recorded; one int8-moment step).  The
 ``kernels`` line lists ``flash_attention_bwd`` with its launches in
-``train_danube``, whose flash forward launches add to flash attention's.
+``train_danube`` and ``train_zamba2``, whose flash forward launches add
+to flash attention's, and ``ssd_scan_bwd`` with its launches in
+``train_zamba2``, whose SSD forwards add to the scan's.
 
 Then the card line as ``nvidia-smi`` prints it, the ``kernels`` summary
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -343,6 +366,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -361,6 +385,7 @@ BURSTS_MB = [0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0]
 BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
 SOURCES = {"flash_attention_bwd":
                "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
            "priority_grants": "src/repro_torch/csrc/fused_waterfill.cu",
            "priority_admit": "src/repro_torch/csrc/fused_waterfill.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -373,6 +398,9 @@ SOURCES = {"flash_attention_bwd":
            "seg_sum": "src/repro_torch/csrc/seg_sum.cu"}
 REPLACES = {"flash_attention_bwd":
                 "src/repro/kernels/jet_flash_attention.py:77",
+            # the reference differentiates its plain scan
+            # (src/repro/kernels/ref.py:216): the kernel has no backward
+            "ssd_scan_bwd": "src/repro/kernels/mamba2_ssd.py:63",
             "priority_grants": "src/repro/fabric/fused.py:99",
             "priority_admit": "src/repro/fabric/fused.py:142",
             "flash_attention": "src/repro/kernels/jet_flash_attention.py:77",
@@ -450,13 +478,20 @@ FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-4
 TRAIN_TOL = 1e-5
 GRAD_TOL = 1e-4
-TRAIN_BATCH, TRAIN_SEQ = 2, 4096      # danube's train_4k rows, batch cut
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096      # train_4k rows, batch cut
+# the SSD backward's gradients within this share of each one's largest
+# magnitude of autograd's gradient of the plain forward and of the plain
+# backward, by input type
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the train step's kernels by a piece of their device name
 TRAIN_KERNELS = {"gemm": ("gemm", "Gemm", "GEMM", "cutlass", "xmma"),
                  "flash_fwd": ("flash_mma_kernel", "flash_simt_kernel"),
                  "flash_bwd": ("bwd_delta_kernel", "bwd_dkdv_mma_kernel",
                                "bwd_dq_mma_kernel", "bwd_dkdv_simt_kernel",
-                               "bwd_dq_simt_kernel")}
+                               "bwd_dq_simt_kernel"),
+                 "ssd_fwd": ("ssd_state_kernel", "ssd_carry_kernel",
+                             "ssd_output_kernel", "ssd_simt_kernel"),
+                 "ssd_scan_bwd": ("ssd_bwd_",)}
 
 
 class SmokeFailure(Exception):
@@ -559,6 +594,29 @@ def ssd_build(log):
     out = {}
     for name, r in ptxas_report(log).items():
         mt = re.search(r"ssd_(state|carry|output|simt)_kernel"
+                       r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?)?",
+                       name)
+        if not mt:
+            continue
+        key = mt.group(1)
+        if mt.group(2):
+            key += "/f32" if mt.group(2) == "f" else "/bf16"
+        if mt.group(3):
+            key += f"/{mt.group(3)}x{mt.group(4)}"
+        out[key] = r
+    return out
+
+
+def ssd_bwd_build(log):
+    """:func:`ptxas_report` of each SSD backward kernel, keyed
+    ``<pass>[/<type>][/<N tile>x<P tile>]``; None when this run did not
+    build it."""
+    import re
+    if not log:
+        return None
+    out = {}
+    for name, r in ptxas_report(log).items():
+        mt = re.search(r"ssd_bwd_(\w+?)_kernel"
                        r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?)?",
                        name)
         if not mt:
@@ -3118,8 +3176,8 @@ def staged_path(params, cfg, dev) -> dict:
            "bf16_tol": 2e-2, "bf16_ok": ok_b}
     emit("staged", **out)
     check(launches == {"flash_attention": 0, "flash_attention_bwd": 0,
-                       "ssd_scan": 0, "decode_attention_paged": 0,
-                       "staged_matmul": 2},
+                       "ssd_scan": 0, "ssd_scan_bwd": 0,
+                       "decode_attention_paged": 0, "staged_matmul": 2},
           f"staged path launches {launches}")
     check(variants == {"simt_f32": 1, "mma_sync_bf16": 0, "wgmma_bf16": 0,
                        "wgmma_bf16_n256": 1},
@@ -3264,8 +3322,8 @@ def paged_phase(cfg, dev):
                      "available": 0, "escape_write_in_page0": True},
           f"the escape path differs from the reference's: {escape}")
     check(launches == {"flash_attention": 0, "flash_attention_bwd": 0,
-                       "ssd_scan": 0, "decode_attention_paged": calls,
-                       "staged_matmul": 0},
+                       "ssd_scan": 0, "ssd_scan_bwd": 0,
+                       "decode_attention_paged": calls, "staged_matmul": 0},
           f"paged path launches {launches}, want {calls} decode launches")
     return out, staged
 
@@ -3518,6 +3576,7 @@ def serve_phase(cfg, dev, phase: str = "serve", prompt_lens=SERVE_PROMPTS,
            "want_launches": {"flash_attention": n_attn * len(prompts),
                              "flash_attention_bwd": 0,
                              "ssd_scan": n_ssd * len(prompts),
+                             "ssd_scan_bwd": 0,
                              "decode_attention_paged": 0,
                              "staged_matmul": 0},
            "prefill_vs_plain": prefill_dev,
@@ -3706,7 +3765,8 @@ def api_phase(phase: str, dev) -> dict:
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     want = {"flash_attention": per_pass * passes, "flash_attention_bwd": 0,
-            "ssd_scan": 0, "decode_attention_paged": 0, "staged_matmul": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "decode_attention_paged": 0,
+            "staged_matmul": 0}
     out["forward"] = {
         "tokens": API_FORWARD_T, "ms": fwd_ms,
         "last_vs_prefill": tree_rel(fk[:, -1], last_logits[API_FORWARD_T]),
@@ -3985,6 +4045,173 @@ def flash_bwd_rows() -> dict:
     return rows
 
 
+def ssd_bwd_work(B: int, T: int, H: int, G: int, N: int, P: int, L: int,
+                 esize: int, recompute: bool) -> tuple:
+    """(flops, bytes) that the SSD backward must do and move at dh None, as
+    the timed call runs it.  Per (b, h) and chunk: the causal half of the
+    L x L pairs (L (L + 1) / 2), each taking c.b, dy.x and the three
+    products into dx, db and dc (3 N + 2 P multiply-adds); and the state
+    terms, 2 L N P each: D_k = sum exp(cum) c dy^T for every chunk but the
+    first (D_0 feeds only the zero initial state's gradient), c H dy for
+    every chunk but the first (H_0 = 0), and the G terms of dx and db for
+    every chunk but the last (G_last = dh = 0); with the states
+    recomputed, also the states entering chunks 1 .. nc - 1.  Bytes: x,
+    dt, b, c read and their gradients written in their type, dy read
+    once, a read and da written in float32, and the forward's float32
+    states and cum read where they are kept."""
+    nc = T // L
+    terms = 4 * (nc - 1) + (nc - 1 if recompute else 0)
+    nops = float(B * H) * (nc * L * (L + 1) * (3 * N + 2 * P)
+                           + 2.0 * L * N * P * terms)
+    x_n, dt_n, bc_n = B * T * H * P, B * T * H, B * T * G * N
+    nbytes = esize * (3 * x_n + 2 * dt_n + 4 * bc_n) + 4 * 2 * H
+    if not recompute:
+        nbytes += 4 * (B * H * nc * N * P + B * H * T)
+    return nops, nbytes
+
+
+def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
+                  N: int, chunk: int, seed: int, iters: int,
+                  plain_iters: int, dtype: str = "float32") -> dict:
+    """Hold the SSD scan's backward kernel (``csrc/ssd_scan_bwd.cu``)
+    against autograd's gradient of the plain forward and against its
+    plain version (``ssd_chunked_bwd_ref``), dx, ddt, da, db, dc each
+    within SSD_BWD_TOL of its largest magnitude, with dh zero and
+    non-zero, on inputs made as the Mamba2 block makes them; two launches
+    bit-equal (no atomics); the C launch plan against
+    ``mamba2_ssd.bwd_smem_bytes``; and time it (the path's call: the
+    forward's states, dh None) beside the plain backward, each pass's
+    device time from the profiler.  Where the widths run the forward's
+    ``simt`` (no states kept) the backward recomputes the states, and the
+    row times that."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import mamba2_ssd as mssd
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(seed)
+    ty = getattr(torch, dtype)
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda()
+    x, b, c = draw((B, T, H, P)), draw((B, T, G, N)), draw((B, T, G, N))
+    dt = F.softplus(draw((B, T, H), 0.5) + math.log(math.expm1(0.05)))
+    dy = draw((B, T, H, P))
+    x, dt, b, c, dy = (v.to(ty) for v in (x, dt, b, c, dy))
+    a = -torch.linspace(1.0, 8.0, H, device="cuda")
+    L = min(chunk, T)
+    tol = SSD_BWD_TOL[dtype]
+    names = ("dx", "ddt", "da", "db", "dc")
+
+    def held(got, want):
+        errs, ok = {}, True
+        for n, g, w in zip(names, got, want):
+            err = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            errs[n] = err / max(top, 1e-30)
+            ok = ok and bool(torch.isfinite(g).all()) and \
+                g.dtype == w.dtype and err <= tol * top
+        return errs, ok
+    errs, ok, worst = {}, True, 0.0
+    mssd.VARIANT_LAUNCHES.reset()
+    ops.reset_launches()
+    for which, dh in (("dh0", torch.zeros((B, H, N, P), device="cuda")),
+                      ("dh", draw((B, H, N, P)))):
+        leaves = [v.clone().requires_grad_(True) for v in (x, dt, a, b, c)]
+        y, h = ops.ssd(*leaves, chunk=chunk)
+        got = torch.autograd.grad([y, h], leaves, [dy, dh])
+        del y, h, leaves
+        plain = [v.clone().requires_grad_(True) for v in (x, dt, a, b, c)]
+        y0, h0 = ops.ssd(*plain, chunk=chunk, impl="ref")
+        want = torch.autograd.grad([y0, h0], plain, [dy, dh])
+        del y0, h0, plain
+        e1, o1 = held(got, want)
+        del want
+        e2, o2 = held(got, ref.ssd_chunked_bwd_ref(x, dt, a, b, c, dy, dh,
+                                                   chunk=L))
+        errs[which] = {"vs_autograd": e1, "vs_plain_bwd": e2}
+        ok = ok and o1 and o2
+        worst = max(worst, *e1.values(), *e2.values())
+        del got
+    torch.cuda.synchronize()
+    counts = ops.LAUNCHES.read()
+    fwd = mssd.variant(ty, N, P)
+    want_bwd = "bwd_simt" if fwd == "mma_3xtf32" else "bwd_simt_recompute"
+    ran = {n: k for n, k in mssd.VARIANT_LAUNCHES.items() if k}
+    _, _, states = mssd.ssd_scan_states(x, dt, a, b, c, L)
+
+    def kernel():
+        return mssd.ssd_scan_bwd(x, dt, a, b, c, dy, None, L, states)
+
+    def plain():
+        return ref.ssd_chunked_bwd_ref(x, dt, a, b, c, dy, None, chunk=L)
+    one, two = kernel(), kernel()
+    deterministic = all(torch.equal(p_, q_) for p_, q_ in zip(one, two))
+    max_abs = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(one, plain()))
+    del one, two
+    ms = cuda_ms(kernel, iters, warmup=2)
+    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+    recompute = states is None
+    kplan = mssd.bwd_plan(B, T, H, G, N, P, L, recompute)
+    dev = device_us(kernel, list(kplan))
+    nops, nbytes = ssd_bwd_work(B, T, H, G, N, P, L, x.element_size(),
+                                recompute)
+    # the card's peak for the type: bfloat16 on the tensor cores, float32
+    # through 3xTF32 (the TF32 rate over 3); the CUDA cores' float32 peak,
+    # this design's route, beside it
+    bms, by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
+                    else TF32_OPS_PER_S / 3)
+    b_simt, _ = bound(nbytes, nops, FP32_OPS_PER_S)
+    row = {"name": "ssd_scan_bwd", "case": label, "dtype": dtype,
+           "x": [B, T, H, P], "bc": [B, T, G, N], "chunk": L,
+           "variant": ran, "launches": counts, "states": "recomputed"
+           if recompute else "the forward's", "tol": tol, "ok": ok,
+           "errors": errs, "max_rel_err": worst, "max_abs_err": max_abs,
+           "deterministic": deterministic,
+           "blocks": {k: v[1] for k, v in kplan.items()},
+           "smem_bytes": max(v[0] for v in kplan.values()),
+           "device_us": dev, "device_ms": sum(dev.values()) / 1e3,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "bound_simt_ms": b_simt, "library_ms": None,
+           "tflops": nops / ms * 1e-9, "gflop": nops / 1e9, "bytes": nbytes}
+    emit("kernel", **row)
+    check(ran == {fwd: 2, want_bwd: 2}
+          and counts["ssd_scan"] == 2 and counts["ssd_scan_bwd"] == 2,
+          f"ssd_scan_bwd ({label}) ran {ran}, launches {counts}")
+    check(ok, f"ssd_scan_bwd kernel != plain ({label}): {errs}, tol {tol} "
+              f"of each gradient's largest magnitude")
+    check(deterministic, f"ssd_scan_bwd ({label}): two launches differ")
+    check(row["smem_bytes"] == mssd.bwd_smem_bytes(N, P),
+          f"ssd_scan_bwd ({label}): the kernel asks for {row['smem_bytes']}"
+          f" bytes of shared memory, bwd_smem_bytes says "
+          f"{mssd.bwd_smem_bytes(N, P)}")
+    del states
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssd_bwd_rows() -> dict:
+    """The SSD backward at the train path's shape (zamba2: x [2, 4096, 64,
+    64], N 64, one group, chunk 256), the serve widths at 1,024 tokens,
+    one chunk (256 tokens), two groups of 32 heads, bfloat16, and the
+    simt widths (P = 20: the states recomputed)."""
+    rows = {"path": ssd_bwd_phase("zamba2 train", 2, 4096, 64, 64, 1, 64,
+                                  256, 60, iters=5, plain_iters=1)}
+    ssd_bwd_phase("serve widths", 1, 1024, 64, 64, 1, 64, 256, 61,
+                  iters=10, plain_iters=2)
+    ssd_bwd_phase("T=256, one chunk", 1, 256, 64, 64, 1, 64, 256, 62,
+                  iters=20, plain_iters=3)
+    ssd_bwd_phase("G=2", 1, 1024, 64, 64, 2, 64, 256, 63, iters=10,
+                  plain_iters=2)
+    ssd_bwd_phase("serve widths bf16", 1, 1024, 64, 64, 1, 64, 256, 64,
+                  iters=10, plain_iters=2, dtype="bfloat16")
+    ssd_bwd_phase("simt P=20", 1, 1024, 64, 20, 1, 64, 256, 65, iters=10,
+                  plain_iters=2)
+    return rows
+
+
 def profile_grads_and_update(cfg, state, batch, opt_cfg) -> dict:
     """One train step, its two halves traced apart (the loss and
     gradient, then AdamW): device ms by kernel name (GEMMs, flash
@@ -4026,33 +4253,51 @@ def profile_grads_and_update(cfg, state, batch, opt_cfg) -> dict:
     return out
 
 
-def train_danube_phase(cfg=None, dev=None, seq: int = TRAIN_SEQ) -> dict:
-    """h2o-danube-1.8b at full depth and width (24 layers, d_model 2560,
-    32 / 8 heads of 80, window 4,096, d_ff 6,912, vocab 32,000; 1.83 B
-    parameters, float32) trained on the card through
-    ``train.steps.make_train_step``: batch 2 x 4,096 tokens of the
-    ``for_arch`` pipeline (seed 0), ``remat="full"``, AdamW with float32
-    moments; one warm-up step and three timed ones.  The first step's
-    loss within TRAIN_TOL of the plain versions' loss on the same state,
-    every loss and gradient norm finite, flash attention launched 48
-    times a step (24 layers and 24 replays) and its backward 24; then a
-    fifth step traced in two halves."""
+def train_launches(cfg, n_steps: int) -> dict:
+    """Each kernel's launches in ``n_steps`` train steps under
+    ``remat="full"``: flash attention and the SSD scan once a layer that
+    runs them and once more on each checkpointed unit's replay, their
+    backwards once a layer; the remainder layers after the last whole
+    pattern unit are not checkpointed (as in the reference), so they run
+    once."""
+    from repro_torch.models import transformer
+    pattern, n_units, rem = transformer.segments(cfg)
+
+    def count(kinds):
+        in_units = n_units * sum(k in kinds for k in pattern)
+        in_rem = sum(k in kinds for k in rem)
+        return (2 * in_units + in_rem) * n_steps, (in_units + in_rem) * n_steps
+    fa, fa_bwd = count(ATTN_KINDS)
+    ssd, ssd_bwd = count(SSD_KINDS)
+    return {"flash_attention": fa, "flash_attention_bwd": fa_bwd,
+            "ssd_scan": ssd, "ssd_scan_bwd": ssd_bwd,
+            "decode_attention_paged": 0, "staged_matmul": 0}
+
+
+def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
+    """``cfg`` trained on the card through ``train.steps.make_train_step``:
+    batch 2 x ``seq`` tokens of the ``for_arch`` pipeline (seed 0),
+    ``remat="full"``, AdamW with float32 moments; ``n_steps`` steps, the
+    first a warm-up.  The first step's loss within TRAIN_TOL of the plain
+    versions' loss on the same state, every loss and gradient norm
+    finite, each kernel launched as :func:`train_launches` says, on the
+    variants the float32 path selects; then one more step traced in two
+    halves."""
     import numpy as np
     import torch
-    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.configs import ShapeConfig
     from repro_torch.data import pipeline
     from repro_torch.kernels import jet_flash_attention as jfa
+    from repro_torch.kernels import mamba2_ssd as mssd
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train import steps
-    dev = dev or torch.device("cuda")
-    cfg = cfg or get_arch("h2o-danube-1.8b")
     b, t = TRAIN_BATCH, seq
-    data = pipeline.for_arch(cfg, ShapeConfig("train_danube", "train", t, b),
-                             seed=0)
+    data = pipeline.for_arch(cfg, ShapeConfig(phase, "train", t, b), seed=0)
     batches = [{k: torch.from_numpy(v).to(dev)
-                for k, v in data.next_batch().items()} for _ in range(5)]
+                for k, v in data.next_batch().items()}
+               for _ in range(n_steps + 1)]
     opt_cfg = adamw.OptConfig()
     state = steps.init_state(cfg, opt_cfg,
                              torch.Generator(device=dev).manual_seed(0), dev)
@@ -4066,8 +4311,9 @@ def train_danube_phase(cfg=None, dev=None, seq: int = TRAIN_SEQ) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     jfa.VARIANT_LAUNCHES.reset()
+    mssd.VARIANT_LAUNCHES.reset()
     rows = []
-    for i in range(4):
+    for i in range(n_steps):
         t0 = time.perf_counter()
         state, m = step(state, batches[i])
         loss = float(m["loss"])           # waits for the card
@@ -4076,38 +4322,68 @@ def train_danube_phase(cfg=None, dev=None, seq: int = TRAIN_SEQ) -> dict:
                      "grad_norm": float(m["grad_norm"]),
                      "lr": float(m["lr"]), "ms": wall * 1e3})
     launches = ops.LAUNCHES.read()
-    variants = dict(jfa.VARIANT_LAUNCHES)
+    variants = {"flash": dict(jfa.VARIANT_LAUNCHES),
+                "ssd": dict(mssd.VARIANT_LAUNCHES)}
     peak = torch.cuda.max_memory_allocated() / 1e9
     timed = [r["ms"] for r in rows[1:]]
     ms = float(np.mean(timed))
-    prof = profile_grads_and_update(cfg, state, batches[4], opt_cfg)
+    prof = profile_grads_and_update(cfg, state, batches[n_steps], opt_cfg)
     per_step = {k: v / len(rows) for k, v in launches.items()}
-    out = {"arch": cfg.name, "params": n_params, "batch": b, "seq": t,
-           "remat": "full", "dtype": "float32", "steps": rows,
-           "ms_per_step": ms, "ms_per_step_timed": timed,
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "batch": b, "seq": t, "remat": "full", "dtype": "float32",
+           "steps": rows, "ms_per_step": ms, "ms_per_step_timed": timed,
            "tokens_per_s": b * t / (ms * 1e-3),
            "first_loss_plain": plain,
            "first_loss_rel": abs(rows[0]["loss"] - plain) / abs(plain),
            "launches": launches, "launches_per_step": per_step,
            "variants": variants, "peak_mem_gb": peak, "profile": prof}
-    emit("train_danube", **out)
-    n = len(rows)
+    emit(phase, **out)
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-              for r in rows), f"train_danube: a step is not finite: {rows}")
+              for r in rows), f"{phase}: a step is not finite: {rows}")
     check(out["first_loss_rel"] <= TRAIN_TOL,
-          f"train_danube: first loss {rows[0]['loss']} vs plain {plain}")
-    want = {"flash_attention": 2 * cfg.num_layers * n,
-            "flash_attention_bwd": cfg.num_layers * n, "ssd_scan": 0,
-            "decode_attention_paged": 0, "staged_matmul": 0}
-    check(launches == want,
-          f"train_danube: launches {launches}, want {want}")
-    check(variants["mma_3xtf32"] == want["flash_attention"]
-          and variants["bwd_mma_3xtf32"] == want["flash_attention_bwd"]
-          and variants["bwd_simt"] == 0,
-          f"train_danube: flash variants {variants}")
+          f"{phase}: first loss {rows[0]['loss']} vs plain {plain}")
+    want = train_launches(cfg, len(rows))
+    check(launches == want, f"{phase}: launches {launches}, want {want}")
+    fv, sv = variants["flash"], variants["ssd"]
+    check(fv["mma_3xtf32"] == want["flash_attention"]
+          and fv["bwd_mma_3xtf32"] == want["flash_attention_bwd"]
+          and fv["bwd_simt"] == 0,
+          f"{phase}: flash variants {fv}")
+    check(sv["mma_3xtf32"] == want["ssd_scan"]
+          and sv["bwd_simt"] == want["ssd_scan_bwd"]
+          and sv["simt"] == 0 and sv["bwd_simt_recompute"] == 0,
+          f"{phase}: SSD variants {sv}")
     del state
     torch.cuda.empty_cache()
     return out
+
+
+def train_danube_phase(dev=None) -> dict:
+    """h2o-danube-1.8b at full depth and width (24 layers, d_model 2560,
+    32 / 8 heads of 80, window 4,096, d_ff 6,912, vocab 32,000; 1.83 B
+    parameters, float32), batch 2 x 4,096 tokens (``train_4k``, batch cut
+    256 -> 2): one warm-up step and three timed ones; flash attention
+    launched 48 times a step (24 layers and 24 replays) and its backward
+    24, the SSD scan never."""
+    import torch
+    from repro_torch.configs import get_arch
+    return train_model_phase("train_danube", get_arch("h2o-danube-1.8b"),
+                             dev or torch.device("cuda"), TRAIN_SEQ, 4)
+
+
+def train_zamba2_phase(dev=None) -> dict:
+    """zamba2-1.2b at full depth and width (38 layers: 32 Mamba2 and 6
+    with the shared attention block, d_model 2,048, 64 SSD heads of 64,
+    N 64, one group, chunk 256, 32 heads of 64 in the shared block,
+    vocab 32,000; 1.17 B parameters, float32), batch 2 x 4,096 tokens
+    (``train_4k``, batch cut 256 -> 2): one warm-up step and two timed
+    ones; a step launches the SSD scan 74 times (36 layers in the six
+    checkpointed units twice, the 2 remainder layers once), its backward
+    38, flash attention 12 and its backward 6."""
+    import torch
+    from repro_torch.configs import get_arch
+    return train_model_phase("train_zamba2", get_arch("zamba2-1.2b"),
+                             dev or torch.device("cuda"), TRAIN_SEQ, 3)
 
 
 def _leaves(tree) -> list:
@@ -4116,14 +4392,14 @@ def _leaves(tree) -> list:
 
 
 def train_vs_plain_phase(cfg=None, dev=None, seq: int = 1024) -> dict:
-    """danube at full width, depth cut to 2 layers, batch 2 x 1,024
-    tokens: one train step's loss and gradient with the kernels and with
+    """``cfg`` (default: danube at full width, depth cut to 2 layers),
+    batch 2 x 1,024 tokens: one train step's loss and gradient with the
+    kernels and with
     the plain versions from the same state (loss and gradient norm
     within TRAIN_TOL, every gradient leaf within GRAD_TOL of its largest
     magnitude: gradients, not updated parameters, since AdamW's first
     step is about lr times the gradient's sign), then the full step with
     each (losses and gradient norms within TRAIN_TOL)."""
-    import dataclasses
     import torch
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.data import pipeline
@@ -4138,7 +4414,10 @@ def train_vs_plain_phase(cfg=None, dev=None, seq: int = 1024) -> dict:
     opt_cfg = adamw.OptConfig()
     state = steps.init_state(cfg, opt_cfg,
                              torch.Generator(device=dev).manual_seed(1), dev)
+    from repro_torch.kernels import ops
+    ops.reset_launches()
     g_k, l_k, _ = steps.loss_and_grads(cfg, state["params"], batch)
+    launches = ops.LAUNCHES.read()
     g_p, l_p, _ = steps.loss_and_grads(cfg, state["params"], batch,
                                        impl="ref")
     n_k, n_p = float(adamw.global_norm(g_k)), float(adamw.global_norm(g_p))
@@ -4161,8 +4440,11 @@ def train_vs_plain_phase(cfg=None, dev=None, seq: int = 1024) -> dict:
            / abs(float(m_p["loss"])),
            "step_grad_norm_rel": abs(float(m_k["grad_norm"])
                                      - float(m_p["grad_norm"]))
-           / float(m_p["grad_norm"])}
+           / float(m_p["grad_norm"]), "launches": launches}
     emit("train_vs_plain", **out)
+    check(launches == train_launches(cfg, 1),
+          f"train_vs_plain: launches {launches}, want "
+          f"{train_launches(cfg, 1)}")
     check(out["loss_rel"] <= TRAIN_TOL and out["grad_norm_rel"] <= TRAIN_TOL
           and out["step_loss_rel"] <= TRAIN_TOL
           and out["step_grad_norm_rel"] <= TRAIN_TOL,
@@ -4284,13 +4566,15 @@ def run() -> int:
         decode = decode_build(_build.BUILD_LOG.get("decode_attention"))
         flash_bwd = flash_bwd_build(_build.BUILD_LOG.get(
             "flash_attention_bwd"))
+        ssd_bwd = ssd_bwd_build(_build.BUILD_LOG.get("ssd_scan_bwd"))
         emit("card", nvidia_smi=card, torch=torch.__version__,
              cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
              build_s=time.perf_counter() - t0, builds=builds,
              ptxas=[ln.strip() for log in _build.BUILD_LOG.values()
                     for ln in log.splitlines() if "registers" in ln],
              wgmma_spill_bytes=spills, flash_build=flash, ssd_build=ssd,
-             decode_build=decode, flash_bwd_build=flash_bwd)
+             decode_build=decode, flash_bwd_build=flash_bwd,
+             ssd_bwd_build=ssd_bwd)
         lap("build")
         check(spills is None or (len(spills) == 4 and not any(spills)),
               f"the wgmma kernel spills registers: {spills}")
@@ -4320,6 +4604,12 @@ def run() -> int:
             if key.count("/") == 2 and int(key.split("/")[2]) <= 128)),
             f"a flash backward kernel of head dim <= 128 spills: "
             f"{flash_bwd}")
+        # the SSD backward: 4 tiled passes x 4 width tiles x 2 types, the
+        # dt pass and the group sums in 2 types, 2 carries and da; none
+        # may spill
+        check(ssd_bwd is None or (len(ssd_bwd) == 39 and not any(
+            r["spill_bytes"] for r in ssd_bwd.values())),
+            f"an SSD backward kernel spills: {ssd_bwd}")
         rows = {}
         for name, main_shape, seed in (
                 ("priority_grants", (48, 3, 14), 1),
@@ -4394,6 +4684,9 @@ def run() -> int:
                   plain_iters=3, expect="simt")
         ssd_plan_phase()
         lap("kernel_ssd")
+        rows["ssd_scan_bwd"] = ssd_bwd_rows()["path"]
+        torch.cuda.empty_cache()
+        lap("kernel_ssd_bwd")
         rows["decode_attention_paged"] = decode_phase(
             "zamba2 shared attention", 6, 32, 32, 64, 16, SERVE_PROMPTS,
             "float32", 20, iters=200, plain_iters=20, expect="simt_f32")
@@ -4464,7 +4757,12 @@ def run() -> int:
         torch.cuda.empty_cache()
         model_runs["train_danube"] = train = train_danube_phase()
         lap("train_danube")
+        model_runs["train_zamba2"] = train_z = train_zamba2_phase()
+        lap("train_zamba2")
         train_vs_plain_phase()
+        # zamba2 at full width cut to 6 layers: 5 Mamba2 and one with the
+        # shared attention block, so both backward kernels run
+        train_vs_plain_phase(dataclasses.replace(zamba2, num_layers=6))
         lap("train_vs_plain")
         train_loop_phase()
         lap("train_loop")
@@ -4515,8 +4813,11 @@ def run() -> int:
                         r["launches"]["flash_attention"]
                         for r in [serve, *model_runs.values()]),
                     "flash_attention_bwd":
-                        train["launches"]["flash_attention_bwd"],
-                    "ssd_scan": serve["launches"]["ssd_scan"],
+                        train["launches"]["flash_attention_bwd"]
+                        + train_z["launches"]["flash_attention_bwd"],
+                    "ssd_scan": serve["launches"]["ssd_scan"]
+                        + train_z["launches"]["ssd_scan"],
+                    "ssd_scan_bwd": train_z["launches"]["ssd_scan_bwd"],
                     "decode_attention_paged":
                         paged["launches"]["decode_attention_paged"],
                     "staged_matmul": staged["variants"]["simt_f32"],

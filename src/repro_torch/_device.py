@@ -79,8 +79,10 @@ def require_no_grad(name: str, *tensors) -> None:
     gradient.  A kernel's output comes through ``ctypes`` and carries no
     ``grad_fn``, so autograd would treat it as a constant and silently
     leave its inputs without a gradient.  The CUDA branch of every
-    kernel wrapper but flash attention's (which has its backward kernel)
-    calls this; the plain versions on the CPU keep autograd."""
+    kernel wrapper without a backward kernel calls this (paged decode,
+    the staged matmul, the fabric's water-fills and segment sum; flash
+    attention and the SSD scan have theirs); the plain versions on the
+    CPU keep autograd."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in tensors):

@@ -42,6 +42,18 @@ source's to say: :func:`plan` asks it, and the wrapper's refusal of a
 :func:`smem_bytes` is the same plan in Python, for machines without the
 card; ``chip_smoke.py`` holds the two equal.
 
+**The backward** (``csrc/ssd_scan_bwd.cu``, :func:`ssd_scan_bwd`): the
+gradient of (y, h) at upstream dy and dh, in float32 on the CUDA cores
+(variant ``bwd_simt``), deterministic (no atomics), for N and P up to
+:data:`BWD_MAX_WIDTH` in either type.  It reads the states entering each
+chunk and the prefix sums of dt·a that ``mma_3xtf32`` leaves in its
+scratch (:func:`ssd_scan_states`); after a ``simt`` forward,
+which keeps none, it recomputes them first (``bwd_simt_recompute``).
+Its plain version is :func:`repro_torch.kernels.ref.ssd_chunked_bwd_ref`.
+:class:`SSDScan` binds the two for autograd; :func:`bwd_plan` and
+:func:`bwd_smem_bytes` are the backward's plan from the C source and in
+Python.
+
 This wrapper checks what the kernel takes (CUDA; x, dt, b, c of one type,
 float32 or bfloat16; a float32; contiguous; T a multiple of the chunk, H
 of G; 16-byte aligned for ``mma_3xtf32``; ``simt``'s working set within
@@ -59,6 +71,7 @@ from .._build import library
 from .._device import LaunchCounts
 
 _SOURCE = "ssd_scan"
+_BWD_SOURCE = "ssd_scan_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_IDS = {"simt": 0, "mma_3xtf32": 1}
 # Hopper's opt-in shared memory per block, where the runtime does not say
@@ -71,7 +84,16 @@ SIMT_ROWS = 32                      # simt's row tile
 KERNELS = {"simt": ("ssd_simt_kernel",),
            "mma_3xtf32": ("ssd_state_kernel", "ssd_carry_kernel",
                           "ssd_output_kernel")}
-VARIANT_LAUNCHES = LaunchCounts(mma_3xtf32=0, simt=0)
+# the backward's kernels in launch order; the first two run only where
+# the forward left no states (after simt)
+BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_state_carry_kernel",
+               "ssd_bwd_dstate_kernel", "ssd_bwd_grad_carry_kernel",
+               "ssd_bwd_key_kernel", "ssd_bwd_query_kernel",
+               "ssd_bwd_dt_kernel", "ssd_bwd_da_kernel",
+               "ssd_bwd_group_kernel")
+BWD_MAX_WIDTH = 128                 # N and P of the backward
+VARIANT_LAUNCHES = LaunchCounts(mma_3xtf32=0, simt=0, bwd_simt=0,
+                                bwd_simt_recompute=0)
 
 
 def variant(dtype: torch.dtype, n: int, p: int) -> str:
@@ -122,6 +144,41 @@ def smem_bytes(name: str, n: int, p: int,
     return 4 * max(state, output)
 
 
+def check_bwd(dtype: torch.dtype, n: int, p: int) -> None:
+    """Raise unless the backward takes state width ``n`` and head dim
+    ``p`` in ``dtype``: N and P up to :data:`BWD_MAX_WIDTH`, float32 or
+    bfloat16 (:class:`SSDScan` asks before its forward launches)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the SSD backward takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if not (1 <= n <= BWD_MAX_WIDTH and 1 <= p <= BWD_MAX_WIDTH):
+        raise ValueError(f"the SSD backward does not take N={n}, P={p} "
+                         f"(each 1..{BWD_MAX_WIDTH})")
+
+
+def bwd_smem_bytes(n: int, p: int) -> int:
+    """Dynamic shared memory of the backward's largest block at widths
+    ``n``, ``p``, as ``csrc/ssd_scan_bwd.cu`` lays it out (``Plan``;
+    :func:`bwd_plan` asks the source).  Widths padded by
+    :func:`width_tile` to NT, PT, every tile row one word wider: the
+    state passes hold a 64-row b or c tile, an x or dy tile and the row
+    weights; the key pass its b and x tiles and four weights a key, then
+    G (NT rows) or, per row tile, c, dy, cum and two 64 x 64 score tiles;
+    the row pass its c and dy tiles and two weights a row, then H or, per
+    key tile, b, x, cum, dt and one score tile.  None depends on the
+    chunk."""
+    check_bwd(torch.float32, n, p)
+    nt, pt = width_tile(n), width_tile(p)
+    ntile, ptile, mat = TILE * (nt + 1), TILE * (pt + 1), nt * (pt + 1)
+    score = TILE * (TILE + 1)
+    state = ntile + ptile + TILE
+    key = ntile + ptile + 4 * TILE + max(mat, ntile + ptile + TILE
+                                         + 2 * score)
+    row = ntile + ptile + 2 * TILE + max(mat, ntile + ptile + 2 * TILE
+                                         + score)
+    return 4 * max(state, key, row)
+
+
 def _lib():
     lib = library(_SOURCE)
     if not getattr(lib, "_typed", False):
@@ -132,6 +189,42 @@ def _lib():
         lib.ssd_scan_plan.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def _bwd_lib():
+    lib = library(_BWD_SOURCE)
+    if not getattr(lib, "_typed", False):
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_scan_bwd.argtypes = [p] * 9 + [i32] + [p] * 6 + [i32] * 8 \
+            + [p]
+        lib.ssd_scan_bwd.restype = ctypes.c_int
+        lib.ssd_scan_bwd_plan.argtypes = [i32] * 8 + [p, p]
+        lib.ssd_scan_bwd_plan.restype = ctypes.c_int
+        lib.ssd_scan_bwd_scratch.argtypes = [i32] * 7
+        lib.ssd_scan_bwd_scratch.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
+def bwd_plan(batch: int, t: int, heads: int, groups: int, n: int, p: int,
+             chunk: int, recompute: bool = False
+             ) -> Dict[str, Tuple[int, int]]:
+    """(dynamic shared memory bytes, blocks) of each kernel a backward
+    launch runs at these sizes, keyed by kernel name in launch order
+    (``recompute``: the states are recomputed first), as the launcher of
+    ``csrc/ssd_scan_bwd.cu`` sizes them (``ssd_scan_bwd_plan``).  Builds
+    the library; raises on sizes the backward does not take."""
+    smem = (ctypes.c_longlong * len(BWD_KERNELS))()
+    blk = (ctypes.c_longlong * len(BWD_KERNELS))()
+    k = _bwd_lib().ssd_scan_bwd_plan(int(recompute), batch, t, heads, p,
+                                     groups, n, chunk,
+                                     ctypes.addressof(smem),
+                                     ctypes.addressof(blk))
+    names = BWD_KERNELS if recompute else BWD_KERNELS[2:]
+    if k != len(names):
+        raise ValueError(f"the SSD backward does not take N={n}, P={p}, "
+                         f"T={t}, chunk={chunk}")
+    return {kn: (smem[i], blk[i]) for i, kn in enumerate(names)}
 
 
 def plan(name: str, batch: int, t: int, heads: int, n: int, p: int,
@@ -204,22 +297,21 @@ def _check(x, dt, a, b, c, chunk: int, force: Optional[str]) -> str:
     return name
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, chunk: int,
-             _variant: Optional[str] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x:[B,T,H,P] dt:[B,T,H] a:[H] b,c:[B,T,G,N] -> (y:[B,T,H,P] in x's
-    type, h:[B,H,N,P] float32), by the kernel that :func:`variant` picks,
-    its passes enqueued by one C call.  ``_variant`` forces a variant (the
-    chip smoke test times ``simt`` beside the chosen one with it)."""
+def ssd_scan_states(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, chunk: int,
+                    _variant: Optional[str] = None):
+    """:func:`ssd_scan`'s launch, with a third item: the ``mma_3xtf32``
+    scratch as (states entering each chunk [B, H, T / chunk, N, P],
+    in-chunk prefix sums of dt·a [B, H, T]), which :func:`ssd_scan_bwd`
+    reads, or None after ``simt``, which keeps none."""
     name = _check(x, dt, a, b, c, chunk, _variant)
     B, T, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
-        return y, h.zero_()
-    cum = st = None
+        return y, h.zero_(), None
+    cum = st = states = None
     if name == "mma_3xtf32":
         # one allocation: the states (16-byte aligned for cp.async), cum
         n_st = B * H * (T // chunk) * N * P
@@ -227,6 +319,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                               device=x.device)
         st = scratch.data_ptr()
         cum = st + 4 * n_st
+        states = (scratch[:n_st].view(B, H, T // chunk, N, P),
+                  scratch[n_st:].view(B, H, T))
     err = _lib().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), y.data_ptr(), h.data_ptr(), cum, st, B, T, H, P, G, N,
@@ -236,4 +330,115 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise RuntimeError(f"ssd_scan kernel launch failed ({name}): CUDA "
                            f"error {err}")
     VARIANT_LAUNCHES[name] += 1
-    return y, h
+    return y, h, states
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int,
+             _variant: Optional[str] = None):
+    """x:[B,T,H,P] dt:[B,T,H] a:[H] b,c:[B,T,G,N] -> (y:[B,T,H,P] in x's
+    type, h:[B,H,N,P] float32), by the kernel that :func:`variant` picks,
+    its passes enqueued by one C call.  ``_variant`` forces a variant (the
+    chip smoke test times ``simt`` beside the chosen one with it)."""
+    return ssd_scan_states(x, dt, a, b, c, chunk, _variant)[:2]
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                 dh: Optional[torch.Tensor], chunk: int,
+                 states: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """(dx, ddt, da, db, dc): the gradient of :func:`ssd_scan`'s (y, h) at
+    upstream ``dy`` (x's type and shape) and ``dh`` ([B, H, N, P] float32,
+    or None: h unused), by one call that enqueues the backward kernel's
+    passes, counted once in :data:`VARIANT_LAUNCHES` (``bwd_simt``, or
+    ``bwd_simt_recompute`` where ``states`` is None and the states are
+    recomputed).  ``states``: what :func:`ssd_scan_states` returned
+    third.  Gradients in the inputs' type, da float32.  A build or
+    launch error raises."""
+    _check(x, dt, a, b, c, chunk, None)
+    B, T, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    check_bwd(x.dtype, N, P)
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {x.dtype} tensor of x's "
+                         f"shape {tuple(x.shape)} on {x.device}")
+    if dh is not None and (tuple(dh.shape) != (B, H, N, P)
+                           or dh.dtype != torch.float32
+                           or dh.device != x.device
+                           or not dh.is_contiguous()):
+        raise ValueError(f"dh must be None or a contiguous float32 "
+                         f"[{B}, {H}, {N}, {P}] tensor on {x.device}")
+    nc = T // chunk
+    if states is not None:
+        st, cum = states
+        if tuple(st.shape) != (B, H, nc, N, P) or tuple(cum.shape) != \
+                (B, H, T) or st.dtype != torch.float32 or \
+                cum.dtype != torch.float32 or not st.is_contiguous() or \
+                not cum.is_contiguous():
+            raise ValueError("states must be the forward's float32 "
+                             "(states [B, H, T / chunk, N, P], cum "
+                             "[B, H, T])")
+    grads = (torch.empty_like(x), torch.empty_like(dt),
+             torch.empty(H, dtype=torch.float32, device=x.device),
+             torch.empty_like(b), torch.empty_like(c))
+    if x.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    name = "bwd_simt"
+    if states is None:
+        name = "bwd_simt_recompute"
+        st = torch.empty((B, H, nc, N, P), dtype=torch.float32,
+                         device=x.device)
+        cum = torch.empty((B, H, T), dtype=torch.float32, device=x.device)
+    lib = _bwd_lib()
+    n_scratch = lib.ssd_scan_bwd_scratch(B, T, H, P, G, N, chunk)
+    if n_scratch < 0:
+        raise ValueError(f"the SSD backward does not take N={N}, P={P}, "
+                         f"T={T}, chunk={chunk}")
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    dx, ddt, da, db, dc = grads
+    err = lib.ssd_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
+        st.data_ptr(), cum.data_ptr(), int(states is not None),
+        scratch.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), B, T, H, P, G, N, chunk,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed ({name}): "
+                           f"CUDA error {err}")
+    VARIANT_LAUNCHES[name] += 1
+    return grads
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernel with its gradient: the forward launches :func:`ssd_scan`
+    and saves its inputs and the states it leaves; the backward launches
+    :func:`ssd_scan_bwd`.  ``launches`` (``ops.LAUNCHES``) counts each
+    forward under ``ssd_scan`` (a replay under activation checkpointing
+    runs the forward, and its launch, again) and each backward under
+    ``ssd_scan_bwd``.  Widths the backward does not take raise before the
+    forward launches.  Either output may go unused: its gradient is then
+    None (zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk, launches):
+        check_bwd(x.dtype, b.shape[3], x.shape[3])
+        y, h, states = ssd_scan_states(x, dt, a, b, c, chunk)
+        launches["ssd_scan"] += 1
+        st, cum = (None, None) if states is None else states
+        ctx.save_for_backward(x, dt, a, b, c, st, cum)
+        ctx.chunk, ctx.launches = chunk, launches
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, b, c, st, cum = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh is not None:
+            dh = dh.contiguous()
+        grads = ssd_scan_bwd(x, dt, a, b, c, dy, dh, ctx.chunk,
+                             None if st is None else (st, cum))
+        ctx.launches["ssd_scan_bwd"] += 1
+        return (*grads, None, None)

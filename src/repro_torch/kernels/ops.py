@@ -12,13 +12,14 @@ Nothing falls back: a build or launch failure propagates (the policy is
 ``_device.resolve_impl``, shared with the fabric's water-fills).  Each
 kernel launch adds one to :data:`LAUNCHES` under the kernel's name.
 
-Gradients: flash attention on the card runs through
-``jet_flash_attention.FlashAttention`` whenever an input requires grad,
-whose backward is the kernel ``flash_attention_bwd``.  The other kernels
-have no backward: on the card they raise under grad
-(``_device.require_no_grad``) instead of returning an output that
-autograd would treat as a constant.  Their plain versions on the CPU
-keep autograd.
+Gradients: on the card flash attention runs through
+``jet_flash_attention.FlashAttention`` and the SSD scan through
+``mamba2_ssd.SSDScan`` whenever an input requires grad; their backwards
+are the kernels ``flash_attention_bwd`` and ``ssd_scan_bwd``.  The other
+kernels (paged decode, the staged matmul) have no backward: on the card
+they raise under grad (``_device.require_no_grad``) instead of returning
+an output that autograd would treat as a constant.  The plain versions
+on the CPU keep autograd.
 """
 from __future__ import annotations
 
@@ -32,11 +33,12 @@ from .jet_decode_attention import decode_attention_paged as _decode_cuda
 from .jet_flash_attention import FlashAttention
 from .jet_flash_attention import flash_attention as _flash_cuda
 from .jet_staged_matmul import staged_matmul as _matmul_cuda
+from .mamba2_ssd import SSDScan
 from .mamba2_ssd import ssd_scan as _ssd_cuda
 
 LAUNCHES = LaunchCounts(flash_attention=0, flash_attention_bwd=0,
-                        ssd_scan=0, decode_attention_paged=0,
-                        staged_matmul=0)
+                        ssd_scan=0, ssd_scan_bwd=0,
+                        decode_attention_paged=0, staged_matmul=0)
 reset_launches = LAUNCHES.reset
 
 
@@ -114,14 +116,18 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     the widths pick one of the kernel's variants (``mamba2_ssd.variant``:
     three chunk-parallel passes on the tensor cores through a 3xTF32 split
     for N, P multiples of 8 up to 128; the CUDA cores otherwise), counted
-    in ``mamba2_ssd.VARIANT_LAUNCHES``."""
+    in ``mamba2_ssd.VARIANT_LAUNCHES``.  When grad is enabled and an input
+    requires it, the launch goes through ``mamba2_ssd.SSDScan``, whose
+    backward launches ``ssd_scan_bwd`` (counted under that name)."""
     chunk = min(chunk, x.shape[1])
     if chunk < 1 or x.shape[1] % chunk:
         raise ValueError(f"sequence length {x.shape[1]} must divide by the "
                          f"chunk {chunk} (pad the sequence)")
     if resolve_impl(impl, x.device) == "ref":
         return ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
-    require_no_grad("ssd_scan", x, dt, a, b, c)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, b, c)):
+        return SSDScan.apply(x, dt, a, b, c, chunk, LAUNCHES)
     out = _ssd_cuda(x, dt, a, b, c, chunk)
     LAUNCHES["ssd_scan"] += 1
     return out

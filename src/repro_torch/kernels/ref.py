@@ -17,6 +17,7 @@ and defers to it; ``matmul_naive`` is the plain version of
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -230,10 +231,12 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     for ci in range(nc):
         xc, dtc, bc, cc = xf[:, ci], dtf[:, ci], bxc[:, ci], cxc[:, ci]
         cum = torch.cumsum(dtc * a, dim=1)                   # [B,L,H]
-        # intra-chunk masked attention; exp(seg) above the diagonal may
-        # overflow, so it is selected away, never multiplied by 0
+        # intra-chunk masked attention; above the diagonal seg is positive
+        # and exp(seg) may overflow, so seg is selected away before the
+        # exp (to -inf: exp gives 0 and autograd's gradient through it 0,
+        # where inf * 0 would give NaN)
         seg = cum[:, :, None, :] - cum[:, None, :, :]        # [B,L,L,H]
-        dec = torch.where(il[None, :, :, None], torch.exp(seg), 0.0)
+        dec = torch.exp(torch.where(il[None, :, :, None], seg, -math.inf))
         sc = torch.einsum("blhn,bmhn->blmh", cc, bc) * dec
         y_intra = torch.einsum("blmh,bmh,bmhp->blhp", sc, dtc, xc)
         # inter-chunk state contribution
@@ -246,3 +249,105 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, 1).reshape(B, T, H, P)
     return y.to(x.dtype), h
+
+
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                        dh: Optional[torch.Tensor] = None, chunk: int = 256):
+    """(dx, ddt, da, db, dc): the gradient of :func:`ssd_chunked_ref`'s
+    (y, h) at upstream dy and dh (None: h unused), from zero initial
+    state, written out chunk by chunk in the passes of
+    ``csrc/ssd_scan_bwd.cu`` (not by autograd): its plain version.
+    Gradients come in the inputs' types, da in float32.
+
+    Per (b, h) and chunk k, l and m its steps: cum the in-chunk prefix
+    sum of dt a, dec_lm = exp(cum_l - cum_m) for m <= l (selected away
+    above), s_lm = (c_l . b_m) dec_lm, w_m = dt_m exp(cum_last - cum_m),
+    H_k the state entering chunk k and G_k the gradient of the state
+    leaving it (G_last = dh).
+
+    1. the states H_k, as the forward carries them;
+    2. D_k = sum_l exp(cum_l) c_l dy_l^T, and the reverse carry
+       G_(k-1) = exp(cum_last) G_k + D_k;
+    3. the intra-chunk terms, with DX_lm = dy_l . x_m and
+       A_lm = DX_lm dec_lm dt_m:
+       dx_m = dt_m sum_l s_lm dy_l + w_m G^T b_m,
+       db_m = sum_l A_lm c_l + w_m G x_m (per head),
+       dc_l = sum_m A_lm b_m + exp(cum_l) H dy_l (per head),
+       ddt_m (direct) = sum_l s_lm DX_lm + exp(cum_last - cum_m) b_m^T G x_m,
+       and dcum, the gradient of cum: T_lm = s_lm dt_m DX_lm enters as
+       + row sums - column sums, Q_m = w_m b_m^T G x_m as - Q_m, and
+       exp(cum_l) c_l^T H dy_l; the last row adds
+       exp(cum_last) <G, H> + sum_m Q_m;
+    4. r = the reverse in-chunk cumsum of dcum: ddt = direct + a r,
+       da = sum over batch and time of dt r, and db, dc summed over the
+       heads of each group."""
+    B, T, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if T % chunk:
+        raise ValueError(f"sequence length {T} must divide by the chunk "
+                         f"{chunk} (pad the sequence)")
+    L, nc, rep = chunk, T // chunk, H // G
+    dev = x.device
+    xc = x.float().reshape(B, nc, L, H, P)
+    dyc = dy.float().reshape(B, nc, L, H, P)
+    dtc = dt.float().reshape(B, nc, L, H)
+    bc = b.float().repeat_interleave(rep, dim=2).reshape(B, nc, L, H, N)
+    cc = c.float().repeat_interleave(rep, dim=2).reshape(B, nc, L, H, N)
+    af = a.float()
+    cum = torch.cumsum(dtc * af, dim=2)                     # [B,nc,L,H]
+    last = cum[:, :, -1]                                     # [B,nc,H]
+    il = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [B,nc,l,m,H]
+    dec = torch.exp(torch.where(il[:, :, None], seg, -math.inf))
+    ecum = torch.exp(cum)
+    to_end = torch.exp(last[:, :, None] - cum)
+    w = dtc * to_end
+
+    # 1. the states entering each chunk
+    s_k = torch.einsum("bklhn,bklh,bklhp->bkhnp", bc, w, xc)
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+    hs = []
+    for k in range(nc):
+        hs.append(h)
+        h = torch.exp(last[:, k])[..., None, None] * h + s_k[:, k]
+    hk = torch.stack(hs, 1)                                  # [B,nc,H,N,P]
+
+    # 2. each chunk's gradient into its entering state, carried back
+    d_k = torch.einsum("bklhn,bklh,bklhp->bkhnp", cc, ecum, dyc)
+    g = torch.zeros_like(h) if dh is None else dh.float()
+    gs = [g] * nc
+    for k in reversed(range(nc)):
+        gs[k] = g
+        g = torch.exp(last[:, k])[..., None, None] * g + d_k[:, k]
+    gk = torch.stack(gs, 1)                                  # [B,nc,H,N,P]
+
+    # 3. the intra-chunk terms
+    cb = torch.einsum("bklhn,bkmhn->bklmh", cc, bc)
+    dxm = torch.einsum("bklhp,bkmhp->bklmh", dyc, xc)        # DX_lm
+    s = cb * dec
+    dtm = dtc[:, :, None]                                    # [B,nc,1,m,H]
+    amat = dxm * dec * dtm
+    tmat = s * dtm * dxm
+    gx = torch.einsum("bkhnp,bkmhp->bkmhn", gk, xc)          # G x_m
+    bgx = (bc * gx).sum(-1)                                  # b_m^T G x_m
+    hdy = torch.einsum("bkhnp,bklhp->bklhn", hk, dyc)        # H dy_l
+    dx = (torch.einsum("bklmh,bklhp->bkmhp", s * dtm, dyc)
+          + w[..., None] * torch.einsum("bkmhn,bkhnp->bkmhp", bc, gk))
+    db_h = torch.einsum("bklmh,bklhn->bkmhn", amat, cc) + w[..., None] * gx
+    dc_h = torch.einsum("bklmh,bkmhn->bklhn", amat, bc) \
+        + ecum[..., None] * hdy
+    ddt = (s * dxm).sum(2) + to_end * bgx
+    q = w * bgx
+    dcum = tmat.sum(3) - tmat.sum(2) + ecum * (cc * hdy).sum(-1) - q
+    dcum[:, :, -1] += torch.exp(last) * (gk * hk).sum((-2, -1)) + q.sum(2)
+
+    # 4. the reverse cumsum into ddt and da; the group sums
+    r = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = ddt + af * r
+    da = (dtc * r).sum((0, 1, 2))
+    db = db_h.reshape(B, T, G, rep, N).sum(3)
+    dc = dc_h.reshape(B, T, G, rep, N).sum(3)
+    return (dx.reshape(B, T, H, P).to(x.dtype),
+            ddt.reshape(B, T, H).to(dt.dtype), da, db.to(b.dtype),
+            dc.to(c.dtype))

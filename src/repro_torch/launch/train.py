@@ -8,8 +8,9 @@ The reference's flags, plus ``--device``.  ``--mesh`` takes only
 ``1x1``, where the reference trains with an MoE capacity factor of 2.0
 and so does this launcher; a larger mesh needs ROADMAP Queue 1 A4 and
 raises.  The reference's ``--host-devices`` (JAX's host device count)
-has no counterpart.  On the card the SSD families (zamba2-1.2b) raise:
-the SSD scan has no backward kernel yet.
+has no counterpart.  On the card every family trains through the
+kernels: the SSD families (zamba2-1.2b) through the SSD scan's backward
+kernel, the attention families through flash attention's.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Mamba2 block (``repro.models.ssm``): projections, causal depthwise conv,
-the chunked SSD scan (the ``ssd_scan`` kernel) and the gated output;
-one-token decode runs the plain recurrence.
+the chunked SSD scan (the ``ssd_scan`` kernel; under grad on the card
+``SSDScan``, whose backward is the ``ssd_scan_bwd`` kernel) and the gated
+output; one-token decode runs the plain recurrence.
 
 The conv stays the reference's sum of shifted products (no cuDNN, so no
 TF32 convolution on the card).  The reference's ``ParallelCtx`` argument

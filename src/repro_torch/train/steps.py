@@ -10,9 +10,9 @@ knob raises ``ValueError``.
 
 Gradients come from autograd through the model's forward: the card's
 flash attention through ``kernels.jet_flash_attention.FlashAttention``
-(its backward is the kernel ``flash_attention_bwd``); a kernel with no
-backward (the SSD scan) raises on the card under grad, so the SSD
-families train on the CPU only for now.
+(its backward is the kernel ``flash_attention_bwd``) and its SSD scan
+through ``kernels.mamba2_ssd.SSDScan`` (the kernel ``ssd_scan_bwd``), so
+every family trains on the card.
 """
 from __future__ import annotations
 

@@ -24,9 +24,12 @@ path's shapes on the variant its type picks (the first design forced
 too), deterministic, zero for rows that see no key, its tile plan the C
 launcher's; the serve
 path's flash launches unchanged without grad; the kernels with no
-backward raising under grad (an SSD family cannot train on the card);
-tiny models' gradients through the kernels against the plain versions
-under each remat policy.
+backward raising under grad; the SSD scan's backward against its plain
+version and autograd of the plain forward (dh zero and not; the
+forward's states read, or recomputed after simt), deterministic, its
+launch plan the Python one, no spill at the train path's widths; tiny
+models' gradients (zamba2's SSD layers too) through the kernels against
+the plain versions under each remat policy.
 
 Needs an NVIDIA card and ``nvcc``; every test skips without one.  The
 file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -819,7 +822,9 @@ def test_ssd_simt_forced_matches_plain(card):
     y, h = mssd.ssd_scan(x, dt, a, b, c, 256, _variant="simt")
     y0, h0 = ops.ssd(x, dt, a, b, c, chunk=256, impl="ref")
     torch.cuda.synchronize()
-    assert dict(mssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 1}
+    assert dict(mssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 1,
+                                           "bwd_simt": 0,
+                                           "bwd_simt_recompute": 0}
     _close(y, y0, 2e-4)
     _close(h, h0, 2e-4)
 
@@ -881,8 +886,8 @@ def test_tiny_zamba2_prefill_runs_through_the_kernels(card):
     ops.reset_launches()
     lk, sk, _ = api.prefill(params, cfg, tok, max_len=80)
     assert ops.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 0,
-                            "ssd_scan": 7, "decode_attention_paged": 0,
-                            "staged_matmul": 0}
+                            "ssd_scan": 7, "ssd_scan_bwd": 0,
+                            "decode_attention_paged": 0, "staged_matmul": 0}
     lr, sr, _ = api.prefill(params, cfg, tok, max_len=80, impl="ref")
     assert float((lk - lr).abs().max() / lr.abs().max()) <= 2e-3
 
@@ -1341,8 +1346,6 @@ def test_kernels_without_backward_raise_under_grad_on_the_card(card):
     dt = torch.zeros((1, 64, 4), device=card)
     a = -torch.ones((4,), device=card)
     bc = torch.zeros((1, 64, 1, 64), device=card)
-    with pytest.raises(RuntimeError, match="ssd_scan: .*no backward"):
-        ops.ssd(x, dt, a, bc, bc, chunk=64)
     m = torch.zeros((64, 64), device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="staged_matmul: .*no backward"):
         ops.staged_matmul(m, m.detach())
@@ -1354,22 +1357,21 @@ def test_kernels_without_backward_raise_under_grad_on_the_card(card):
     with torch.no_grad():               # without grad they run
         ops.ssd(x, dt, a, bc, bc, chunk=64)
         ops.staged_matmul(m, m)
-    # an SSD family cannot train on the card yet: it raises, naming it
-    cfg = tiny_config(get_arch("zamba2-1.2b"))
-    from repro_torch.train import steps
-    params = api.init_params(cfg, torch.Generator(device=card).manual_seed(0),
-                             device=card)
-    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
-    with pytest.raises(RuntimeError, match="ssd_scan"):
-        steps.loss_and_grads(cfg, params, {"tokens": tok, "targets": tok})
+    # the SSD scan has its backward kernel: under grad it runs SSDScan
+    ops.reset_launches()
+    y, _ = ops.ssd(x, dt, a, bc, bc, chunk=64)
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    y.sum().backward()
+    assert ops.LAUNCHES["ssd_scan"] == 1 and ops.LAUNCHES["ssd_scan_bwd"] == 1
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "llama4-scout-17b-a16e",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b", "zamba2-1.2b"])
 def test_tiny_gradients_on_the_card_match_plain(card, arch):
     """The tiny model's loss and gradient through the kernels (flash
-    forward and backward) against the plain versions on the card, with
-    each remat policy; MoE and cross-attention included."""
+    forward and backward; zamba2 also the SSD scan's) against the plain
+    versions on the card, with each remat policy; MoE and
+    cross-attention included."""
     from repro_torch import _tree
     from repro_torch.train import steps
     cfg = tiny_config(get_arch(arch))
@@ -1383,7 +1385,136 @@ def test_tiny_gradients_on_the_card_match_plain(card, arch):
         ops.reset_launches()
         gk, lk, _ = steps.loss_and_grads(cfg, params, batch, remat=remat)
         assert ops.LAUNCHES["flash_attention_bwd"] > 0
+        if arch == "zamba2-1.2b":
+            assert ops.LAUNCHES["ssd_scan_bwd"] == cfg.num_layers
         assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
         for x, y in zip(_tree.leaves(gk), _tree.leaves(gp)):
             assert float((x - y).abs().max()) <= \
                 1e-4 * float(y.abs().max().clamp(min=1e-30))
+
+
+# --------------------------------------------------------------------------- #
+# training: the SSD scan's backward
+# --------------------------------------------------------------------------- #
+# (B, T, H, P, G, N, chunk, dtype): the train path's zamba2 shape, the
+# serve widths at 1,024 tokens, one chunk, G = 2 < H (the group sums),
+# bfloat16, the simt widths (P = 20: the forward keeps no states, the
+# backward recomputes them), a ragged chunk of 20 and the widest tiles
+SSD_BWD = [(2, 4096, 64, 64, 1, 64, 256, torch.float32),
+           (1, 1024, 64, 64, 1, 64, 256, torch.float32),
+           (1, 256, 64, 64, 1, 64, 256, torch.float32),
+           (1, 1024, 8, 64, 2, 64, 256, torch.float32),
+           (1, 1024, 64, 64, 1, 64, 256, torch.bfloat16),
+           (1, 1024, 64, 20, 1, 64, 256, torch.float32),
+           (2, 100, 4, 16, 1, 8, 20, torch.float32),
+           (1, 512, 4, 128, 1, 128, 256, torch.float32)]
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max |g|
+
+
+def _ssd_grad_inputs(card, B, T, H, P, G, N, dtype, seed, with_dh):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=card)
+    x, b, c, dy = draw(B, T, H, P), draw(B, T, G, N), draw(B, T, G, N), \
+        draw(B, T, H, P)
+    dt = torch.nn.functional.softplus(draw(B, T, H) * 0.5
+                                      + math.log(math.expm1(0.05)))
+    a = -torch.linspace(1.0, 8.0, H, device=card)
+    dh = draw(B, H, N, P) if with_dh else None
+    x, dt, b, c, dy = (v.to(dtype) for v in (x, dt, b, c, dy))
+    return x, dt, a, b, c, dy, dh
+
+
+def _held(got, want, tol):
+    for gk, gp in zip(got, want):
+        assert gk.dtype == gp.dtype and torch.isfinite(gk).all()
+        err = float((gk.float() - gp.float()).abs().max())
+        assert err <= tol * float(gp.float().abs().max()), err
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,dtype", SSD_BWD)
+def test_ssd_backward_matches_plain(card, B, T, H, P, G, N, chunk, dtype,
+                                    with_dh):
+    """ops.ssd under grad runs SSDScan: dx, ddt, da, db, dc within
+    SSD_BWD_TOL of the plain backward (``ssd_chunked_bwd_ref``) and of
+    autograd of the plain forward, with dh zero (h unused) and not."""
+    from repro_torch.kernels import ref
+    x, dt, a, b, c, dy, dh = _ssd_grad_inputs(card, B, T, H, P, G, N,
+                                              dtype, T + H + P, with_dh)
+    leaves = [v.clone().requires_grad_(True) for v in (x, dt, a, b, c)]
+    ops.reset_launches()
+    mssd.VARIANT_LAUNCHES.reset()
+    y, h = ops.ssd(*leaves, chunk=chunk)
+    outs, ups = ([y, h], [dy, dh]) if with_dh else ([y], [dy])
+    got = torch.autograd.grad(outs, leaves, ups)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    assert ops.LAUNCHES["ssd_scan_bwd"] == 1
+    fwd = mssd.variant(dtype, N, P)
+    bwd = "bwd_simt" if fwd == "mma_3xtf32" else "bwd_simt_recompute"
+    assert {n: k for n, k in mssd.VARIANT_LAUNCHES.items() if k} == \
+        {fwd: 1, bwd: 1}
+    tol = SSD_BWD_TOL[dtype]
+    _held(got, ref.ssd_chunked_bwd_ref(x, dt, a, b, c, dy, dh,
+                                       chunk=min(chunk, T)), tol)
+    plain = [v.clone().requires_grad_(True) for v in (x, dt, a, b, c)]
+    y0, h0 = ops.ssd(*plain, chunk=chunk, impl="ref")
+    _held(got, torch.autograd.grad([y0, h0] if with_dh else [y0], plain,
+                                   ups), tol)
+
+
+def test_ssd_backward_is_deterministic(card):
+    """Two launches give the same bits (no atomics), from the forward's
+    states and with the states recomputed."""
+    x, dt, a, b, c, dy, dh = _ssd_grad_inputs(card, 2, 1024, 16, 64, 1, 64,
+                                              torch.float32, 9, True)
+    _, _, states = mssd.ssd_scan_states(x, dt, a, b, c, 256)
+    for st in (states, None):
+        one = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, 256, st)
+        two = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, 256, st)
+        for p, q in zip(one, two):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("n,p,chunk", [(64, 64, 256), (20, 12, 20),
+                                       (128, 64, 80), (128, 128, 256)])
+def test_ssd_backward_plan_is_the_python_plan(card, n, p, chunk):
+    # what the C launcher asks for (ssd_scan_bwd_plan) against
+    # bwd_smem_bytes, the Python plan the CPU tests hold to 227 KB
+    for recompute in (False, True):
+        plan = mssd.bwd_plan(2, 4 * chunk, 3, 1, n, p, chunk, recompute)
+        want = mssd.BWD_KERNELS if recompute else mssd.BWD_KERNELS[2:]
+        assert list(plan) == list(want)
+        assert max(s for s, _ in plan.values()) == mssd.bwd_smem_bytes(n, p)
+        tiles = -(-chunk // 64)
+        assert plan["ssd_bwd_dstate_kernel"][1] == 2 * 3 * 4
+        assert plan["ssd_bwd_key_kernel"][1] == 2 * 3 * 4 * tiles
+        assert plan["ssd_bwd_query_kernel"][1] == 2 * 3 * 4 * tiles
+    with pytest.raises(ValueError, match="does not take"):
+        mssd.bwd_plan(1, 256, 2, 1, 136, 64, 256)
+
+
+def test_ssd_backward_does_not_spill_at_the_path_widths(card, tmp_path):
+    """ptxas's report of the backward's float32 64 x 64 instantiations
+    (the train path's widths): no spill, none over 255 registers."""
+    import re
+    import subprocess
+    from repro_torch import _build
+    out = subprocess.run(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp_path / "b.so"),
+         str(_build.CSRC / "ssd_scan_bwd.cu")], capture_output=True,
+        text=True)
+    assert out.returncode == 0, out.stderr
+    seen, name = {}, None
+    for ln in (out.stdout + out.stderr).splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "spill stores" in ln:
+            seen[name] = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                     ln)]
+    path = {k: v for k, v in seen.items()
+            if re.search(r"ssd_bwd_\w+_kernelIfLi64ELi64E", k)}
+    assert len(path) == 4, sorted(seen)   # state, dstate, key, query
+    assert not any(sum(v) for v in path.values()), path

@@ -10,7 +10,8 @@
   through ``FlashAttention`` under grad (one ``flash_attention_bwd`` a
   call, the forward counted again on each activation-checkpoint replay)
   and through the plain kernel without; every kernel with no backward
-  raises under grad before it launches (``_device.require_no_grad``).
+  raises under grad before it launches (``_device.require_no_grad``;
+  the SSD scan has its backward since: ``tests/test_torch_ssd_grad.py``).
 * The backward kernel's head-dim rule, variants and tile / shared-memory
   plan (its arithmetic: ``tests/test_torch_flash_bwd.py``).
 * The activation-checkpoint policies: ``remat`` "none", "full" and
@@ -177,9 +178,6 @@ def test_training_launch_counts(cuda_branch, remat, fwd_per_layer):
 
 
 def _guarded_calls():
-    x = torch.zeros((1, 64, 2, 8))
-    dt, a = torch.zeros((1, 64, 2)), torch.zeros((2,))
-    bc = torch.zeros((1, 64, 1, 4))
     q, pages = torch.zeros((1, 2, 8)), torch.zeros((2, 4, 2, 8))
     table = torch.zeros((1, 2), dtype=torch.int32)
     lengths = torch.ones((1,), dtype=torch.int32)
@@ -187,7 +185,6 @@ def _guarded_calls():
     plan = fused.seg_plan(np.array([0, 1, 1]), 2)
     demand = torch.zeros((2, 3, 4))
     return {
-        "ssd_scan": (lambda g: ops.ssd(x.requires_grad_(g), dt, a, bc, bc)),
         "decode_attention_paged": (lambda g: ops.decode_attention(
             q.requires_grad_(g), pages, pages, table, lengths)),
         "staged_matmul": (lambda g: ops.staged_matmul(m.requires_grad_(g),

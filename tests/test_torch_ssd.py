@@ -84,7 +84,9 @@ def test_wrapper_refuses_cpu_tensors_and_unknown_variants():
     bc = torch.zeros((1, 8, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         ssd.ssd_scan(x, dt, a, bc, bc, 8)
-    assert dict(ssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 0}
+    assert dict(ssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 0,
+                                          "bwd_simt": 0,
+                                          "bwd_simt_recompute": 0}
 
 
 # --------------------------------------------------------------------------- #
