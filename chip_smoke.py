@@ -323,19 +323,24 @@ SSD forward rows, ``kernel`` rows of the SSD backward
 (``csrc/ssd_scan_bwd.cu``): the train path's zamba2 shape (x [2, 4096,
 64, 64], N 64, one group, chunk 256, float32), the serve widths at 1,024
 tokens, one chunk, two groups, bfloat16 and the simt widths (P = 20,
-states recomputed); dx, ddt, da, db, dc within 1e-4 (float32) or 2e-2
-(bfloat16) of their largest magnitudes of autograd's gradient of the
-plain forward and of the plain backward (``ssd_chunked_bwd_ref``), with
-dh zero and non-zero; two launches bit-equal; the C plan's shared memory
-equal to ``bwd_smem_bytes``; kernel and plain ms, each pass's device µs,
-and the bound (the work the timed call needs, at dh None, at the tensor
-cores' peak for the type as for flash's backward: 165 TFLOP/s for
-float32, 989 for bfloat16; the CUDA cores' 67, this design's route,
-beside it as ``bound_simt_ms``); no library call computes it; the
-``card`` line reports the backward's 39 instantiations, none of which
-may spill.  After the api phases: ``train_danube`` (h2o-danube-1.8b
-whole, float32, batch 2 x 4,096 tokens of the ``for_arch`` pipeline,
-``remat="full"``, AdamW with float32 moments, through ``train.steps``:
+states recomputed); each on the design its widths pick
+(``bwd_mma_3xtf32``, the tensor cores, where the forward keeps its
+states; ``bwd_simt_recompute`` at P = 20); dx, ddt, da, db, dc within
+1e-4 (float32) or 2e-2 (bfloat16) of their largest magnitudes of
+autograd's gradient of the plain forward and of the plain backward
+(``ssd_chunked_bwd_ref``), with dh zero and non-zero; two launches
+bit-equal; the C plan's shared memory equal to ``bwd_smem_bytes``;
+kernel and plain ms, each pass's device µs, the first design
+(``bwd_simt``) forced in the same call as ``prev_ms`` and
+``prev_device_ms`` (every tensor-core row must beat it), and the bound
+(the work the timed call needs, at dh None, at the tensor cores' peak
+for the type as for flash's backward: 165 TFLOP/s for float32, 989 for
+bfloat16; the CUDA cores' 67 beside it as ``bound_simt_ms``); no library
+call computes it; the ``card`` line reports the backward's 55
+instantiations, none of which may spill.  After the api phases:
+``train_danube`` (h2o-danube-1.8b whole, float32, batch 2 x 4,096
+tokens of the ``for_arch`` pipeline, ``remat="full"``, AdamW with
+float32 moments, through ``train.steps``:
 one warm-up and three timed steps; every loss and gradient norm finite,
 the first loss within 1e-5 of the plain versions' on the same state,
 flash attention 48 and its backward 24 launches a step; ms a step,
@@ -344,7 +349,8 @@ gradient and AdamW, by kernel name); ``train_zamba2`` (zamba2-1.2b
 whole, 38 layers, the same batch, pipeline and optimizer: one warm-up
 and two timed steps, the same checks, the SSD scan 74 launches a step
 (the 36 layers of the six checkpointed units twice, the 2 remainder
-layers once), its backward 38, flash attention 12 and its backward 6);
+layers once), its backward 38 (all on ``bwd_mma_3xtf32``), flash
+attention 12 and its backward 6);
 ``train_vs_plain`` (danube at full width cut to 2 layers, then zamba2 at
 full width cut to 6, 5 Mamba2 layers and one with the shared attention
 block, each 2 x 1,024 tokens: loss and gradient norm within 1e-5, every
@@ -1013,7 +1019,7 @@ def profile_phase() -> None:
     """Kernel launches per tick and device busy share over a short run,
     under the graph (replays only) and eager; the water-fills' device
     time a launch and the top kernels under the graph."""
-    prof = fabric_profile(incast_grid(50e-6), 50, top=8)
+    prof = fabric_profile(incast_grid(50e-6), 50, top=8, eager=True)
     emit("profile", **prof)
     check(prof["waterfills_per_tick"] == 5
           and prof["eager"]["waterfills_per_tick"] == 5,
@@ -1531,18 +1537,19 @@ def profile_window(fn, ticks: int, warm: bool = True, top: int = 0) -> dict:
 
 
 def fabric_profile(scens, ticks: int, top: int = 0,
-                   sparse: bool = False) -> dict:
+                   sparse: bool = False, eager: bool = False) -> dict:
     """:func:`profile_window` of a fabric grid's run under the graph
     (captured before the window opens, so it holds replays only, with the
-    capture's seconds beside it) and, under ``eager``, of the eager
-    loop.  The profiler slows the replays more than the eager loop, so
+    capture's seconds beside it) and, with ``eager``, under ``eager``, of
+    the eager loop (only the main grid's: its record parse took 14–19 s a
+    grid).  The profiler slows the replays more than the eager loop, so
     each also has its busy share over the wall of the same run without
     the profiler (``device_busy_share_unprofiled``)."""
     import torch
     from repro_torch.fabric.vector import FabricRun, FabricSweepParams
     fsp = FabricSweepParams.from_scenarios(scens, sparse=sparse)
     out = {}
-    for mode in (False, "auto"):
+    for mode in (False, "auto") if eager else ("auto",):
         run = FabricRun(fsp, graph=mode)
         prof = profile_window(run.run, ticks, warm=False,
                               top=top if mode else 0)
@@ -1557,7 +1564,7 @@ def fabric_profile(scens, ticks: int, top: int = 0,
         if mode:
             prof["capture_s"] = run.capture_s
         out[mode] = prof
-    return {**out["auto"], "eager": out[False]}
+    return {**out["auto"], **({"eager": out[False]} if eager else {})}
 
 
 def sweep_phase(label: str, dense: bool):
@@ -4081,9 +4088,13 @@ def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
     bit-equal (no atomics); the C launch plan against
     ``mamba2_ssd.bwd_smem_bytes``; and time it (the path's call: the
     forward's states, dh None) beside the plain backward, each pass's
-    device time from the profiler.  Where the widths run the forward's
-    ``simt`` (no states kept) the backward recomputes the states, and the
-    row times that."""
+    device time from the profiler.  On the design ``bwd_variant`` picks:
+    ``bwd_mma_3xtf32`` where the forward runs ``mma_3xtf32``, timed in
+    turns with the first design (``bwd_simt``) forced in the same call
+    (``prev_ms``, ``prev_device_ms``; its gradients held to the same
+    tolerance), which it must beat.  Where the widths run the forward's
+    ``simt`` (no states kept) the backward recomputes the states
+    (``bwd_simt_recompute``), and the row times that."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4137,30 +4148,48 @@ def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
     torch.cuda.synchronize()
     counts = ops.LAUNCHES.read()
     fwd = mssd.variant(ty, N, P)
-    want_bwd = "bwd_simt" if fwd == "mma_3xtf32" else "bwd_simt_recompute"
+    want_bwd = mssd.bwd_variant(ty, N, P)
+    mma = want_bwd == "bwd_mma_3xtf32"
     ran = {n: k for n, k in mssd.VARIANT_LAUNCHES.items() if k}
     _, _, states = mssd.ssd_scan_states(x, dt, a, b, c, L)
 
     def kernel():
         return mssd.ssd_scan_bwd(x, dt, a, b, c, dy, None, L, states)
 
+    def prev():
+        return mssd.ssd_scan_bwd(x, dt, a, b, c, dy, None, L, states,
+                                 _variant="bwd_simt")
+
     def plain():
         return ref.ssd_chunked_bwd_ref(x, dt, a, b, c, dy, None, chunk=L)
     one, two = kernel(), kernel()
     deterministic = all(torch.equal(p_, q_) for p_, q_ in zip(one, two))
+    want = plain()
     max_abs = max(float((g.float() - w.float()).abs().max())
-                  for g, w in zip(one, plain()))
-    del one, two
-    ms = cuda_ms(kernel, iters, warmup=2)
-    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+                  for g, w in zip(one, want))
+    prev_errs, prev_ok = held(prev(), want) if mma else (None, True)
+    del one, two, want
     recompute = states is None
-    kplan = mssd.bwd_plan(B, T, H, G, N, P, L, recompute)
+    if mma:
+        # the new design and the first in turns: prev, new, new, prev
+        prev_runs = [cuda_ms(prev, iters, warmup=1)]
+        ms_runs = [cuda_ms(kernel, iters, warmup=2) for _ in range(2)]
+        prev_runs.append(cuda_ms(prev, iters, warmup=0))
+        prev_plan = mssd.bwd_plan("bwd_simt", B, T, H, G, N, P, L,
+                                  recompute)
+        prev_dev = device_us(prev, list(prev_plan))
+    else:
+        ms_runs, prev_runs, prev_dev = [cuda_ms(kernel, iters, warmup=2)], \
+            None, None
+    ms = min(ms_runs)
+    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+    kplan = mssd.bwd_plan(want_bwd, B, T, H, G, N, P, L, recompute)
     dev = device_us(kernel, list(kplan))
     nops, nbytes = ssd_bwd_work(B, T, H, G, N, P, L, x.element_size(),
                                 recompute)
     # the card's peak for the type: bfloat16 on the tensor cores, float32
     # through 3xTF32 (the TF32 rate over 3); the CUDA cores' float32 peak,
-    # this design's route, beside it
+    # the first design's route, beside it
     bms, by = bound(nbytes, nops, BF16_OPS_PER_S if dtype == "bfloat16"
                     else TF32_OPS_PER_S / 3)
     b_simt, _ = bound(nbytes, nops, FP32_OPS_PER_S)
@@ -4173,7 +4202,12 @@ def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
            "blocks": {k: v[1] for k, v in kplan.items()},
            "smem_bytes": max(v[0] for v in kplan.values()),
            "device_us": dev, "device_ms": sum(dev.values()) / 1e3,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "ms": ms, "ms_runs": ms_runs, "plain_ms": plain_ms,
+           "prev_ms": min(prev_runs) if prev_runs else None,
+           "prev_ms_runs": prev_runs, "prev_device_us": prev_dev,
+           "prev_device_ms": sum(prev_dev.values()) / 1e3 if prev_dev
+           else None, "prev_ok": prev_ok, "prev_errors": prev_errs,
+           "bound_ms": bms, "bound_by": by,
            "bound_simt_ms": b_simt, "library_ms": None,
            "tflops": nops / ms * 1e-9, "gflop": nops / 1e9, "bytes": nbytes}
     emit("kernel", **row)
@@ -4183,10 +4217,15 @@ def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
     check(ok, f"ssd_scan_bwd kernel != plain ({label}): {errs}, tol {tol} "
               f"of each gradient's largest magnitude")
     check(deterministic, f"ssd_scan_bwd ({label}): two launches differ")
-    check(row["smem_bytes"] == mssd.bwd_smem_bytes(N, P),
+    check(row["smem_bytes"] == mssd.bwd_smem_bytes(want_bwd, N, P),
           f"ssd_scan_bwd ({label}): the kernel asks for {row['smem_bytes']}"
           f" bytes of shared memory, bwd_smem_bytes says "
-          f"{mssd.bwd_smem_bytes(N, P)}")
+          f"{mssd.bwd_smem_bytes(want_bwd, N, P)}")
+    check(prev_ok, f"ssd_scan_bwd bwd_simt forced != plain ({label}): "
+                   f"{prev_errs}")
+    check(not mma or ms < row["prev_ms"],
+          f"ssd_scan_bwd ({label}): {want_bwd} {ms_runs} ms is not faster "
+          f"than bwd_simt forced, {prev_runs} ms")
     del states
     torch.cuda.empty_cache()
     return row
@@ -4350,8 +4389,9 @@ def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
           and fv["bwd_simt"] == 0,
           f"{phase}: flash variants {fv}")
     check(sv["mma_3xtf32"] == want["ssd_scan"]
-          and sv["bwd_simt"] == want["ssd_scan_bwd"]
-          and sv["simt"] == 0 and sv["bwd_simt_recompute"] == 0,
+          and sv["bwd_mma_3xtf32"] == want["ssd_scan_bwd"]
+          and sv["simt"] == 0 and sv["bwd_simt"] == 0
+          and sv["bwd_simt_recompute"] == 0,
           f"{phase}: SSD variants {sv}")
     del state
     torch.cuda.empty_cache()
@@ -4604,10 +4644,10 @@ def run() -> int:
             if key.count("/") == 2 and int(key.split("/")[2]) <= 128)),
             f"a flash backward kernel of head dim <= 128 spills: "
             f"{flash_bwd}")
-        # the SSD backward: 4 tiled passes x 4 width tiles x 2 types, the
-        # dt pass and the group sums in 2 types, 2 carries and da; none
-        # may spill
-        check(ssd_bwd is None or (len(ssd_bwd) == 39 and not any(
+        # the SSD backward: bwd_simt's 4 tiled passes x 4 width tiles x 2
+        # types, bwd_mma_3xtf32's x 2 square tiles x 2 types, the dt pass
+        # and the group sums in 2 types, 2 carries and da; none may spill
+        check(ssd_bwd is None or (len(ssd_bwd) == 55 and not any(
             r["spill_bytes"] for r in ssd_bwd.values())),
             f"an SSD backward kernel spills: {ssd_bwd}")
         rows = {}

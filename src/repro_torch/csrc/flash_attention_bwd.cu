@@ -184,13 +184,6 @@ __device__ __forceinline__ bool all_see(int qa, int qb, int ka, int kb,
          (window <= 0 || qb + offset - ka < window);
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // One accumulator row (r: C-fragment rows g / g + 8) of a thread's n8
 // tiles times mul into row[8 dt + 2 tq], columns below ncol, if in; a
 // float32 row adds what row holds unless first (a group of tiles loads
@@ -319,10 +312,6 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const T* src,
     const T* from = in ? src + (size_t)(r0 + r) * d + c * (16 / ES) : src;
     cp_async16(smem_u32(dst + r * rs + c * 16), from, in);
   }
-}
-
-__device__ __forceinline__ uint32_t fbits(float x) {
-  return __float_as_uint(x);
 }
 
 // pass 2: dk, dv.  Grid (B * Hkv * split, key tiles of 64).

@@ -1,9 +1,9 @@
 // Shared building blocks of the port's mma.sync kernels (sm_90a):
 // 16-byte cp.async with zero fill, ldmatrix (plain and transposed), the
 // bf16 m16n8k16 product with float32 accumulators, bf16 packing, the tf32
-// m16n8k8 product and the 3xTF32 split that keeps float32 accuracy, and
-// the typed fragments (AFrag / BFrag / mma) that run one code path over
-// either type.
+// m16n8k8 product and the 3xTF32 split that keeps float32 accuracy, the
+// typed fragments (AFrag / BFrag / mma) that run one code path over
+// either type, and the paired store of two accumulator columns.
 //
 // Fragment layouts are PTX's for mma.m16n8k16 (lane = 4 * g + tq): an A
 // fragment holds rows g and g + 8 at k columns 2tq, 2tq + 1 (registers 0,
@@ -122,6 +122,19 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big,
   big = (x + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(__fsub_rn(__uint_as_float(x),
                                     __uint_as_float(big)));
+}
+
+// a float32's bits, as a tf32 fragment register holds them
+__device__ __forceinline__ uint32_t fbits(float x) {
+  return __float_as_uint(x);
+}
+
+// two adjacent accumulator columns to memory, rounded to the output type
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // The A operand of one 32-byte k step (16 rows) and the B operand of one

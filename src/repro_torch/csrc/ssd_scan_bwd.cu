@@ -24,11 +24,51 @@
 // causal halves of c.b and dy.x, and of the products into dx, db, dc)
 // + 8 L N P flops against L (2N + 2P + 1) elements in and out: at
 // L = 256, N = P = 64 about 150 flop a byte, far above the float32 ridge.
-// This first kernel runs everything in float32 on the CUDA cores (a
-// 16 x 16 thread grid, each thread a 4 x 4 or wider register tile,
-// operands from shared memory padded to conflict-free rows); the tensor
-// cores are later work.  It is deterministic: no atomics, every sum in a
-// fixed order (the training loop's bitwise resume relies on it).
+// Both designs are deterministic: no atomics, every sum in a fixed order
+// (the training loop's bitwise resume relies on it).
+//
+// Two designs of the same passes, picked by mamba2_ssd.bwd_variant before
+// the launch:
+//
+// * bwd_mma_3xtf32 (N and P multiples of 8 up to 128, where the forward
+//   runs mma_3xtf32 and keeps its states): the products of passes 0, 2, 4
+//   and 5 on the tensor cores through mma.sync m16n8k8 TF32 with the
+//   3xTF32 split (fragments, cp.async and the split from mma_sync.cuh),
+//   float32 accuracy; bfloat16 inputs are widened to float32 as they are
+//   staged.  4 warps a block, each warp 16 rows of the block's 64-row
+//   tile, flash attention's backward layout
+//   (csrc/flash_attention_bwd.cu):
+//   - the key pass (flash's dk/dv pass): a warp owns 16 keys m.  Their b
+//     and x rows are the A operands (ldmatrix from the block's own
+//     tiles); the row tiles' c and dy (l >= m) arrive through a 2-stage
+//     cp.async ring and are the B operands (ldmatrix), so S^T = B C^T and
+//     DX^T = X DY^T land in the warp's accumulators, rows = its keys.  The
+//     mask and the decay are applied there (selected before the exp above
+//     the diagonal), and s dt_m and A = DX dec dt_m feed dx += (s dt)^T dy
+//     and db += A^T c straight from the accumulators as A operands (each
+//     8-wide slice of rows in the order 0, 2, 4, 6, 1, 3, 5, 7; dy and c
+//     read at rows 2t, 2t + 1 by scalar loads).  The state terms
+//     w_m (b_m . G) and w_m (G x_m) are products of the same tiles with
+//     G_k, staged in the ring's second stage before the first row tile;
+//     b^T G x is (b . G) . x, summed over a quad by shuffles in a fixed
+//     order, as is sum_l s_lm DX_lm.  Where N or P is 128 the key pass
+//     runs two blocks a key tile (kSplit): one dx, ddt and dcum, one db,
+//     so that no instantiation spills;
+//   - the row pass (flash's dq pass): a warp owns 16 rows l; S = C B^T and
+//     DX = DY X^T from the key tiles m <= l of the ring, then dc += A b;
+//     the state term exp(cum_l) dy_l . H_k is a product with K = P, H_k
+//     staged first;
+//   - D_k and, with the states recomputed, S_k: [N, L] . [L, P] products
+//     as the forward's ssd_state_kernel runs them.
+//   Shared rows of the ldmatrix tiles are the width tile plus 4 words (an
+//   odd number of 16-byte units: 8 rows read from 8 distinct bank groups,
+//   and the scalar rows 2t, 2t + 1 conflict-free).  Every accumulator
+//   chain spans at most a chunk (256 rows) plus a state term.
+// * bwd_simt (the first design; bwd_simt_recompute after a simt forward,
+//   and for every width bwd_mma_3xtf32 does not take): everything in
+//   float32 on the CUDA cores, a 16 x 16 thread grid, each thread a 4 x 4
+//   or wider register tile, operands from shared memory padded to
+//   conflict-free rows.
 //
 // Passes, enqueued by one C call on the current stream:
 //   0. ssd_bwd_state_kernel (only when the forward left no states: its
@@ -67,6 +107,8 @@
 
 #include <atomic>
 #include <type_traits>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -169,6 +211,34 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// The inclusive prefix sum of dt a over one chunk (dtg: its first dt, a
+// row every H) in float64 by one warp, each element rounded to float32
+// once, as the forward's tensor-core pass writes it: into cg, the last
+// also into *last.
+template <typename T>
+__device__ __forceinline__ void chunk_cum(const T* dtg, int H, double av,
+                                          float* cg, float* last, int L,
+                                          int lane) {
+  const int per = (L + 31) / 32;
+  const int beg = min(lane * per, L), end = min(beg + per, L);
+  double run = 0.0;
+  for (int l = beg; l < end; ++l)
+    run += (double)to_f(dtg[(long long)l * H]) * av;
+  double tot = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double up = __shfl_up_sync(0xffffffffu, tot, o);
+    if (lane >= o) tot += up;
+  }
+  run = tot - run;
+  for (int l = beg; l < end; ++l) {
+    run += (double)to_f(dtg[(long long)l * H]) * av;
+    const float f = (float)run;
+    cg[l] = f;
+    if (l == L - 1) *last = f;
+  }
+}
+
 // Passes 0 and 2: per (b, h, chunk) out[n][p] = sum_l u_l[n] alpha_l v_l[p].
 // kStates: u = b, v = x, alpha_l = dt_l exp(cum_last - cum_l), after
 // computing cum (into the cum scratch); else u = c, v = dy,
@@ -197,29 +267,7 @@ __device__ __forceinline__ void chunk_state(
   const T* dtg = kStates ? dt + row0 * H + hi : nullptr;
 
   if (kStates) {
-    // inclusive prefix sum of dt a in float64, one warp, as the forward's
-    // tensor-core pass writes it
-    if (tid < 32) {
-      const double av = a[hi];
-      const int per = (L + 31) / 32;
-      const int beg = min(tid * per, L), end = min(beg + per, L);
-      double run = 0.0;
-      for (int l = beg; l < end; ++l)
-        run += (double)to_f(dtg[(long long)l * H]) * av;
-      double tot = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double up = __shfl_up_sync(0xffffffffu, tot, o);
-        if (tid >= o) tot += up;
-      }
-      run = tot - run;
-      for (int l = beg; l < end; ++l) {
-        run += (double)to_f(dtg[(long long)l * H]) * av;
-        const float f = (float)run;
-        cg[l] = f;
-        if (l == L - 1) cum_last_s = f;
-      }
-    }
+    if (tid < 32) chunk_cum(dtg, H, a[hi], cg, &cum_last_s, L, tid);
     __syncthreads();
   }
   const float cum_last = kStates ? cum_last_s : cg[L - 1];
@@ -844,9 +892,824 @@ ssd_bwd_group_kernel(const float* __restrict__ dbh,
   dc[i] = from_f<T>(sc);
 }
 
+// --------------------------------------------------------------------------
+// bwd_mma_3xtf32: passes 0, 2, 4 and 5 on the tensor cores
+// --------------------------------------------------------------------------
+constexpr int kMmaThreads = 128;      // 4 warps of 16 rows
+constexpr int kStages = 2;            // cp.async ring depth
+
+// Shared memory per width tile (N zero-padded to NT, P to PT), in floats.
+// The key and row passes read b, c, x and dy rows by ldmatrix and by
+// scalar loads at rows 2t, 2t + 1 (the width tile plus 4 words: an odd
+// number of 16-byte units, conflict-free for both); G_k and H_k, [N][P],
+// take the P rows' padding and fill one ring stage at most.  The state
+// passes read rows t and t + 4 (plus 8 words), as the forward's.
+template <int NT, int PT>
+struct MmaPlan {
+  static constexpr int kNS = NT + 4;                 // b / c row
+  static constexpr int kPS = PT + 4;                 // x / dy, G / H row
+  static constexpr int kUS = NT + 8;                 // state passes: b / c
+  static constexpr int kVS = PT + 8;                 // state passes: x / dy
+  static constexpr int kStateStage = kTile * (kUS + kVS) + kTile;  // + weights
+  static constexpr int kStateFloats = kStages * kStateStage;
+  static constexpr int kOwn = kTile * (kNS + kPS);   // a block's own two tiles
+  // key pass: b, x, then cum, dt, w, exp(cum_last - cum) of its keys; a
+  // stage: c, dy and cum of a row tile
+  static constexpr int kKeyStage = kOwn + kTile;
+  static constexpr int kKeyFloats = kOwn + 4 * kTile + kStages * kKeyStage;
+  // row pass: c, dy, then cum and exp(cum) of its rows; a stage: b, x, cum
+  // and dt of a key tile
+  static constexpr int kQueryStage = kOwn + 2 * kTile;
+  static constexpr int kQueryFloats =
+      kOwn + 2 * kTile + kStages * kQueryStage;
+  static_assert(NT * kPS <= kKeyStage && NT * kPS <= kQueryStage,
+                "G_k and H_k fit one ring stage");
+  // a key tile's dx and db in two blocks where either width is 128: the
+  // accumulators of both beside the two score tiles would spill
+  static constexpr bool kSplit = NT > 64 || PT > 64;
+  static constexpr int kRoles = kSplit ? 2 : 1;
+};
+
+// Sum over the 4 lanes of a quad (the lanes that hold one accumulator
+// row), in a fixed order: every lane gets the same bits.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows [0, ROWS) x columns [0, CT) of a tile into shared memory (row
+// stride ss floats); row r of the source starts at src + r * ld.  Zero
+// past `valid` rows and past `cols` columns (a multiple of 8).  float32
+// arrives by 16-byte cp.async (the caller commits and waits); bfloat16 is
+// widened to float32 through registers.
+template <typename S, int ROWS, int CT>
+__device__ __forceinline__ void stage_rows(float* dst, int ss, const S* src,
+                                           long long ld, int valid,
+                                           int cols) {
+  constexpr int kQuads = CT / 4;
+  for (int i = threadIdx.x; i < ROWS * kQuads; i += kMmaThreads) {
+    const int r = i / kQuads, q = i - (i / kQuads) * kQuads;
+    const bool in = r < valid && 4 * q < cols;
+    const S* from = in ? src + r * ld + 4 * q : src;
+    float* to = dst + r * ss + 4 * q;
+    if constexpr (std::is_same<S, float>::value) {
+      cp_async16(smem_u32(to), from, in);
+    } else {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(from);
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        v = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      *reinterpret_cast<float4*>(to) = v;
+    }
+  }
+}
+
+// The A operand of an accumulator's 8-column slice: each slice's columns
+// in the order 0, 2, 4, 6, 1, 3, 5, 7 (C holds columns 2t, 2t + 1 of its
+// rows, the TF32 A fragment columns t, t + 4), so the B operand reads its
+// rows 2t and 2t + 1.
+__device__ __forceinline__ void acc_frag(AFrag<float>& f, const float* s) {
+  const uint32_t r[4] = {fbits(s[0]), fbits(s[2]), fbits(s[1]),
+                         fbits(s[3])};
+  f.set(r);
+}
+
+// Passes 0 and 2 on the tensor cores: per (b, h, chunk) out[n][p] =
+// sum_l u_l[n] alpha_l v_l[p], the forward's ssd_state_kernel product.
+// kStates: u = b, v = x, alpha_l = dt_l exp(cum_last - cum_l), after the
+// prefix sum (into the cum scratch); else u = c, v = dy, alpha_l =
+// exp(cum_l), cum read.  Warp w owns rows n of [16 MT w, 16 MT (w + 1))
+// and every column p; A[n][l] = u_l[n] alpha_l and B[l][p] = v_l[p] by
+// scalar loads at rows t and t + 4.
+template <typename T, int NT, int PT, bool kStates>
+__device__ __forceinline__ void chunk_state_mma(
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ dt,
+    const float* __restrict__ a, float* cum, float* __restrict__ out,
+    int t_len, int H, int P, int G, int N, int L) {
+  using PL = MmaPlan<NT, PT>;
+  constexpr int MT = NT / 64;                 // m16 tiles a warp
+  extern __shared__ __align__(128) float smem[];
+  __shared__ float cum_last_s;
+
+  const int nc = t_len / L;
+  const int ci = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int bi = bh / H, hi = bh - (bh / H) * H;
+  const int gi = hi / (H / G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)bi * t_len + (long long)ci * L;
+  float* cg = cum + (long long)bh * t_len + (long long)ci * L;
+  const T* dtg = kStates ? dt + row0 * H + hi : nullptr;
+  const int ntiles = (L + kTile - 1) / kTile;
+
+  auto load_tile = [&](int i) {
+    float* us = smem + (i % kStages) * PL::kStateStage;
+    float* vs = us + kTile * PL::kUS;
+    const int l0 = i * kTile;
+    stage_rows<T, kTile, NT>(us, PL::kUS, u + ((row0 + l0) * G + gi) * N,
+                             (long long)G * N, L - l0, N);
+    stage_rows<T, kTile, PT>(vs, PL::kVS, v + ((row0 + l0) * H + hi) * P,
+                             (long long)H * P, L - l0, P);
+  };
+  // alpha of row j of tile i, 0 past L; after the prefix sum
+  auto load_w = [&](int i, int j) {
+    float* ws = smem + (i % kStages) * PL::kStateStage +
+                kTile * (PL::kUS + PL::kVS);
+    const int l = i * kTile + j;
+    float w = 0.f;
+    if (l < L)
+      w = kStates ? to_f(dtg[(long long)l * H]) * expf(cum_last_s - cg[l])
+                  : expf(cg[l]);
+    ws[j] = w;
+  };
+
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < ntiles) load_tile(i);
+    cp_async_commit();
+  }
+  if (kStates && warp == 0) chunk_cum(dtg, H, a[hi], cg, &cum_last_s, L, lane);
+  __syncthreads();                   // cum and cum_last_s are set
+  for (int j = tid; j < kStages * kTile; j += kMmaThreads)
+    if (j / kTile < ntiles) load_w(j / kTile, j % kTile);
+
+  float acc[MT][PT / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int pt = 0; pt < PT / 8; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][pt][e] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* us = smem + (i % kStages) * PL::kStateStage;
+    const float* vs = us + kTile * PL::kUS;
+    const float* ws = vs + kTile * PL::kVS;
+#pragma unroll 2
+    for (int kk = 0; kk < kTile / 8; ++kk) {
+      const int l = 8 * kk + t;
+      const float w0 = ws[l], w1 = ws[l + 4];
+      AFrag<float> af[MT];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const int n0 = (warp * MT + mi) * 16 + g;
+        const uint32_t r[4] = {fbits(us[l * PL::kUS + n0] * w0),
+                               fbits(us[l * PL::kUS + n0 + 8] * w0),
+                               fbits(us[(l + 4) * PL::kUS + n0] * w1),
+                               fbits(us[(l + 4) * PL::kUS + n0 + 8] * w1)};
+        af[mi].set(r);
+      }
+#pragma unroll
+      for (int pt = 0; pt < PT / 8; ++pt) {
+        BFrag<float> bf;
+        bf.set(fbits(vs[l * PL::kVS + 8 * pt + g]),
+               fbits(vs[(l + 4) * PL::kVS + 8 * pt + g]));
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) mma(acc[mi][pt], af[mi], bf);
+      }
+    }
+    __syncthreads();                 // every warp is done with this stage
+    if (i + kStages < ntiles) {
+      load_tile(i + kStages);
+      if (tid < kTile) load_w(i + kStages, tid);
+    }
+    cp_async_commit();
+  }
+
+  float* o = out + ((long long)bh * nc + ci) * N * P;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = (warp * MT + mi) * 16 + g + 8 * r;
+      if (n >= N) continue;
+#pragma unroll
+      for (int pt = 0; pt < PT / 8; ++pt) {
+        const int p = 8 * pt + 2 * t;
+        if (p < P)
+          store2(o + (long long)n * P + p, acc[mi][pt][2 * r],
+                 acc[mi][pt][2 * r + 1]);
+      }
+    }
+}
+
+template <typename T, int NT, int PT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+ssd_bwd_state_mma_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                         const float* __restrict__ a, const T* __restrict__ b,
+                         float* cum, float* __restrict__ st, int t_len, int H,
+                         int P, int G, int N, int L) {
+  chunk_state_mma<T, NT, PT, true>(b, x, dt, a, cum, st, t_len, H, P, G, N,
+                                   L);
+}
+
+template <typename T, int NT, int PT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+ssd_bwd_dstate_mma_kernel(const T* __restrict__ dy, const T* __restrict__ c,
+                          float* cum, float* __restrict__ gst, int t_len,
+                          int H, int P, int G, int N, int L) {
+  chunk_state_mma<T, NT, PT, false>(c, dy, (const T*)nullptr, nullptr, cum,
+                                    gst, t_len, H, P, G, N, L);
+}
+
+// Pass 4 on the tensor cores: one 64-key tile of one (b, h, chunk); kDx:
+// dx, the direct ddt, dcum1, Q and (first key tile) <G, H>; kDb: the db
+// partial.  Warp w owns keys m = 16 w + g and 16 w + g + 8 of the tile
+// (accumulator rows); of a score tile column 8n + 2t + (e & 1) is row l of
+// the row tile.
+template <typename T, int NT, int PT, bool kDx, bool kDb>
+__device__ __forceinline__ void key_tile_mma(
+    const T* __restrict__ x, const T* __restrict__ dt,
+    const T* __restrict__ b, const T* __restrict__ c,
+    const T* __restrict__ dy, const float* __restrict__ cum,
+    const float* __restrict__ st, const float* __restrict__ gst,
+    T* __restrict__ dx, float* __restrict__ dbh, float* __restrict__ ddt0,
+    float* __restrict__ dcum1, float* __restrict__ qm,
+    float* __restrict__ gh, int t_len, int H, int P, int G, int N, int L) {
+  using PL = MmaPlan<NT, PT>;
+  constexpr int rsN = PL::kNS * 4, rsP = PL::kPS * 4;   // bytes a row
+  extern __shared__ __align__(128) float smem[];
+  float* bs = smem;                            // [64][kNS] keys' b
+  float* xs = bs + kTile * PL::kNS;            // [64][kPS] keys' x
+  float* cumk = xs + kTile * PL::kPS;          // [64]
+  float* dtk = cumk + kTile;                   // [64]
+  float* wk = dtk + kTile;                     // [64] dt exp(cum_last - cum)
+  float* ek = wk + kTile;                      // [64] exp(cum_last - cum)
+  float* ring = ek + kTile;                    // stages: c, dy, cum
+  float* gs = ring + PL::kKeyStage;            // [NT][kPS] G_k, first
+  __shared__ float red[kMmaThreads / 32];
+
+  const int nc = t_len / L;
+  const int ci = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int bi = bh / H, hi = bh - (bh / H) * H;
+  const int gi = hi / (H / G);
+  const int kt = blockIdx.y, m0 = kt * kTile;  // the heaviest first
+  const int ntiles = (L + kTile - 1) / kTile - kt;   // row tiles l >= m0
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)bi * t_len + (long long)ci * L;
+  const float* cg = cum + (long long)bh * t_len + (long long)ci * L;
+  const long long sbase = ((long long)bh * nc + ci) * N * P;
+  const float cum_last = cg[L - 1];
+
+  auto load_tile = [&](int i) {
+    float* cs = ring + (i % kStages) * PL::kKeyStage;
+    float* dys = cs + kTile * PL::kNS;
+    float* cl = dys + kTile * PL::kPS;
+    const int l0 = (kt + i) * kTile;
+    stage_rows<T, kTile, NT>(cs, PL::kNS, c + ((row0 + l0) * G + gi) * N,
+                             (long long)G * N, L - l0, N);
+    stage_rows<T, kTile, PT>(dys, PL::kPS, dy + ((row0 + l0) * H + hi) * P,
+                             (long long)H * P, L - l0, P);
+    if (tid < kTile) cl[tid] = l0 + tid < L ? cg[l0 + tid] : 0.f;
+  };
+
+  // the keys' tiles, the first row tile and G_k (in the second stage)
+  if (kDx)
+    stage_rows<T, kTile, NT>(bs, PL::kNS, b + ((row0 + m0) * G + gi) * N,
+                             (long long)G * N, L - m0, N);
+  stage_rows<T, kTile, PT>(xs, PL::kPS, x + ((row0 + m0) * H + hi) * P,
+                           (long long)H * P, L - m0, P);
+  load_tile(0);
+  stage_rows<float, NT, PT>(gs, PL::kPS, gst + sbase, P, N, P);
+  cp_async_commit();
+  if (tid < kTile) {
+    const int m = m0 + tid;
+    float cm = 0.f, d = 0.f, e = 0.f;
+    if (m < L) {
+      cm = cg[m];
+      d = to_f(dt[(row0 + m) * H + hi]);
+      e = expf(cum_last - cm);
+    }
+    cumk[tid] = cm;
+    dtk[tid] = d;
+    ek[tid] = e;
+    wk[tid] = d * e;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this lane's keys; ldmatrix addresses: A from the warp's 16 key rows
+  // (row halves by lane bit 3, byte halves by bit 4), B from a tile whose
+  // rows are the product's columns (rows 0-7 / 8-15 by bit 4, byte halves
+  // by bit 3)
+  const int wk0 = warp * 16, ka = wk0 + g, kb = ka + 8;
+  const float cum_a = cumk[ka], cum_b = cumk[kb];
+  const float dt_a = dtk[ka], dt_b = dtk[kb];
+  const int a_row = wk0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t b_a = smem_u32(bs) + a_row * rsN + (lane >> 4) * 16;
+  const uint32_t x_a = smem_u32(xs) + a_row * rsP + (lane >> 4) * 16;
+  const int bn_row = (lane & 7) + (lane >> 4) * 8;
+  const int bn_off = ((lane >> 3) & 1) * 16;
+
+  // a role's unused accumulators are never read: the compiler drops them
+  float dxa[PT / 8][4], dba[NT / 8][4];
+#pragma unroll
+  for (int pt = 0; pt < PT / 8; ++pt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxa[pt][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dba[nt][e] = 0.f;
+
+  // the state terms: dx = w_m (b_m . G), db = w_m (G x_m), and
+  // b_m^T G x_m = (b_m . G) . x_m before the weight
+  float bgx[2] = {0.f, 0.f};
+  if constexpr (kDx) {
+    // B[n][p] = G[n][p]: rows 8 kk + t and + 4, column 8 pt + g
+#pragma unroll
+    for (int kk = 0; kk < NT / 8; ++kk) {
+      uint32_t r[4];
+      AFrag<float> af;
+      ldsm_x4(r, b_a + kk * 32);
+      af.set(r);
+      const float* g0 = gs + (8 * kk + t) * PL::kPS + g;
+      const float* g1 = g0 + 4 * PL::kPS;
+#pragma unroll
+      for (int pt = 0; pt < PT / 8; ++pt) {
+        BFrag<float> bf;
+        bf.set(fbits(g0[8 * pt]), fbits(g1[8 * pt]));
+        mma(dxa[pt], af, bf);
+      }
+    }
+#pragma unroll
+    for (int pt = 0; pt < PT / 8; ++pt) {
+      const float2 xa = *reinterpret_cast<const float2*>(
+          xs + ka * PL::kPS + 8 * pt + 2 * t);
+      const float2 xb = *reinterpret_cast<const float2*>(
+          xs + kb * PL::kPS + 8 * pt + 2 * t);
+      bgx[0] += dxa[pt][0] * xa.x + dxa[pt][1] * xa.y;
+      bgx[1] += dxa[pt][2] * xb.x + dxa[pt][3] * xb.y;
+    }
+    bgx[0] = quad_sum(bgx[0]);
+    bgx[1] = quad_sum(bgx[1]);
+    const float wa = wk[ka], wb = wk[kb];
+#pragma unroll
+    for (int pt = 0; pt < PT / 8; ++pt) {
+      dxa[pt][0] *= wa;
+      dxa[pt][1] *= wa;
+      dxa[pt][2] *= wb;
+      dxa[pt][3] *= wb;
+    }
+  }
+  if constexpr (kDb) {
+    // B[p][n] = G[n][p]: ldmatrix over G's rows n
+    const uint32_t g_b = smem_u32(gs) + bn_row * rsP + bn_off;
+#pragma unroll
+    for (int kk = 0; kk < PT / 8; ++kk) {
+      uint32_t r[4];
+      AFrag<float> af;
+      ldsm_x4(r, x_a + kk * 32);
+      af.set(r);
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 16; ++n2) {
+        BFrag<float> b0, b1;
+        ldsm_x4(r, g_b + n2 * 16 * rsP + kk * 32);
+        b0.set(r[0], r[1]);
+        b1.set(r[2], r[3]);
+        mma(dba[2 * n2], af, b0);
+        mma(dba[2 * n2 + 1], af, b1);
+      }
+    }
+    const float wa = wk[ka], wb = wk[kb];
+#pragma unroll
+    for (int nt = 0; nt < NT / 8; ++nt) {
+      dba[nt][0] *= wa;
+      dba[nt][1] *= wa;
+      dba[nt][2] *= wb;
+      dba[nt][3] *= wb;
+    }
+  }
+  // <G_k, H_k>, once a chunk, in a fixed order
+  if (kDx && kt == 0) {
+    float part = 0.f;
+    for (int e = tid; e < N * P; e += kMmaThreads) {
+      const int n = e / P, p = e - (e / P) * P;
+      part += gs[n * PL::kPS + p] * st[sbase + e];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < kMmaThreads / 32; ++w) s += red[w];
+      gh[(long long)bh * nc + ci] = s;
+    }
+  }
+  __syncthreads();                   // G_k is consumed: its stage is free
+  if (1 < ntiles) load_tile(1);
+  cp_async_commit();
+
+  float sd[2] = {0.f, 0.f};          // sum_l s_lm DX_lm, this lane's part
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* cs = ring + (i % kStages) * PL::kKeyStage;
+    const float* dys = cs + kTile * PL::kNS;
+    const float* cl = dys + kTile * PL::kPS;
+    const int l0 = (kt + i) * kTile;
+
+    // S^T = B C^T (kDx) and DX^T = X DY^T: rows = this warp's keys
+    float sa[kTile / 8][4], da[kTile / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[n][e] = da[n][e] = 0.f;
+    if constexpr (kDx) {
+      const uint32_t c_b = smem_u32(cs) + bn_row * rsN + bn_off;
+#pragma unroll
+      for (int kk = 0; kk < NT / 8; ++kk) {
+        uint32_t r[4];
+        AFrag<float> af;
+        ldsm_x4(r, b_a + kk * 32);
+        af.set(r);
+#pragma unroll
+        for (int n2 = 0; n2 < kTile / 16; ++n2) {
+          BFrag<float> b0, b1;
+          ldsm_x4(r, c_b + n2 * 16 * rsN + kk * 32);
+          b0.set(r[0], r[1]);
+          b1.set(r[2], r[3]);
+          mma(sa[2 * n2], af, b0);
+          mma(sa[2 * n2 + 1], af, b1);
+        }
+      }
+    }
+    const uint32_t dy_b = smem_u32(dys) + bn_row * rsP + bn_off;
+#pragma unroll
+    for (int kk = 0; kk < PT / 8; ++kk) {
+      uint32_t r[4];
+      AFrag<float> af;
+      ldsm_x4(r, x_a + kk * 32);
+      af.set(r);
+#pragma unroll
+      for (int n2 = 0; n2 < kTile / 16; ++n2) {
+        BFrag<float> b0, b1;
+        ldsm_x4(r, dy_b + n2 * 16 * rsP + kk * 32);
+        b0.set(r[0], r[1]);
+        b1.set(r[2], r[3]);
+        mma(da[2 * n2], af, b0);
+        mma(da[2 * n2 + 1], af, b1);
+      }
+    }
+
+    // the mask (l >= m, l < L: selected before the exp, which overflows
+    // above the diagonal), the decay and dt_m: s = S^T dec, sd += s DX,
+    // then s dt_m and A = DX dec dt_m in place
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = 8 * n + 2 * t + (e & 1);
+        const int key = (e >> 1) ? kb : ka;
+        const bool in = l0 + l >= m0 + key && l0 + l < L;
+        const float dec =
+            in ? expf(cl[l] - ((e >> 1) ? cum_b : cum_a)) : 0.f;
+        const float dk = (e >> 1) ? dt_b : dt_a;
+        if constexpr (kDx) {
+          const float s = sa[n][e] * dec;
+          sd[e >> 1] += s * da[n][e];
+          sa[n][e] = s * dk;
+        }
+        if constexpr (kDb) da[n][e] = da[n][e] * dec * dk;
+      }
+
+    // dx_m += sum_l s_ml dt_m dy_l and db_m += sum_l A_ml c_l: the
+    // accumulators (rows = keys) are the A operands; dy and c rows 8n + 2t
+    // and 8n + 2t + 1, column g
+    if constexpr (kDx) {
+      const float* d_l = dys + 2 * t * PL::kPS + g;
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) {
+        AFrag<float> pa;
+        acc_frag(pa, sa[n]);
+        const float* d0 = d_l + 8 * n * PL::kPS;
+        const float* d1 = d0 + PL::kPS;
+#pragma unroll
+        for (int pt = 0; pt < PT / 8; ++pt) {
+          BFrag<float> bf;
+          bf.set(fbits(d0[8 * pt]), fbits(d1[8 * pt]));
+          mma(dxa[pt], pa, bf);
+        }
+      }
+    }
+    if constexpr (kDb) {
+      const float* c_l = cs + 2 * t * PL::kNS + g;
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) {
+        AFrag<float> pa;
+        acc_frag(pa, da[n]);
+        const float* c0 = c_l + 8 * n * PL::kNS;
+        const float* c1 = c0 + PL::kNS;
+#pragma unroll
+        for (int nt = 0; nt < NT / 8; ++nt) {
+          BFrag<float> bf;
+          bf.set(fbits(c0[8 * nt]), fbits(c1[8 * nt]));
+          mma(dba[nt], pa, bf);
+        }
+      }
+    }
+    __syncthreads();                 // every warp is done with this stage
+    if (i + kStages < ntiles) load_tile(i + kStages);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? kb : ka, mg = m0 + key;
+    if constexpr (kDx) {
+      const float s = quad_sum(sd[r]);
+      if (mg < L) {
+        if (t == 0) {
+          const long long rr = (long long)bh * t_len + (long long)ci * L + mg;
+          const float q = wk[key] * bgx[r];
+          ddt0[rr] = s + ek[key] * bgx[r];
+          dcum1[rr] = -dtk[key] * s - q;
+          qm[rr] = q;
+        }
+        T* dxr = dx + ((row0 + mg) * H + hi) * P;
+#pragma unroll
+        for (int pt = 0; pt < PT / 8; ++pt) {
+          const int p = 8 * pt + 2 * t;
+          if (p < P) store2(dxr + p, dxa[pt][2 * r], dxa[pt][2 * r + 1]);
+        }
+      }
+    }
+    if constexpr (kDb) {
+      if (mg < L) {
+        float* dbr = dbh + ((row0 + mg) * H + hi) * N;
+#pragma unroll
+        for (int nt = 0; nt < NT / 8; ++nt) {
+          const int n = 8 * nt + 2 * t;
+          if (n < N) store2(dbr + n, dba[nt][2 * r], dba[nt][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int NT, int PT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+ssd_bwd_key_mma_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                       const T* __restrict__ b, const T* __restrict__ c,
+                       const T* __restrict__ dy,
+                       const float* __restrict__ cum,
+                       const float* __restrict__ st,
+                       const float* __restrict__ gst, T* __restrict__ dx,
+                       float* __restrict__ dbh, float* __restrict__ ddt0,
+                       float* __restrict__ dcum1, float* __restrict__ qm,
+                       float* __restrict__ gh, int t_len, int H, int P,
+                       int G, int N, int L) {
+  if constexpr (MmaPlan<NT, PT>::kSplit) {
+    if (blockIdx.z == 0)
+      key_tile_mma<T, NT, PT, true, false>(x, dt, b, c, dy, cum, st, gst, dx,
+                                           dbh, ddt0, dcum1, qm, gh, t_len,
+                                           H, P, G, N, L);
+    else
+      key_tile_mma<T, NT, PT, false, true>(x, dt, b, c, dy, cum, st, gst, dx,
+                                           dbh, ddt0, dcum1, qm, gh, t_len,
+                                           H, P, G, N, L);
+  } else {
+    key_tile_mma<T, NT, PT, true, true>(x, dt, b, c, dy, cum, st, gst, dx,
+                                        dbh, ddt0, dcum1, qm, gh, t_len, H,
+                                        P, G, N, L);
+  }
+}
+
+// Pass 5 on the tensor cores: one 64-row tile of one (b, h, chunk), the
+// heaviest first.  Warp w owns rows l = 16 w + g and 16 w + g + 8 of the
+// tile; of a score tile column 8n + 2t + (e & 1) is key m of the key tile.
+template <typename T, int NT, int PT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+ssd_bwd_query_mma_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                         const T* __restrict__ b, const T* __restrict__ c,
+                         const T* __restrict__ dy,
+                         const float* __restrict__ cum,
+                         const float* __restrict__ st,
+                         float* __restrict__ dch, float* __restrict__ dcum2,
+                         int t_len, int H, int P, int G, int N, int L) {
+  using PL = MmaPlan<NT, PT>;
+  constexpr int rsN = PL::kNS * 4, rsP = PL::kPS * 4;   // bytes a row
+  extern __shared__ __align__(128) float smem[];
+  float* cs = smem;                            // [64][kNS] rows' c
+  float* dys = cs + kTile * PL::kNS;           // [64][kPS] rows' dy
+  float* cuml = dys + kTile * PL::kPS;         // [64]
+  float* el = cuml + kTile;                    // [64] exp(cum)
+  float* ring = el + kTile;                    // stages: b, x, cum, dt
+  float* hs = ring + PL::kQueryStage;          // [NT][kPS] H_k, first
+
+  const int nc = t_len / L;
+  const int ci = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int bi = bh / H, hi = bh - (bh / H) * H;
+  const int gi = hi / (H / G);
+  const int qt = gridDim.y - 1 - blockIdx.y, l0 = qt * kTile;
+  const int ntiles = qt + 1;                   // key tiles m0 <= l0
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)bi * t_len + (long long)ci * L;
+  const float* cg = cum + (long long)bh * t_len + (long long)ci * L;
+
+  auto load_tile = [&](int i) {
+    float* bs = ring + (i % kStages) * PL::kQueryStage;
+    float* xs = bs + kTile * PL::kNS;
+    float* ck = xs + kTile * PL::kPS;
+    float* dk = ck + kTile;
+    const int m0 = i * kTile;
+    stage_rows<T, kTile, NT>(bs, PL::kNS, b + ((row0 + m0) * G + gi) * N,
+                             (long long)G * N, L - m0, N);
+    stage_rows<T, kTile, PT>(xs, PL::kPS, x + ((row0 + m0) * H + hi) * P,
+                             (long long)H * P, L - m0, P);
+    if (tid < kTile) {
+      const int m = m0 + tid;
+      ck[tid] = m < L ? cg[m] : 0.f;
+      dk[tid] = m < L ? to_f(dt[(row0 + m) * H + hi]) : 0.f;
+    }
+  };
+
+  stage_rows<T, kTile, NT>(cs, PL::kNS, c + ((row0 + l0) * G + gi) * N,
+                           (long long)G * N, L - l0, N);
+  stage_rows<T, kTile, PT>(dys, PL::kPS, dy + ((row0 + l0) * H + hi) * P,
+                           (long long)H * P, L - l0, P);
+  load_tile(0);
+  if (ci > 0)                        // H_0 = 0: no state term
+    stage_rows<float, NT, PT>(hs, PL::kPS,
+                              st + ((long long)bh * nc + ci) * N * P, P, N,
+                              P);
+  cp_async_commit();
+  if (tid < kTile) {
+    const int l = l0 + tid;
+    const float cl = l < L ? cg[l] : 0.f;
+    cuml[tid] = cl;
+    el[tid] = l < L ? expf(cl) : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int wr = warp * 16, la = wr + g, lb = la + 8;
+  const float cum_a = cuml[la], cum_b = cuml[lb];
+  const int a_row = wr + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t c_a = smem_u32(cs) + a_row * rsN + (lane >> 4) * 16;
+  const uint32_t dy_a = smem_u32(dys) + a_row * rsP + (lane >> 4) * 16;
+  const int bn_row = (lane & 7) + (lane >> 4) * 8;
+  const int bn_off = ((lane >> 3) & 1) * 16;
+
+  float dca[NT / 8][4], rt[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dca[nt][e] = 0.f;
+  // the state term: dc = exp(cum_l) H dy_l, B[p][n] = H[n][p] by ldmatrix
+  // over H's rows n; dcum += c_l . that
+  if (ci > 0) {
+    const uint32_t h_b = smem_u32(hs) + bn_row * rsP + bn_off;
+#pragma unroll
+    for (int kk = 0; kk < PT / 8; ++kk) {
+      uint32_t r[4];
+      AFrag<float> af;
+      ldsm_x4(r, dy_a + kk * 32);
+      af.set(r);
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 16; ++n2) {
+        BFrag<float> b0, b1;
+        ldsm_x4(r, h_b + n2 * 16 * rsP + kk * 32);
+        b0.set(r[0], r[1]);
+        b1.set(r[2], r[3]);
+        mma(dca[2 * n2], af, b0);
+        mma(dca[2 * n2 + 1], af, b1);
+      }
+    }
+    const float ea = el[la], eb = el[lb];
+#pragma unroll
+    for (int nt = 0; nt < NT / 8; ++nt) {
+      dca[nt][0] *= ea;
+      dca[nt][1] *= ea;
+      dca[nt][2] *= eb;
+      dca[nt][3] *= eb;
+      const float2 c2a = *reinterpret_cast<const float2*>(
+          cs + la * PL::kNS + 8 * nt + 2 * t);
+      const float2 c2b = *reinterpret_cast<const float2*>(
+          cs + lb * PL::kNS + 8 * nt + 2 * t);
+      rt[0] += c2a.x * dca[nt][0] + c2a.y * dca[nt][1];
+      rt[1] += c2b.x * dca[nt][2] + c2b.y * dca[nt][3];
+    }
+  }
+  __syncthreads();                   // H_k is consumed: its stage is free
+  if (1 < ntiles) load_tile(1);
+  cp_async_commit();
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* bs = ring + (i % kStages) * PL::kQueryStage;
+    const float* xs = bs + kTile * PL::kNS;
+    const float* ck = xs + kTile * PL::kPS;
+    const float* dk = ck + kTile;
+    const int m0 = i * kTile;
+
+    // S = C B^T and DX = DY X^T: rows = this warp's rows
+    float sa[kTile / 8][4], da[kTile / 8][4];
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[n][e] = da[n][e] = 0.f;
+    const uint32_t b_b = smem_u32(bs) + bn_row * rsN + bn_off;
+    const uint32_t x_b = smem_u32(xs) + bn_row * rsP + bn_off;
+#pragma unroll
+    for (int kk = 0; kk < NT / 8; ++kk) {
+      uint32_t r[4];
+      AFrag<float> af;
+      ldsm_x4(r, c_a + kk * 32);
+      af.set(r);
+#pragma unroll
+      for (int n2 = 0; n2 < kTile / 16; ++n2) {
+        BFrag<float> b0, b1;
+        ldsm_x4(r, b_b + n2 * 16 * rsN + kk * 32);
+        b0.set(r[0], r[1]);
+        b1.set(r[2], r[3]);
+        mma(sa[2 * n2], af, b0);
+        mma(sa[2 * n2 + 1], af, b1);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < PT / 8; ++kk) {
+      uint32_t r[4];
+      AFrag<float> af;
+      ldsm_x4(r, dy_a + kk * 32);
+      af.set(r);
+#pragma unroll
+      for (int n2 = 0; n2 < kTile / 16; ++n2) {
+        BFrag<float> b0, b1;
+        ldsm_x4(r, x_b + n2 * 16 * rsP + kk * 32);
+        b0.set(r[0], r[1]);
+        b1.set(r[2], r[3]);
+        mma(da[2 * n2], af, b0);
+        mma(da[2 * n2 + 1], af, b1);
+      }
+    }
+
+    // A = select(m <= l < L, DX exp(cum_l - cum_m) dt_m, 0); dcum2 +=
+    // S A, this lane's part
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * n + 2 * t + (e & 1);
+        const int row = (e >> 1) ? lb : la;
+        const bool in = m0 + m <= l0 + row && l0 + row < L;
+        const float av =
+            in ? da[n][e] * expf(((e >> 1) ? cum_b : cum_a) - ck[m]) * dk[m]
+               : 0.f;
+        rt[e >> 1] += sa[n][e] * av;
+        da[n][e] = av;
+      }
+
+    // dc += A . b: A from the accumulators, b rows 8n + 2t and + 1, column g
+    const float* b_l = bs + 2 * t * PL::kNS + g;
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+      AFrag<float> pa;
+      acc_frag(pa, da[n]);
+      const float* b0r = b_l + 8 * n * PL::kNS;
+      const float* b1r = b0r + PL::kNS;
+#pragma unroll
+      for (int nt = 0; nt < NT / 8; ++nt) {
+        BFrag<float> bf;
+        bf.set(fbits(b0r[8 * nt]), fbits(b1r[8 * nt]));
+        mma(dca[nt], pa, bf);
+      }
+    }
+    __syncthreads();                 // every warp is done with this stage
+    if (i + kStages < ntiles) load_tile(i + kStages);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float s = quad_sum(rt[r]);
+    const int lg = l0 + (r ? lb : la);
+    if (lg >= L) continue;
+    if (t == 0) dcum2[(long long)bh * t_len + (long long)ci * L + lg] = s;
+    float* dcr = dch + ((row0 + lg) * H + hi) * N;
+#pragma unroll
+    for (int nt = 0; nt < NT / 8; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if (n < N) store2(dcr + n, dca[nt][2 * r], dca[nt][2 * r + 1]);
+    }
+  }
+}
+
 // What one backward launch runs, kernel by kernel in launch order (passes
 // 0 and 1 only when the states are recomputed): dynamic shared memory and
-// blocks.
+// blocks (bwd_mma_3xtf32's key pass: kRoles blocks a key tile).
 struct Launch {
   int kernels = 0;
   long long smem[kMaxKernels] = {};
@@ -854,13 +1717,16 @@ struct Launch {
 };
 
 template <int NT, int PT>
-Launch bwd_plan(bool recompute, int bsz, int t_len, int H, int N, int P,
-                int G, int L) {
+Launch bwd_plan(bool mma, bool recompute, int bsz, int t_len, int H, int N,
+                int P, int G, int L) {
   using PL = Plan<NT, PT>;
+  using ML = MmaPlan<NT, PT>;
   const long long chunks = (long long)bsz * H * (t_len / L);
   const long long tiles = (L + kTile - 1) / kTile;
   const long long states = ((long long)bsz * H * N * P + kCarryThreads - 1) /
                            kCarryThreads;
+  const long long state_smem =
+      sizeof(float) * (mma ? ML::kStateFloats : PL::kStateFloats);
   Launch pl;
   auto add = [&](long long smem, long long blocks) {
     pl.smem[pl.kernels] = smem;
@@ -868,23 +1734,30 @@ Launch bwd_plan(bool recompute, int bsz, int t_len, int H, int N, int P,
     ++pl.kernels;
   };
   if (recompute) {
-    add(sizeof(float) * PL::kStateFloats, chunks);
+    add(state_smem, chunks);
     add(0, states);
   }
-  add(sizeof(float) * PL::kStateFloats, chunks);
+  add(state_smem, chunks);
   add(0, states);
-  add(sizeof(float) * PL::kKeyFloats, chunks * tiles);
-  add(sizeof(float) * PL::kQueryFloats, chunks * tiles);
+  add(sizeof(float) * (mma ? ML::kKeyFloats : PL::kKeyFloats),
+      chunks * tiles * (mma ? ML::kRoles : 1));
+  add(sizeof(float) * (mma ? ML::kQueryFloats : PL::kQueryFloats),
+      chunks * tiles);
   add(0, (chunks + kScanWarps - 1) / kScanWarps);
   add(0, (H + kCarryThreads - 1) / kCarryThreads);
   add(0, ((long long)bsz * t_len * G * N + kCarryThreads - 1) / kCarryThreads);
   return pl;
 }
 
+// f(NT, PT) at the width tiles of N and P as std::integral_constants, N,
+// P <= 128: for bwd_simt each the smallest of 64 and 128 that holds it;
+// for bwd_mma_3xtf32 (mma) both 64 or both 128, which halves its
+// instantiations (each takes minutes of ptxas) for widths no model runs.
 template <typename F>
-auto with_tiles(int n, int p, F&& f) {
+auto with_tiles(bool mma, int n, int p, F&& f) {
   using W64 = std::integral_constant<int, 64>;
   using W128 = std::integral_constant<int, 128>;
+  if (mma) return n <= 64 && p <= 64 ? f(W64(), W64()) : f(W128(), W128());
   if (n <= 64) return p <= 64 ? f(W64(), W64()) : f(W64(), W128());
   return p <= 64 ? f(W128(), W64()) : f(W128(), W128());
 }
@@ -915,80 +1788,108 @@ struct Scratch {
   }
 };
 
-template <typename T, int NT, int PT>
-int launch_bwd(const void* x, const void* dt, const float* a, const void* b,
-               const void* c, const void* dy, const float* dh, float* st,
-               float* cum, bool recompute, float* scratch, void* dx,
-               void* ddt, float* da, void* db, void* dc, int bsz, int t_len,
-               int H, int P, int G, int N, int L, cudaStream_t stream) {
-  static SmemAttr state_attr, dstate_attr, key_attr, query_attr;
-  const Launch pl = bwd_plan<NT, PT>(recompute, bsz, t_len, H, N, P, G, L);
+// A kernel launched with its plan's dynamic shared memory, allowed first.
+template <typename K, typename... A>
+cudaError_t run(K* kernel, SmemAttr& attr, dim3 grid, int threads,
+                long long smem, cudaStream_t stream, A... args) {
+  if (smem > 0) {
+    const cudaError_t err = attr.allow(kernel, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, (size_t)smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The passes of one backward launch: bwd_mma_3xtf32's kernels (kMma) or
+// bwd_simt's, the carries and the tail shared.
+template <typename T, int NT, int PT, bool kMma>
+int launch_bwd(const void* x_, const void* dt_, const float* a,
+               const void* b_, const void* c_, const void* dy_,
+               const float* dh, float* st, float* cum, bool recompute,
+               float* scratch, void* dx, void* ddt, float* da, void* db,
+               void* dc, int bsz, int t_len, int H, int P, int G, int N,
+               int L, cudaStream_t stream) {
+  static SmemAttr state_attr, dstate_attr, key_attr, query_attr, none;
+  const T *x = (const T*)x_, *dt = (const T*)dt_, *b = (const T*)b_,
+          *c = (const T*)c_, *dy = (const T*)dy_;
+  const float *cumc = cum, *stc = st;
+  const Launch pl =
+      bwd_plan<NT, PT>(kMma, recompute, bsz, t_len, H, N, P, G, L);
   const Scratch s(scratch, bsz, t_len, H, N, P, L);
   const int nc = t_len / L;
   const long long n_state = (long long)bsz * H * N * P;
   const unsigned tiles = (unsigned)((L + kTile - 1) / kTile);
   const unsigned chunks = (unsigned)((long long)bsz * H * nc);
+  const int threads = kMma ? kMmaThreads : kThreads;
   int k = 0;
   cudaError_t err;
+  auto grid1 = [&](int i) { return dim3((unsigned)pl.blocks[i]); };
   if (recompute) {
-    err = state_attr.allow(ssd_bwd_state_kernel<T, NT, PT>, pl.smem[k]);
+    if constexpr (kMma)
+      err = run(ssd_bwd_state_mma_kernel<T, NT, PT>, state_attr, grid1(k),
+                threads, pl.smem[k], stream, x, dt, a, b, cum, st, t_len, H,
+                P, G, N, L);
+    else
+      err = run(ssd_bwd_state_kernel<T, NT, PT>, state_attr, grid1(k),
+                threads, pl.smem[k], stream, x, dt, a, b, cum, st, t_len, H,
+                P, G, N, L);
     if (err != cudaSuccess) return (int)err;
-    ssd_bwd_state_kernel<T, NT, PT><<<(unsigned)pl.blocks[k], kThreads,
-                                      (size_t)pl.smem[k], stream>>>(
-        (const T*)x, (const T*)dt, a, (const T*)b, cum, st, t_len, H, P, G,
-        N, L);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     ++k;
-    ssd_bwd_state_carry_kernel<<<(unsigned)pl.blocks[k], kCarryThreads, 0,
-                                 stream>>>(st, cum, n_state, nc, t_len, L,
-                                           N * P);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = run(ssd_bwd_state_carry_kernel, none, grid1(k), kCarryThreads, 0,
+              stream, st, cumc, n_state, nc, t_len, L, N * P);
+    if (err != cudaSuccess) return (int)err;
     ++k;
   }
-  err = dstate_attr.allow(ssd_bwd_dstate_kernel<T, NT, PT>, pl.smem[k]);
+  if constexpr (kMma)
+    err = run(ssd_bwd_dstate_mma_kernel<T, NT, PT>, dstate_attr, grid1(k),
+              threads, pl.smem[k], stream, dy, c, cum, s.gst, t_len, H, P, G,
+              N, L);
+  else
+    err = run(ssd_bwd_dstate_kernel<T, NT, PT>, dstate_attr, grid1(k),
+              threads, pl.smem[k], stream, dy, c, cum, s.gst, t_len, H, P, G,
+              N, L);
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_dstate_kernel<T, NT, PT><<<(unsigned)pl.blocks[k], kThreads,
-                                     (size_t)pl.smem[k], stream>>>(
-      (const T*)dy, (const T*)c, cum, s.gst, t_len, H, P, G, N, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ++k;
-  ssd_bwd_grad_carry_kernel<<<(unsigned)pl.blocks[k], kCarryThreads, 0,
-                              stream>>>(s.gst, cum, dh, n_state, nc, t_len, L,
-                                        N * P);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ++k;
-  err = key_attr.allow(ssd_bwd_key_kernel<T, NT, PT>, pl.smem[k]);
+  err = run(ssd_bwd_grad_carry_kernel, none, grid1(k), kCarryThreads, 0,
+            stream, s.gst, cumc, dh, n_state, nc, t_len, L, N * P);
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_key_kernel<T, NT, PT><<<dim3(chunks, tiles), kThreads,
-                                  (size_t)pl.smem[k], stream>>>(
-      (const T*)x, (const T*)dt, (const T*)b, (const T*)c, (const T*)dy, cum,
-      st, s.gst, (T*)dx, s.dbh, s.ddt0, s.dcum1, s.qm, s.gh, t_len, H, P, G,
-      N, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ++k;
-  err = query_attr.allow(ssd_bwd_query_kernel<T, NT, PT>, pl.smem[k]);
+  const float* gstc = s.gst;
+  if constexpr (kMma)
+    err = run(ssd_bwd_key_mma_kernel<T, NT, PT>, key_attr,
+              dim3(chunks, tiles, MmaPlan<NT, PT>::kRoles), threads,
+              pl.smem[k], stream, x, dt, b, c, dy, cumc, stc, gstc, (T*)dx,
+              s.dbh, s.ddt0, s.dcum1, s.qm, s.gh, t_len, H, P, G, N, L);
+  else
+    err = run(ssd_bwd_key_kernel<T, NT, PT>, key_attr, dim3(chunks, tiles),
+              threads, pl.smem[k], stream, x, dt, b, c, dy, cumc, stc, gstc,
+              (T*)dx, s.dbh, s.ddt0, s.dcum1, s.qm, s.gh, t_len, H, P, G, N,
+              L);
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_query_kernel<T, NT, PT><<<dim3(chunks, tiles), kThreads,
-                                    (size_t)pl.smem[k], stream>>>(
-      (const T*)x, (const T*)dt, (const T*)b, (const T*)c, (const T*)dy, cum,
-      st, s.dch, s.dcum2, t_len, H, P, G, N, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ++k;
-  ssd_bwd_dt_kernel<T><<<(unsigned)pl.blocks[k], kScanWarps * 32, 0,
-                         stream>>>(
-      (const T*)dt, a, cum, s.ddt0, s.dcum1, s.dcum2, s.qm, s.gh, (T*)ddt,
-      s.dapart, (long long)chunks, t_len, H, L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (kMma)
+    err = run(ssd_bwd_query_mma_kernel<T, NT, PT>, query_attr,
+              dim3(chunks, tiles), threads, pl.smem[k], stream, x, dt, b, c,
+              dy, cumc, stc, s.dch, s.dcum2, t_len, H, P, G, N, L);
+  else
+    err = run(ssd_bwd_query_kernel<T, NT, PT>, query_attr,
+              dim3(chunks, tiles), threads, pl.smem[k], stream, x, dt, b, c,
+              dy, cumc, stc, s.dch, s.dcum2, t_len, H, P, G, N, L);
+  if (err != cudaSuccess) return (int)err;
   ++k;
-  ssd_bwd_da_kernel<<<(unsigned)pl.blocks[k], kCarryThreads, 0, stream>>>(
-      s.dapart, da, bsz, H, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = run(ssd_bwd_dt_kernel<T>, none, grid1(k), kScanWarps * 32, 0, stream,
+            dt, a, cumc, (const float*)s.ddt0, (const float*)s.dcum1,
+            (const float*)s.dcum2, (const float*)s.qm, (const float*)s.gh,
+            (T*)ddt, s.dapart, (long long)chunks, t_len, H, L);
+  if (err != cudaSuccess) return (int)err;
   ++k;
-  ssd_bwd_group_kernel<T><<<(unsigned)pl.blocks[k], kCarryThreads, 0,
-                            stream>>>(s.dbh, s.dch, (T*)db, (T*)dc,
-                                      (long long)bsz * t_len * G * N, H, G,
-                                      N);
-  return (int)cudaGetLastError();
+  err = run(ssd_bwd_da_kernel, none, grid1(k), kCarryThreads, 0, stream,
+            (const float*)s.dapart, da, bsz, H, nc);
+  if (err != cudaSuccess) return (int)err;
+  ++k;
+  return (int)run(ssd_bwd_group_kernel<T>, none, grid1(k), kCarryThreads, 0,
+                  stream, (const float*)s.dbh, (const float*)s.dch, (T*)db,
+                  (T*)dc, (long long)bsz * t_len * G * N, H, G, N);
 }
 
 bool takes(int bsz, int t_len, int H, int P, int G, int N, int L) {
@@ -996,27 +1897,36 @@ bool takes(int bsz, int t_len, int H, int P, int G, int N, int L) {
          H % G == 0 && N >= 1 && N <= 128 && P >= 1 && P <= 128;
 }
 
+// variant 0 = bwd_simt (any width), 1 = bwd_mma_3xtf32 (N and P
+// multiples of 8)
+bool takes_variant(int variant, int N, int P) {
+  return variant == 0 || (variant == 1 && N % 8 == 0 && P % 8 == 0);
+}
+
 }  // namespace
 
-// Scratch floats a backward launch at these sizes needs (see Scratch).
+// Scratch floats a backward launch at these sizes needs (see Scratch); the
+// same for either variant.
 extern "C" long long ssd_scan_bwd_scratch(int bsz, int t_len, int H, int P,
                                           int G, int N, int L) {
   if (!takes(bsz, t_len, H, P, G, N, L)) return -1;
   return Scratch(nullptr, bsz, t_len, H, N, P, L).total;
 }
 
-// What a backward launch at these sizes runs (recompute: the states are
-// recomputed first), as the launcher sizes it: for each kernel in launch
-// order its dynamic shared memory in bytes and its blocks, into smem[9]
-// and blocks[9].  Returns the number of kernels, or -1 for sizes the
-// kernel does not take.
-extern "C" int ssd_scan_bwd_plan(int recompute, int bsz, int t_len, int H,
-                                 int P, int G, int N, int L, long long* smem,
-                                 long long* blocks) {
-  if (!takes(bsz, t_len, H, P, G, N, L)) return -1;
-  const Launch pl = with_tiles(N, P, [&](auto nt, auto pt) {
+// What a backward launch of `variant` (0 = bwd_simt, 1 = bwd_mma_3xtf32)
+// at these sizes runs (recompute: the states are recomputed first), as
+// the launcher sizes it: for each kernel in launch order its dynamic
+// shared memory in bytes and its blocks, into smem[9] and blocks[9].
+// Returns the number of kernels, or -1 for sizes the variant does not
+// take.
+extern "C" int ssd_scan_bwd_plan(int variant, int recompute, int bsz,
+                                 int t_len, int H, int P, int G, int N,
+                                 int L, long long* smem, long long* blocks) {
+  if (!takes(bsz, t_len, H, P, G, N, L) || !takes_variant(variant, N, P))
+    return -1;
+  const Launch pl = with_tiles(variant == 1, N, P, [&](auto nt, auto pt) {
     return bwd_plan<decltype(nt)::value, decltype(pt)::value>(
-        recompute != 0, bsz, t_len, H, N, P, G, L);
+        variant == 1, recompute != 0, bsz, t_len, H, N, P, G, L);
   });
   for (int i = 0; i < kMaxKernels; ++i) {
     smem[i] = pl.smem[i];
@@ -1026,33 +1936,40 @@ extern "C" int ssd_scan_bwd_plan(int recompute, int bsz, int t_len, int H,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, b, c, dy and dx, ddt, db, dc).
-// st [B, H, T/L, N, P] and cum [B, H, T] float32: the forward's states
-// entering each chunk and in-chunk prefix sums (have_states = 1, the
-// tensor-core forward's scratch), or space this call fills
-// (have_states = 0).  dh [B, H, N, P] float32 or null.  scratch: the
-// floats ssd_scan_bwd_scratch asks for.  Returns the CUDA error of the
-// launches (0 on success).
+// variant: 0 = bwd_simt, 1 = bwd_mma_3xtf32 (N and P multiples of 8; x,
+// b, c and dy 16-byte aligned).  st [B, H, T/L, N, P] and cum [B, H, T]
+// float32: the forward's states entering each chunk and in-chunk prefix
+// sums (have_states = 1, the tensor-core forward's scratch), or space
+// this call fills (have_states = 0).  dh [B, H, N, P] float32 or null.
+// scratch: the floats ssd_scan_bwd_scratch asks for.  Returns the CUDA
+// error of the launches (0 on success).
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const float* a,
                             const void* b, const void* c, const void* dy,
                             const float* dh, float* st, float* cum,
                             int have_states, float* scratch, void* dx,
                             void* ddt, float* da, void* db, void* dc, int bsz,
                             int t_len, int H, int P, int G, int N, int L,
-                            int dtype, void* stream) {
-  if (!takes(bsz, t_len, H, P, G, N, L) || (dtype != 0 && dtype != 1) ||
-      st == nullptr || cum == nullptr || scratch == nullptr)
+                            int dtype, int variant, void* stream) {
+  if (!takes(bsz, t_len, H, P, G, N, L) || !takes_variant(variant, N, P) ||
+      (dtype != 0 && dtype != 1) || st == nullptr || cum == nullptr ||
+      scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool recompute = have_states == 0;
-  return with_tiles(N, P, [&](auto nt, auto pt) {
+  const bool recompute = have_states == 0, mma = variant == 1;
+  return with_tiles(mma, N, P, [&](auto nt, auto pt) {
     constexpr int NT = decltype(nt)::value, PT = decltype(pt)::value;
-    if (dtype == 0)
-      return launch_bwd<float, NT, PT>(x, dt, a, b, c, dy, dh, st, cum,
-                                       recompute, scratch, dx, ddt, da, db,
-                                       dc, bsz, t_len, H, P, G, N, L, s);
-    return launch_bwd<__nv_bfloat16, NT, PT>(x, dt, a, b, c, dy, dh, st, cum,
-                                             recompute, scratch, dx, ddt, da,
-                                             db, dc, bsz, t_len, H, P, G, N,
-                                             L, s);
+    auto go = [&](auto t, auto m) {
+      using T = decltype(t);
+      return launch_bwd<T, NT, PT, decltype(m)::value>(
+          x, dt, a, b, c, dy, dh, st, cum, recompute, scratch, dx, ddt, da,
+          db, dc, bsz, t_len, H, P, G, N, L, s);
+    };
+    using Mma = std::true_type;
+    using Simt = std::false_type;
+    if constexpr (NT == PT) {
+      if (mma)
+        return dtype == 0 ? go(float(), Mma()) : go(__nv_bfloat16(), Mma());
+    }
+    return dtype == 0 ? go(float(), Simt()) : go(__nv_bfloat16(), Simt());
   });
 }

@@ -43,15 +43,28 @@ source's to say: :func:`plan` asks it, and the wrapper's refusal of a
 card; ``chip_smoke.py`` holds the two equal.
 
 **The backward** (``csrc/ssd_scan_bwd.cu``, :func:`ssd_scan_bwd`): the
-gradient of (y, h) at upstream dy and dh, in float32 on the CUDA cores
-(variant ``bwd_simt``), deterministic (no atomics), for N and P up to
-:data:`BWD_MAX_WIDTH` in either type.  It reads the states entering each
-chunk and the prefix sums of dt·a that ``mma_3xtf32`` leaves in its
-scratch (:func:`ssd_scan_states`); after a ``simt`` forward,
-which keeps none, it recomputes them first (``bwd_simt_recompute``).
+gradient of (y, h) at upstream dy and dh, deterministic (no atomics, every
+sum in a fixed order), for N and P up to :data:`BWD_MAX_WIDTH` in either
+type.  It reads the states entering each chunk and the prefix sums of
+dt·a that ``mma_3xtf32`` leaves in its scratch (:func:`ssd_scan_states`)
+and recomputes them where it gets none.  :func:`bwd_variant` picks one of
+two designs of the same passes from the type and the widths:
+
+* ``bwd_mma_3xtf32`` where the forward runs ``mma_3xtf32`` (N and P
+  multiples of 8 up to 128; zamba2's 64 and 64): the products on
+  ``mma.sync`` with the 3xTF32 split, flash attention's backward layout —
+  a 64-key-tile pass (dx, db, the direct ddt) and a 64-row-tile pass (dc),
+  each warp 16 rows, the score tiles kept in registers and fed from the
+  accumulators into the next product; D_k and the recomputed states as
+  the forward's state pass runs its product;
+* ``bwd_simt_recompute`` at every other width (after a ``simt`` forward,
+  which keeps no states): the first design, in float32 on the CUDA cores.
+  ``ssd_scan_bwd(..., _variant="bwd_simt")`` forces it at any width, as a
+  comparison; nothing on the path does.
+
 Its plain version is :func:`repro_torch.kernels.ref.ssd_chunked_bwd_ref`.
 :class:`SSDScan` binds the two for autograd; :func:`bwd_plan` and
-:func:`bwd_smem_bytes` are the backward's plan from the C source and in
+:func:`bwd_smem_bytes` are each design's plan from the C source and in
 Python.
 
 This wrapper checks what the kernel takes (CUDA; x, dt, b, c of one type,
@@ -84,16 +97,23 @@ SIMT_ROWS = 32                      # simt's row tile
 KERNELS = {"simt": ("ssd_simt_kernel",),
            "mma_3xtf32": ("ssd_state_kernel", "ssd_carry_kernel",
                           "ssd_output_kernel")}
-# the backward's kernels in launch order; the first two run only where
-# the forward left no states (after simt)
-BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_state_carry_kernel",
-               "ssd_bwd_dstate_kernel", "ssd_bwd_grad_carry_kernel",
-               "ssd_bwd_key_kernel", "ssd_bwd_query_kernel",
-               "ssd_bwd_dt_kernel", "ssd_bwd_da_kernel",
-               "ssd_bwd_group_kernel")
+# each backward design's kernels in launch order; the first two run only
+# where the states are recomputed (after simt)
+_BWD_TAIL = ("ssd_bwd_dt_kernel", "ssd_bwd_da_kernel", "ssd_bwd_group_kernel")
+BWD_KERNELS = {
+    "bwd_simt": ("ssd_bwd_state_kernel", "ssd_bwd_state_carry_kernel",
+                 "ssd_bwd_dstate_kernel", "ssd_bwd_grad_carry_kernel",
+                 "ssd_bwd_key_kernel", "ssd_bwd_query_kernel") + _BWD_TAIL,
+    "bwd_mma_3xtf32": ("ssd_bwd_state_mma_kernel",
+                       "ssd_bwd_state_carry_kernel",
+                       "ssd_bwd_dstate_mma_kernel",
+                       "ssd_bwd_grad_carry_kernel", "ssd_bwd_key_mma_kernel",
+                       "ssd_bwd_query_mma_kernel") + _BWD_TAIL}
+BWD_KERNELS["bwd_simt_recompute"] = BWD_KERNELS["bwd_simt"]
+_BWD_IDS = {"bwd_simt": 0, "bwd_simt_recompute": 0, "bwd_mma_3xtf32": 1}
 BWD_MAX_WIDTH = 128                 # N and P of the backward
-VARIANT_LAUNCHES = LaunchCounts(mma_3xtf32=0, simt=0, bwd_simt=0,
-                                bwd_simt_recompute=0)
+VARIANT_LAUNCHES = LaunchCounts(mma_3xtf32=0, simt=0, bwd_mma_3xtf32=0,
+                                bwd_simt=0, bwd_simt_recompute=0)
 
 
 def variant(dtype: torch.dtype, n: int, p: int) -> str:
@@ -156,19 +176,56 @@ def check_bwd(dtype: torch.dtype, n: int, p: int) -> None:
                          f"(each 1..{BWD_MAX_WIDTH})")
 
 
-def bwd_smem_bytes(n: int, p: int) -> int:
-    """Dynamic shared memory of the backward's largest block at widths
-    ``n``, ``p``, as ``csrc/ssd_scan_bwd.cu`` lays it out (``Plan``;
-    :func:`bwd_plan` asks the source).  Widths padded by
-    :func:`width_tile` to NT, PT, every tile row one word wider: the
-    state passes hold a 64-row b or c tile, an x or dy tile and the row
-    weights; the key pass its b and x tiles and four weights a key, then
-    G (NT rows) or, per row tile, c, dy, cum and two 64 x 64 score tiles;
-    the row pass its c and dy tiles and two weights a row, then H or, per
-    key tile, b, x, cum, dt and one score tile.  None depends on the
-    chunk."""
+def bwd_variant(dtype: torch.dtype, n: int, p: int) -> str:
+    """The backward design that takes state width ``n`` and head dim
+    ``p`` in ``dtype``: ``bwd_mma_3xtf32`` where :func:`variant` picks
+    ``mma_3xtf32`` for the forward (N and P multiples of 8 up to
+    :data:`MAX_WIDTH`), else ``bwd_simt_recompute`` (the forward ran
+    ``simt`` and kept no states).  ``bwd_simt`` is never picked:
+    :func:`ssd_scan_bwd` runs it only when asked."""
+    check_bwd(dtype, n, p)
+    return "bwd_mma_3xtf32" if variant(dtype, n, p) == "mma_3xtf32" \
+        else "bwd_simt_recompute"
+
+
+def _bwd_id(name: str, n: int, p: int) -> int:
+    if name not in _BWD_IDS:
+        raise ValueError(f"unknown SSD backward variant {name!r}")
+    if name == "bwd_mma_3xtf32" and (n % 8 or p % 8):
+        raise ValueError(f"bwd_mma_3xtf32 does not take N={n}, P={p}")
+    return _BWD_IDS[name]
+
+
+def bwd_smem_bytes(name: str, n: int, p: int) -> int:
+    """Dynamic shared memory of the largest block of backward design
+    ``name`` at widths ``n``, ``p``, as ``csrc/ssd_scan_bwd.cu`` lays it
+    out (``Plan``, ``MmaPlan``; :func:`bwd_plan` asks the source).  None
+    depends on the chunk; widths pad by :func:`width_tile` to NT, PT,
+    for ``bwd_mma_3xtf32`` both to the tile of the wider (its kernels are
+    built at 64 x 64 and 128 x 128 only).
+
+    ``bwd_mma_3xtf32`` (rows of NT + 4 and PT + 4 words, for ldmatrix):
+    the key pass holds its keys' b and x tiles and four weights a key,
+    and a ring of :data:`STAGES` row tiles (c, dy, cum), G_k staged in its
+    second stage first; the row pass its rows' c and dy and two weights a
+    row, and a ring of key tiles (b, x, cum, dt), H_k first; the state
+    passes a ring of 64-row u and v tiles (NT + 8, PT + 8) and weights.
+
+    ``bwd_simt`` / ``bwd_simt_recompute`` (every tile row one word
+    wider): the state passes hold a 64-row b or c tile, an x or dy tile
+    and the row weights; the key pass its b and x tiles and four weights
+    a key, then G (NT rows) or, per row tile, c, dy, cum and two 64 x 64
+    score tiles; the row pass its c and dy tiles and two weights a row,
+    then H or, per key tile, b, x, cum, dt and one score tile."""
     check_bwd(torch.float32, n, p)
     nt, pt = width_tile(n), width_tile(p)
+    if _bwd_id(name, n, p):
+        nt = pt = max(nt, pt)
+        own = TILE * ((nt + 4) + (pt + 4))
+        key = own + 4 * TILE + STAGES * (own + TILE)
+        row = own + 2 * TILE + STAGES * (own + 2 * TILE)
+        state = STAGES * (TILE * ((nt + 8) + (pt + 8)) + TILE)
+        return 4 * max(key, row, state)
     ntile, ptile, mat = TILE * (nt + 1), TILE * (pt + 1), nt * (pt + 1)
     score = TILE * (TILE + 1)
     state = ntile + ptile + TILE
@@ -195,10 +252,10 @@ def _bwd_lib():
     lib = library(_BWD_SOURCE)
     if not getattr(lib, "_typed", False):
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_bwd.argtypes = [p] * 9 + [i32] + [p] * 6 + [i32] * 8 \
+        lib.ssd_scan_bwd.argtypes = [p] * 9 + [i32] + [p] * 6 + [i32] * 9 \
             + [p]
         lib.ssd_scan_bwd.restype = ctypes.c_int
-        lib.ssd_scan_bwd_plan.argtypes = [i32] * 8 + [p, p]
+        lib.ssd_scan_bwd_plan.argtypes = [i32] * 9 + [p, p]
         lib.ssd_scan_bwd_plan.restype = ctypes.c_int
         lib.ssd_scan_bwd_scratch.argtypes = [i32] * 7
         lib.ssd_scan_bwd_scratch.restype = ctypes.c_longlong
@@ -206,21 +263,24 @@ def _bwd_lib():
     return lib
 
 
-def bwd_plan(batch: int, t: int, heads: int, groups: int, n: int, p: int,
-             chunk: int, recompute: bool = False
+def bwd_plan(name: str, batch: int, t: int, heads: int, groups: int,
+             n: int, p: int, chunk: int, recompute: bool = False
              ) -> Dict[str, Tuple[int, int]]:
-    """(dynamic shared memory bytes, blocks) of each kernel a backward
-    launch runs at these sizes, keyed by kernel name in launch order
-    (``recompute``: the states are recomputed first), as the launcher of
-    ``csrc/ssd_scan_bwd.cu`` sizes them (``ssd_scan_bwd_plan``).  Builds
-    the library; raises on sizes the backward does not take."""
-    smem = (ctypes.c_longlong * len(BWD_KERNELS))()
-    blk = (ctypes.c_longlong * len(BWD_KERNELS))()
-    k = _bwd_lib().ssd_scan_bwd_plan(int(recompute), batch, t, heads, p,
-                                     groups, n, chunk,
+    """(dynamic shared memory bytes, blocks) of each kernel a launch of
+    backward design ``name`` runs at these sizes, keyed by kernel name in
+    launch order (``recompute``: the states are recomputed first), as the
+    launcher of ``csrc/ssd_scan_bwd.cu`` sizes them
+    (``ssd_scan_bwd_plan``).  Builds the library; raises on sizes the
+    design does not take."""
+    vid = _bwd_id(name, n, p)
+    kernels = BWD_KERNELS[name]
+    smem = (ctypes.c_longlong * len(kernels))()
+    blk = (ctypes.c_longlong * len(kernels))()
+    k = _bwd_lib().ssd_scan_bwd_plan(vid, int(recompute), batch, t, heads,
+                                     p, groups, n, chunk,
                                      ctypes.addressof(smem),
                                      ctypes.addressof(blk))
-    names = BWD_KERNELS if recompute else BWD_KERNELS[2:]
+    names = kernels if recompute else kernels[2:]
     if k != len(names):
         raise ValueError(f"the SSD backward does not take N={n}, P={p}, "
                          f"T={t}, chunk={chunk}")
@@ -346,23 +406,35 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
                  dh: Optional[torch.Tensor], chunk: int,
-                 states: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                 states: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 _variant: Optional[str] = None):
     """(dx, ddt, da, db, dc): the gradient of :func:`ssd_scan`'s (y, h) at
     upstream ``dy`` (x's type and shape) and ``dh`` ([B, H, N, P] float32,
-    or None: h unused), by one call that enqueues the backward kernel's
-    passes, counted once in :data:`VARIANT_LAUNCHES` (``bwd_simt``, or
-    ``bwd_simt_recompute`` where ``states`` is None and the states are
-    recomputed).  ``states``: what :func:`ssd_scan_states` returned
-    third.  Gradients in the inputs' type, da float32.  A build or
-    launch error raises."""
+    or None: h unused), by one call that enqueues the passes of the design
+    :func:`bwd_variant` picks, counted once in :data:`VARIANT_LAUNCHES`
+    under its name (the first design as ``bwd_simt``, or
+    ``bwd_simt_recompute`` where ``states`` is None and it recomputes
+    them; ``bwd_mma_3xtf32`` recomputes them on the tensor cores).
+    ``states``: what :func:`ssd_scan_states` returned third.
+    ``_variant="bwd_simt"`` forces the first design (the chip smoke test
+    times it beside the picked one).  Gradients in the inputs' type, da
+    float32.  A build or launch error raises."""
     _check(x, dt, a, b, c, chunk, None)
     B, T, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    check_bwd(x.dtype, N, P)
+    name = bwd_variant(x.dtype, N, P)
+    if _variant is not None:
+        if _variant not in ("bwd_simt", "bwd_mma_3xtf32"):
+            raise ValueError(f"unknown SSD backward variant {_variant!r}")
+        if _variant == "bwd_mma_3xtf32" and name != _variant:
+            raise ValueError(f"bwd_mma_3xtf32 does not take N={N}, P={P}")
+        name = _variant
     if dy.shape != x.shape or dy.dtype != x.dtype or \
             dy.device != x.device or not dy.is_contiguous():
         raise ValueError(f"dy must be a contiguous {x.dtype} tensor of x's "
                          f"shape {tuple(x.shape)} on {x.device}")
+    if name == "bwd_mma_3xtf32" and dy.data_ptr() % 16:
+        raise ValueError("dy must be 16-byte aligned")
     if dh is not None and (tuple(dh.shape) != (B, H, N, P)
                            or dh.dtype != torch.float32
                            or dh.device != x.device
@@ -384,9 +456,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              torch.empty_like(b), torch.empty_like(c))
     if x.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    name = "bwd_simt"
+    if name != "bwd_mma_3xtf32":
+        name = "bwd_simt" if states is not None else "bwd_simt_recompute"
     if states is None:
-        name = "bwd_simt_recompute"
         st = torch.empty((B, H, nc, N, P), dtype=torch.float32,
                          device=x.device)
         cum = torch.empty((B, H, T), dtype=torch.float32, device=x.device)
@@ -403,7 +475,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         st.data_ptr(), cum.data_ptr(), int(states is not None),
         scratch.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
         db.data_ptr(), dc.data_ptr(), B, T, H, P, G, N, chunk,
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[x.dtype], _BWD_IDS[name],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed ({name}): "
                            f"CUDA error {err}")

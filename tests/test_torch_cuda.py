@@ -823,6 +823,7 @@ def test_ssd_simt_forced_matches_plain(card):
     y0, h0 = ops.ssd(x, dt, a, b, c, chunk=256, impl="ref")
     torch.cuda.synchronize()
     assert dict(mssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 1,
+                                           "bwd_mma_3xtf32": 0,
                                            "bwd_simt": 0,
                                            "bwd_simt_recompute": 0}
     _close(y, y0, 2e-4)
@@ -1361,8 +1362,10 @@ def test_kernels_without_backward_raise_under_grad_on_the_card(card):
     ops.reset_launches()
     y, _ = ops.ssd(x, dt, a, bc, bc, chunk=64)
     assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    mssd.VARIANT_LAUNCHES.reset()
     y.sum().backward()
     assert ops.LAUNCHES["ssd_scan"] == 1 and ops.LAUNCHES["ssd_scan_bwd"] == 1
+    assert mssd.VARIANT_LAUNCHES["bwd_mma_3xtf32"] == 1
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "llama4-scout-17b-a16e",
@@ -1383,10 +1386,15 @@ def test_tiny_gradients_on_the_card_match_plain(card, arch):
                                      remat="none")
     for remat in ("none", "full", "dots"):
         ops.reset_launches()
+        mssd.VARIANT_LAUNCHES.reset()
         gk, lk, _ = steps.loss_and_grads(cfg, params, batch, remat=remat)
         assert ops.LAUNCHES["flash_attention_bwd"] > 0
         if arch == "zamba2-1.2b":
+            # N 16, P 32: the tensor-core backward, every launch
             assert ops.LAUNCHES["ssd_scan_bwd"] == cfg.num_layers
+            assert mssd.VARIANT_LAUNCHES["bwd_mma_3xtf32"] == cfg.num_layers
+            assert mssd.VARIANT_LAUNCHES["bwd_simt"] == 0
+            assert mssd.VARIANT_LAUNCHES["bwd_simt_recompute"] == 0
         assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
         for x, y in zip(_tree.leaves(gk), _tree.leaves(gp)):
             assert float((x - y).abs().max()) <= \
@@ -1437,9 +1445,11 @@ def _held(got, want, tol):
 @pytest.mark.parametrize("B,T,H,P,G,N,chunk,dtype", SSD_BWD)
 def test_ssd_backward_matches_plain(card, B, T, H, P, G, N, chunk, dtype,
                                     with_dh):
-    """ops.ssd under grad runs SSDScan: dx, ddt, da, db, dc within
-    SSD_BWD_TOL of the plain backward (``ssd_chunked_bwd_ref``) and of
-    autograd of the plain forward, with dh zero (h unused) and not."""
+    """ops.ssd under grad runs SSDScan on the design bwd_variant picks:
+    dx, ddt, da, db, dc within SSD_BWD_TOL of the plain backward
+    (``ssd_chunked_bwd_ref``) and of autograd of the plain forward, with
+    dh zero (h unused) and not; the first design (``bwd_simt``) forced on
+    the same inputs within the same tolerance."""
     from repro_torch.kernels import ref
     x, dt, a, b, c, dy, dh = _ssd_grad_inputs(card, B, T, H, P, G, N,
                                               dtype, T + H + P, with_dh)
@@ -1453,52 +1463,77 @@ def test_ssd_backward_matches_plain(card, B, T, H, P, G, N, chunk, dtype,
     assert ops.LAUNCHES["ssd_scan"] == 1
     assert ops.LAUNCHES["ssd_scan_bwd"] == 1
     fwd = mssd.variant(dtype, N, P)
-    bwd = "bwd_simt" if fwd == "mma_3xtf32" else "bwd_simt_recompute"
+    bwd = mssd.bwd_variant(dtype, N, P)
+    assert bwd == ("bwd_mma_3xtf32" if fwd == "mma_3xtf32"
+                   else "bwd_simt_recompute")
     assert {n: k for n, k in mssd.VARIANT_LAUNCHES.items() if k} == \
         {fwd: 1, bwd: 1}
     tol = SSD_BWD_TOL[dtype]
-    _held(got, ref.ssd_chunked_bwd_ref(x, dt, a, b, c, dy, dh,
-                                       chunk=min(chunk, T)), tol)
+    plain_bwd = ref.ssd_chunked_bwd_ref(x, dt, a, b, c, dy, dh,
+                                        chunk=min(chunk, T))
+    _held(got, plain_bwd, tol)
+    _, _, states = mssd.ssd_scan_states(x, dt, a, b, c, min(chunk, T))
+    mssd.VARIANT_LAUNCHES.reset()
+    forced = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, min(chunk, T),
+                               states, _variant="bwd_simt")
+    torch.cuda.synchronize()
+    assert {n: k for n, k in mssd.VARIANT_LAUNCHES.items() if k} == \
+        {"bwd_simt" if states is not None else "bwd_simt_recompute": 1}
+    _held(forced, plain_bwd, tol)
     plain = [v.clone().requires_grad_(True) for v in (x, dt, a, b, c)]
     y0, h0 = ops.ssd(*plain, chunk=chunk, impl="ref")
     _held(got, torch.autograd.grad([y0, h0] if with_dh else [y0], plain,
                                    ups), tol)
 
 
-def test_ssd_backward_is_deterministic(card):
+@pytest.mark.parametrize("name", ["bwd_mma_3xtf32", "bwd_simt"])
+def test_ssd_backward_is_deterministic(card, name):
     """Two launches give the same bits (no atomics), from the forward's
     states and with the states recomputed."""
     x, dt, a, b, c, dy, dh = _ssd_grad_inputs(card, 2, 1024, 16, 64, 1, 64,
                                               torch.float32, 9, True)
     _, _, states = mssd.ssd_scan_states(x, dt, a, b, c, 256)
     for st in (states, None):
-        one = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, 256, st)
-        two = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, 256, st)
+        one = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, 256, st, name)
+        two = mssd.ssd_scan_bwd(x, dt, a, b, c, dy, dh, 256, st, name)
         for p, q in zip(one, two):
             assert torch.equal(p, q)
 
 
-@pytest.mark.parametrize("n,p,chunk", [(64, 64, 256), (20, 12, 20),
-                                       (128, 64, 80), (128, 128, 256)])
-def test_ssd_backward_plan_is_the_python_plan(card, n, p, chunk):
+@pytest.mark.parametrize("name", ["bwd_mma_3xtf32", "bwd_simt"])
+@pytest.mark.parametrize("n,p,chunk", [(64, 64, 256), (24, 16, 20),
+                                       (20, 12, 20), (128, 64, 80),
+                                       (128, 128, 256)])
+def test_ssd_backward_plan_is_the_python_plan(card, name, n, p, chunk):
     # what the C launcher asks for (ssd_scan_bwd_plan) against
     # bwd_smem_bytes, the Python plan the CPU tests hold to 227 KB
+    if name == "bwd_mma_3xtf32" and (n % 8 or p % 8):
+        with pytest.raises(ValueError, match="does not take"):
+            mssd.bwd_plan(name, 2, 4 * chunk, 3, 1, n, p, chunk)
+        return
+    mma = name == "bwd_mma_3xtf32"
+    # the mma key pass runs two blocks a key tile where a width is 128
+    roles = 2 if mma and max(n, p) > 64 else 1
+    sfx = "_mma_kernel" if mma else "_kernel"
     for recompute in (False, True):
-        plan = mssd.bwd_plan(2, 4 * chunk, 3, 1, n, p, chunk, recompute)
-        want = mssd.BWD_KERNELS if recompute else mssd.BWD_KERNELS[2:]
-        assert list(plan) == list(want)
-        assert max(s for s, _ in plan.values()) == mssd.bwd_smem_bytes(n, p)
+        plan = mssd.bwd_plan(name, 2, 4 * chunk, 3, 1, n, p, chunk,
+                             recompute)
+        want = mssd.BWD_KERNELS[name]
+        assert list(plan) == list(want if recompute else want[2:])
+        assert max(s for s, _ in plan.values()) == \
+            mssd.bwd_smem_bytes(name, n, p)
         tiles = -(-chunk // 64)
-        assert plan["ssd_bwd_dstate_kernel"][1] == 2 * 3 * 4
-        assert plan["ssd_bwd_key_kernel"][1] == 2 * 3 * 4 * tiles
-        assert plan["ssd_bwd_query_kernel"][1] == 2 * 3 * 4 * tiles
+        assert plan["ssd_bwd_dstate" + sfx][1] == 2 * 3 * 4
+        assert plan["ssd_bwd_key" + sfx][1] == 2 * 3 * 4 * tiles * roles
+        assert plan["ssd_bwd_query" + sfx][1] == 2 * 3 * 4 * tiles
     with pytest.raises(ValueError, match="does not take"):
-        mssd.bwd_plan(1, 256, 2, 1, 136, 64, 256)
+        mssd.bwd_plan(name, 1, 256, 2, 1, 136, 64, 256)
 
 
 def test_ssd_backward_does_not_spill_at_the_path_widths(card, tmp_path):
-    """ptxas's report of the backward's float32 64 x 64 instantiations
-    (the train path's widths): no spill, none over 255 registers."""
+    """ptxas's report of the backward's instantiations: none spills; the
+    float32 64 x 64 ones (the train path's widths) are the tiled passes
+    of both designs."""
     import re
     import subprocess
     from repro_torch import _build
@@ -1516,5 +1551,12 @@ def test_ssd_backward_does_not_spill_at_the_path_widths(card, tmp_path):
                                                      ln)]
     path = {k: v for k, v in seen.items()
             if re.search(r"ssd_bwd_\w+_kernelIfLi64ELi64E", k)}
-    assert len(path) == 4, sorted(seen)   # state, dstate, key, query
-    assert not any(sum(v) for v in path.values()), path
+    # state, dstate, key, query of bwd_simt and of bwd_mma_3xtf32
+    assert len(path) == 8, sorted(seen)
+    assert sum("_mma_kernel" in k for k in path) == 4, sorted(path)
+    # bwd_simt's 4 tiled passes x 4 width tiles x 2 types, bwd_mma_3xtf32's
+    # x 2 square tiles x 2 types, the dt pass and the group sums in 2
+    # types, 2 carries and da
+    bwd = {k: v for k, v in seen.items() if "ssd_bwd_" in k}
+    assert len(bwd) == 55, sorted(bwd)
+    assert not any(sum(v) for v in bwd.values()), bwd

@@ -78,13 +78,15 @@ def test_smem_plan_at_the_path_and_the_widest_widths():
         ssd.smem_bytes("wgmma", 64, 64)
 
 
-def test_wrapper_refuses_cpu_tensors_and_unknown_variants():
+@pytest.mark.parametrize("force", [None, "simt", "mma_3xtf32"])
+def test_wrapper_refuses_cpu_tensors_and_unknown_variants(force):
     x = torch.zeros((1, 8, 2, 8))
     dt, a = torch.zeros((1, 8, 2)), torch.zeros(2)
     bc = torch.zeros((1, 8, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        ssd.ssd_scan(x, dt, a, bc, bc, 8)
+        ssd.ssd_scan(x, dt, a, bc, bc, 8, _variant=force)
     assert dict(ssd.VARIANT_LAUNCHES) == {"mma_3xtf32": 0, "simt": 0,
+                                          "bwd_mma_3xtf32": 0,
                                           "bwd_simt": 0,
                                           "bwd_simt_recompute": 0}
 

@@ -344,12 +344,16 @@ def test_training_launch_counts(cuda_branch, remat, per_layer):
 # --------------------------------------------------------------------------- #
 # the backward's widths and shared memory
 # --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("forced", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,p", [(1, 1), (4, 20), (64, 64), (12, 128),
                                  (128, 8), (128, 128)])
-def test_backward_takes_every_width_up_to_128(dtype, n, p):
+def test_backward_takes_every_width_up_to_128(dtype, n, p, forced):
+    # the design bwd_variant picks, and the first design forced (it takes
+    # every width)
     mssd.check_bwd(dtype, n, p)
-    assert mssd.bwd_smem_bytes(n, p) <= 232_448        # the H100's block
+    name = "bwd_simt" if forced else mssd.bwd_variant(dtype, n, p)
+    assert mssd.bwd_smem_bytes(name, n, p) <= 232_448  # the H100's block
 
 
 @pytest.mark.parametrize("dtype,n,p,err", [
@@ -360,11 +364,20 @@ def test_backward_refuses_other_widths(dtype, n, p, err):
         mssd.check_bwd(dtype, n, p)
 
 
-def test_backward_smem_plan_at_the_path_and_the_widest_widths():
-    # the key pass is the largest: b and x key tiles of 64 rows of 65
-    # words, four weights a key, then c and dy row tiles, their cum and
-    # two 64 x 65 score tiles: (2 * 4160 + 256 + 2 * 4160 + 64 + 8320) * 4
-    assert mssd.bwd_smem_bytes(64, 64) == 101_120
-    # 128 x 128: tiles of 129-word rows
-    assert mssd.bwd_smem_bytes(128, 128) == 166_656
-    assert mssd.bwd_smem_bytes(20, 12) == mssd.bwd_smem_bytes(64, 64)
+@pytest.mark.parametrize("name,path,widest,narrow", [
+    # bwd_simt: the key pass is the largest: b and x key tiles of 64 rows
+    # of 65 words, four weights a key, then c and dy row tiles, their cum
+    # and two 64 x 65 score tiles: (2 * 4160 + 256 + 2 * 4160 + 64 + 8320)
+    # * 4; at 128 x 128 tiles of 129-word rows
+    ("bwd_simt", 101_120, 166_656, (20, 12)),
+    # bwd_mma_3xtf32: the key and row passes, equal: own b and x (c and dy)
+    # tiles of 64 rows of 68 words, four (two) weights a row, two ring
+    # stages of the other pair with one (two) weights: (8704 + 256 + 2 *
+    # (8704 + 64)) * 4; at 128 x 128 rows of 132 words
+    ("bwd_mma_3xtf32", 105_984, 204_288, (24, 16))])
+def test_backward_smem_plan_at_the_path_and_the_widest_widths(name, path,
+                                                              widest, narrow):
+    assert mssd.bwd_smem_bytes(name, 64, 64) == path
+    assert mssd.bwd_smem_bytes(name, 128, 128) == widest
+    # widths pad to the 64 tile: no plan depends on them below it
+    assert mssd.bwd_smem_bytes(name, *narrow) == path
