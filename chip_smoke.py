@@ -120,7 +120,20 @@ Each phase prints one JSON line:
     the dispatch against ``moe_dense_ref`` (every expert on every token)
     on the first layer's MoE input of the 1,024-token prompt, within
     2e-4 of the largest magnitude, the same tokens kept and the same
-    ``overflow``, both timed.
+    ``overflow``, both timed.  Then ``ep_moe``: the same input through
+    ``moe.moe_ep`` on a one-rank NCCL mesh (data 1 x model 1: NCCL
+    refuses two ranks on one card), plain and staged (FSDP experts on a
+    ``data`` ring of 1): y bit-equal to ``moe_apply``'s (one rank is the
+    dispatch with its all-to-alls put back), the same ``lb_loss``,
+    ``overflow`` and kept set, the NCCL collectives of one profiled call
+    counted by name (2 all-to-alls, 1 all-gather, 1 all-reduce), both
+    timed beside ``moe_apply``.  Then ``collectives`` on that mesh:
+    ``ring_allgather_matmul(frags=2)`` against ``x @ W`` at a scout
+    expert's width (within 1e-4 of the largest magnitude),
+    ``windowed_allgather`` equal to its input, ``compressed_psum`` on a
+    seeded [5120, 8192] leaf bit-equal to the int8 round trip of x + err
+    with its residual (and the bytes on the wire), and ``srq_combine``
+    over the ``paged`` phase's paged-decode (o, lse) equal to its o.
 11. ``serve_xlstm``: xlstm-125m at full size (12 layers: 9 mLSTM, 3
     sLSTM, d_model 768, 4 heads of 192, vocab 50,304): prompts of 64,
     128, 256 and 512 tokens (the mLSTM prefill needs whole chunks of
@@ -426,6 +439,11 @@ MARGIN = 1e-3               # plain top-2 logit margin below which greedy
 ROUTE_MARGIN = 1e-4         # plain top-2 router probability margin below
                             # which a token's expert may rightly differ
 MOE_TOL = 2e-4              # the MoE dispatch vs moe_dense_ref, relative
+RING_TOL = 1e-4             # tests/multidev_driver.py ring_allgather_matmul
+# the collectives moe_ep's body issues on a mesh without FSDP gathers, as
+# NCCL's host records name them
+EP_COLLECTIVES = {"nccl:all_to_all": 2, "nccl:all_gather": 1,
+                  "nccl:all_reduce": 1}
 ATTN_KINDS = ("attn_dense", "attn_moe", "mamba_attn")   # prefill: flash
 SSD_KINDS = ("mamba", "mamba_attn")                     # prefill: SSD
 # the engine-served families on the card: phase -> (arch, layers kept
@@ -3201,7 +3219,7 @@ def paged_phase(cfg, dev):
     ``PagedKV``, decoded through ``ops.decode_attention`` and held to the
     dense ring decode of the model's decode path; then the lse merge,
     release and reuse, and the escape path.  Returns the ``paged`` and
-    ``staged`` phase rows."""
+    ``staged`` phase rows and the first decode's (o, lse)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
@@ -3332,7 +3350,7 @@ def paged_phase(cfg, dev):
                        "ssd_scan": 0, "ssd_scan_bwd": 0,
                        "decode_attention_paged": calls, "staged_matmul": 0},
           f"paged path launches {launches}, want {calls} decode launches")
-    return out, staged
+    return out, staged, (o, lse)
 
 
 def tree_rel(got, want) -> float:
@@ -3430,15 +3448,12 @@ def prefill_vs_plain(params, cfg, prompt, max_len: int) -> dict:
     return row
 
 
-def moe_dispatch_phase(params, cfg, prompt) -> dict:
-    """The capacity dispatch (``moe.moe_apply``, the serving path) against
-    its plain version (``moe.moe_dense_ref``, every expert on every token)
-    on the card, at the MoE input of the first layer for ``prompt``: the
-    output within ``MOE_TOL`` of the plain one's largest magnitude, the
-    same tokens kept and the same ``overflow``."""
+def moe_input(params, cfg, prompt):
+    """The first layer's MoE parameters and its MoE input for
+    ``prompt``."""
     import numpy as np
     import torch
-    from repro_torch.models import attention, moe
+    from repro_torch.models import attention
     from repro_torch.models.decoding import unit
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.transformer import embed_tokens
@@ -3447,18 +3462,28 @@ def moe_dispatch_phase(params, cfg, prompt) -> dict:
     p0 = unit(params["pattern"][0], 0)
     x = embed_tokens(params, tok, cfg, torch.float32)
     x = x + attention.self_attention(p0["attn"], rms_norm(x, p0["ln1"]), cfg)
-    h = rms_norm(x, p0["ln2"])
+    return p0["ffn"], rms_norm(x, p0["ln2"])
+
+
+def moe_dispatch_phase(ffn, h, cfg) -> dict:
+    """The capacity dispatch (``moe.moe_apply``, the serving path) against
+    its plain version (``moe.moe_dense_ref``, every expert on every token)
+    on the card, at the first layer's MoE input ``h``: the output within
+    ``MOE_TOL`` of the plain one's largest magnitude, the same tokens kept
+    and the same ``overflow``."""
+    import torch
+    from repro_torch.models import moe
     cf = cfg.capacity_factor
     routes = []
 
     def dispatch():
-        return moe.moe_apply(p0["ffn"], h, cfg, cf)
+        return moe.moe_apply(ffn, h, cfg, cf)
 
     def plain():
-        return moe.moe_dense_ref(p0["ffn"], h, cfg, cf)
-    y, aux = moe.moe_apply(p0["ffn"], h, cfg, cf,
+        return moe.moe_dense_ref(ffn, h, cfg, cf)
+    y, aux = moe.moe_apply(ffn, h, cfg, cf,
                            on_route=lambda *r: routes.append(r))
-    yr, auxr = moe.moe_dense_ref(p0["ffn"], h, cfg, cf,
+    yr, auxr = moe.moe_dense_ref(ffn, h, cfg, cf,
                                  on_route=lambda *r: routes.append(r))
     err, ok = close_to_scale(y, yr, MOE_TOL)
     (idx, keep, _), (idx_r, keep_r, margin) = routes
@@ -3479,6 +3504,177 @@ def moe_dispatch_phase(params, cfg, prompt) -> dict:
     check(ok, f"moe dispatch != moe_dense_ref: {row}")
     check(row["kept_equal"] and row["overflow"] == row["overflow_plain"],
           f"moe dispatch kept other tokens than moe_dense_ref: {row}")
+    return row
+
+
+_NCCL = {}
+
+
+def nccl_mesh():
+    """This process's one-rank NCCL mesh (data 1 x model 1), started once
+    and shut down by :func:`close_nccl`: the card holds one rank, since NCCL
+    refuses two ranks on one device ("Duplicate GPU detected")."""
+    import os
+    import torch
+    from repro_torch.launch.mesh import init_group, make_mesh
+    if "mesh" not in _NCCL:
+        store = ROOT / "build" / f"nccl_store_{os.getpid()}"
+        store.parent.mkdir(exist_ok=True)
+        if store.exists():
+            store.unlink()
+        init_group("nccl", 0, 1, str(store), device=torch.device("cuda:0"))
+        _NCCL["mesh"] = make_mesh((1, 1), ("data", "model"))
+    return _NCCL["mesh"]
+
+
+def close_nccl() -> None:
+    """Shut down the mesh of :func:`nccl_mesh`, if one was started."""
+    if _NCCL:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        _NCCL.clear()
+
+
+def nccl_records(fn) -> dict:
+    """One call of ``fn`` under the profiler: NCCL's host records of the
+    collectives it issued (``nccl:<op>``, one a collective) and the
+    card's records named for NCCL, each counted by name.  On one rank
+    NCCL moves data with copies, not kernels of its own."""
+    import torch
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    host, device = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            if "nccl" in name.lower():
+                device[name] = device.get(name, 0) + 1
+        elif name.startswith("nccl:"):
+            host[name] = host.get(name, 0) + 1
+    return {"host": host, "device": device}
+
+
+def ep_moe_phase(ffn, h, cfg) -> dict:
+    """``moe.moe_ep`` on the one-rank NCCL mesh against ``moe.moe_apply``
+    at the same input, plain (no FSDP) and staged (FSDP experts on a
+    ``data`` ring of 1, ``jet_collectives``): y bit-equal, ``lb_loss``,
+    ``overflow`` and the kept set equal, NCCL's collectives of one call
+    ``EP_COLLECTIVES``; ms of both in this call, not gated."""
+    import torch
+    from repro_torch.launch.mesh import ctx_for_mesh
+    from repro_torch.models import moe
+    mesh = nccl_mesh()
+    cf = cfg.capacity_factor
+    want_routes = []
+    with torch.no_grad():
+        y, aux = moe.moe_apply(ffn, h, cfg, cf,
+                               on_route=lambda *r: want_routes.append(r))
+        rows = {}
+        for variant, kw in (("plain", {"fsdp": False}),
+                            ("staged", {"fsdp": True,
+                                        "jet_collectives": True})):
+            ctx = ctx_for_mesh(mesh, moe_capacity_factor=cf, **kw)
+            local, xl = moe.ep_local(ffn, h, ctx)
+            routes = []
+            ye, auxe = moe.moe_ep(local, xl, cfg, ctx,
+                                  on_route=lambda *r: routes.append(r))
+            (idx, keep, margin), = routes
+            (idx_w, keep_w, margin_w), = want_routes
+            nccl = nccl_records(lambda: moe.moe_ep(local, xl, cfg, ctx))
+            rows[variant] = {
+                "fsdp": ctx.fsdp, "jet_collectives": ctx.jet_collectives,
+                "bitwise_equal": bool(torch.equal(ye, y)),
+                "max_abs_err": float((ye - y).abs().max()),
+                "lb_loss": float(auxe["lb_loss"]),
+                "overflow": float(auxe["overflow"]),
+                "kept_equal": bool(torch.equal(idx, idx_w)
+                                   and torch.equal(keep, keep_w)
+                                   and torch.equal(margin, margin_w)),
+                "nccl_host": nccl["host"], "nccl_device": nccl["device"],
+                "ms": cuda_ms(lambda: moe.moe_ep(local, xl, cfg, ctx), 5,
+                              warmup=2)}
+        apply_ms = cuda_ms(lambda: moe.moe_apply(ffn, h, cfg, cf), 5,
+                           warmup=2)
+    n = h.shape[0] * h.shape[1]
+    row = {"arch": cfg.name, "mesh": dict(mesh.shape), "backend": "nccl",
+           "tokens": n, "experts": cfg.num_experts,
+           "capacity": moe.capacity(cf, n, cfg.num_experts),
+           "lb_loss_apply": float(aux["lb_loss"]),
+           "overflow_apply": float(aux["overflow"]),
+           "want_nccl": EP_COLLECTIVES, "apply_ms": apply_ms, **rows}
+    emit("ep_moe", **row)
+    for variant in ("plain", "staged"):
+        r = rows[variant]
+        check(r["bitwise_equal"] and r["kept_equal"]
+              and r["lb_loss"] == row["lb_loss_apply"]
+              and r["overflow"] == row["overflow_apply"],
+              f"moe_ep ({variant}) differs from moe_apply on one rank: {r}")
+        check(r["nccl_host"] == EP_COLLECTIVES,
+              f"moe_ep ({variant}) issued {r['nccl_host']} collectives, "
+              f"want {EP_COLLECTIVES}")
+    return row
+
+
+def collectives_phase(decoded) -> dict:
+    """The staged collectives and ``compressed_psum`` on the one-rank NCCL
+    mesh at scout widths, and ``srq_combine`` over the paged decode
+    kernel's ``decoded`` = (o, lse) of the ``paged`` phase."""
+    import torch
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.compression import (compressed_psum,
+                                                  dequantize_int8_rowwise,
+                                                  quantize_int8_rowwise)
+    g = nccl_mesh().group("model")
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    d, f = 5120, 8192                      # scout's d_model and d_ff
+    x = torch.randn((1024, d), generator=gen, device="cuda")
+    w = torch.randn((d, f), generator=gen, device="cuda") * d ** -0.5
+    y = coll.ring_allgather_matmul(x, w, g, frags=2)
+    ring_err, ring_ok = close_to_scale(y, x @ w, RING_TOL)
+    gathered = coll.windowed_allgather(x, g, window=4)
+    leaf = torch.randn((d, f), generator=gen, device="cuda")
+    err = torch.randn((d, f), generator=gen, device="cuda") * 1e-2
+    mean, new_err = compressed_psum(leaf, err, g)
+    target = leaf + err
+    q, scale = quantize_int8_rowwise(target)
+    deq = dequantize_int8_rowwise(q, scale)
+    o, lse = decoded
+    merged = coll.srq_combine(o, lse, g)
+    row = {"mesh": {"data": 1, "model": 1}, "backend": "nccl",
+           "ring_allgather_matmul": {
+               "x": list(x.shape), "w": list(w.shape), "frags": 2,
+               "max_abs_err": ring_err, "tol": RING_TOL, "ok": ring_ok,
+               "ms": cuda_ms(lambda: coll.ring_allgather_matmul(
+                   x, w, g, frags=2), 10, warmup=2),
+               "matmul_ms": cuda_ms(lambda: x @ w, 10, warmup=2)},
+           "windowed_allgather": {
+               "shape": list(x.shape), "window": 4,
+               "equal": bool(torch.equal(gathered, x))},
+           "compressed_psum": {
+               "shape": [d, f], "mean_bitwise": bool(torch.equal(mean, deq)),
+               "residual_bitwise": bool(torch.equal(new_err, target - deq)),
+               "wire_bytes": q.numel() * q.element_size()
+               + scale.numel() * scale.element_size(),
+               "f32_bytes": leaf.numel() * leaf.element_size(),
+               "ms": cuda_ms(lambda: compressed_psum(leaf, err, g), 5,
+                             warmup=2)},
+           "srq_combine": {
+               "o": list(o.shape), "source": "ops.decode_attention on the "
+               "paged zamba2 store (the paged phase's first decode)",
+               "equal_o": bool(torch.equal(merged, o))}}
+    emit("collectives", **row)
+    check(ring_ok, f"ring_allgather_matmul != x @ W: {ring_err}")
+    check(row["windowed_allgather"]["equal"],
+          "windowed_allgather differs from its input on one rank")
+    check(row["compressed_psum"]["mean_bitwise"]
+          and row["compressed_psum"]["residual_bitwise"],
+          f"compressed_psum differs from the int8 round trip: "
+          f"{row['compressed_psum']}")
+    check(row["srq_combine"]["equal_o"],
+          "srq_combine over one rank's (o, lse) differs from o")
     return row
 
 
@@ -3605,7 +3801,9 @@ def serve_phase(cfg, dev, phase: str = "serve", prompt_lens=SERVE_PROMPTS,
     check(excused, f"{phase}: tokens of requests {diverged} differ from the "
                    f"plain run after a confident step")
     if cfg.num_experts:
-        out["moe_dispatch"] = moe_dispatch_phase(params, cfg, prompts[-1])
+        ffn, h = moe_input(params, cfg, prompts[-1])
+        out["moe_dispatch"] = moe_dispatch_phase(ffn, h, cfg)
+        out["ep_moe"] = ep_moe_phase(ffn, h, cfg)
     return out
 
 
@@ -4785,12 +4983,16 @@ def run() -> int:
         lap("serve")
         profile_serve(zamba2, torch.device("cuda"))
         lap("profile_serve")
-        paged, staged = paged_phase(zamba2, torch.device("cuda"))
+        paged, staged, decoded = paged_phase(zamba2, torch.device("cuda"))
         lap("paged_staged")
         model_runs = {}
         for phase in FAMILY_SERVES:
             model_runs[phase] = family_phase(phase, torch.device("cuda"))
             lap(phase)
+            if phase == "serve_scout":
+                collectives_phase(decoded)
+                del decoded
+                lap("collectives")
         for phase in API_PHASES:
             model_runs[phase] = api_phase(phase, torch.device("cuda"))
             lap(phase)
@@ -4874,6 +5076,8 @@ def run() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        close_nccl()
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -57,6 +57,20 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, path: Path = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping its
+    structure (``jax.tree_util.tree_map_with_path``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def unflatten(like: Any, new_leaves: list) -> Any:
     """The structure of ``like`` with its leaves, in :func:`flatten`'s
     order, replaced by ``new_leaves``."""

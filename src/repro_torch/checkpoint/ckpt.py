@@ -6,10 +6,10 @@ reference's layout, so that either package reads the other's:
 Leaves are keyed by their path (``pattern/0/attn/wq``: dict keys and
 sequence indices, JAX's order) and numbered in sorted key order.  A save
 writes ``step_<N>.tmp`` and renames it, so a crashed writer never
-corrupts the latest checkpoint; ``keep_last`` trims history.  The
-reference's ``restore(..., shardings)`` places leaves on a target mesh
-(elastic reshard), a mesh knob (ROADMAP Queue 1 A4); here ``device``
-says where the restored tensors go.
+corrupts the latest checkpoint; ``keep_last`` trims history.
+``restore(..., shardings=)`` is elastic reshard: each rank of the target
+mesh reads every leaf and keeps only its block (a checkpoint written by
+one process restores onto a 2 x 4 mesh, or any other).
 """
 from __future__ import annotations
 
@@ -103,11 +103,21 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def restore(directory: str, like, step: Optional[int] = None,
-            device: DeviceLike = None):
+            device: DeviceLike = None, shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors, meta
     tensors included, or arrays) -> (tree, extra).  Leaves go to
-    ``device`` (CUDA unless the caller asks for the CPU)."""
+    ``device`` (CUDA unless the caller asks for the CPU).  ``shardings``:
+    an optional tree like ``like``'s of ``parallel.sharding.NamedSharding``
+    (``ctx.sharding(spec)``; ``None`` keeps a leaf whole) for the
+    *target* mesh: this rank keeps its block of each leaf, read from the
+    file through a memory map."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(directory)
     if step is None:
@@ -118,7 +128,11 @@ def restore(directory: str, like, step: Optional[int] = None,
     out = []
     for p, _ in _tree.flatten(like):
         meta = manifest["leaves"][_tree.key(p)]
-        arr = np.load(os.path.join(path, meta["file"]))
+        sh = None if shardings is None else _at(shardings, p)
+        arr = np.load(os.path.join(path, meta["file"]),
+                      mmap_mode=None if sh is None else "r")
+        if sh is not None:
+            arr = np.array(arr[sh.index(arr.shape)])   # a copy, 0-d kept
         out.append(torch.from_numpy(arr).to(dev))
     return _tree.unflatten(like, out), manifest.get("extra", {})
 

@@ -6,8 +6,8 @@
 
 The reference's flags, plus ``--device``.  ``--mesh`` takes only
 ``1x1``, where the reference trains with an MoE capacity factor of 2.0
-and so does this launcher; a larger mesh needs ROADMAP Queue 1 A4 and
-raises.  The reference's ``--host-devices`` (JAX's host device count)
+and so does this launcher; a larger mesh needs the sharded train step
+(ROADMAP Queue 1 A4b) and raises.  The reference's ``--host-devices`` (JAX's host device count)
 has no counterpart.  On the card every family trains through the
 kernels: the SSD families (zamba2-1.2b) through the SSD scan's backward
 kernel, the attention families through flash attention's.
@@ -28,7 +28,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--mesh", default="1x1",
                     help="1x1 only: one card (larger meshes: ROADMAP "
-                         "Queue 1 A4)")
+                         "Queue 1 A4b)")
     ap.add_argument("--tiny", action="store_true",
                     help="use the reduced same-family config")
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -44,7 +44,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         raise ValueError(f"--mesh {args.mesh}: the port trains on one card "
-                         f"(1x1); a device mesh is ROADMAP Queue 1 A4")
+                         f"(1x1); training on a mesh is ROADMAP Queue 1 A4b")
 
     import torch
 

@@ -96,8 +96,8 @@ def state_from_jax(state: Any, cfg: ArchConfig, device: DeviceLike = None
     if set(state) != {"params", "opt", "step"}:
         raise ValueError(f"train state has {sorted(state)}; want params, "
                          f"opt and step (the compressed_pod_grads "
-                         f"residuals 'err' need a device mesh: ROADMAP "
-                         f"Queue 1 A4)")
+                         f"residuals 'err' belong to the sharded train "
+                         f"step: ROADMAP Queue 1 A4b)")
     opt = state["opt"]
     if set(opt) != {"m", "v", "count"}:
         raise ValueError(f"optimizer state has {sorted(opt)}; want m, v, "

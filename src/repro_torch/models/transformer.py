@@ -24,8 +24,8 @@ use_reentrant=False)``: ``remat="none"`` keeps every activation,
 checkpoint policy).  Every policy gives the same gradients.  The
 reference's ``"layer_out"`` saves the tensor-parallel all-reduced
 sublayer outputs, and ``bf16_weight_gather`` casts before the FSDP
-gathers: both are mesh knobs (ROADMAP Queue 1 A4), and ``"layer_out"``
-raises.
+gathers: both are mesh knobs of the sharded train step (ROADMAP Queue 1
+A4b), and ``"layer_out"`` raises.
 """
 from __future__ import annotations
 
@@ -276,9 +276,9 @@ def _dots_context():
 def check_remat(remat: str) -> None:
     if remat == "layer_out":
         raise ValueError("remat='layer_out' saves the tensor-parallel "
-                         "all-reduced sublayer outputs: a mesh knob, which "
-                         "needs a device mesh the port does not have yet "
-                         "(ROADMAP Queue 1 A4)")
+                         "all-reduced sublayer outputs: a mesh knob of "
+                         "the sharded train step, which the port does not "
+                         "have yet (ROADMAP Queue 1 A4b)")
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r} ({' | '.join(REMATS)})")
 

@@ -12,7 +12,8 @@ This is elementwise work that the reference leaves to XLA outside any
 Pallas kernel, so it is plain PyTorch here (a fused optimizer kernel is
 later speed work).  :func:`update` returns new trees and leaves its
 inputs as they were.  ``compressed_pod_grads`` (the int8 cross-pod
-gradient mean) needs a mesh: ROADMAP Queue 1 A4, and it raises.
+gradient mean, ``parallel.compression.compressed_psum``) belongs to the
+sharded train step: ROADMAP Queue 1 A4b, and it raises.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ from .. import _tree
 from ..parallel.compression import (dequantize_int8_rowwise,
                                     quantize_int8_rowwise)
 
-MESH_KNOB = ("needs a device mesh, which the port does not have yet "
-             "(ROADMAP Queue 1 A4)")
+MESH_KNOB = ("needs the sharded train step under a mesh, which the port "
+             "does not have yet (ROADMAP Queue 1 A4b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +43,7 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
-    # the reference's int8 cross-pod gradient mean: a mesh knob (A4)
+    # the reference's int8 cross-pod gradient mean: a mesh knob (A4b)
     compressed_pod_grads: bool = False
 
 

@@ -1,12 +1,13 @@
 """Symmetric int8 compression (``repro.parallel.compression``): blockwise
 over a flattened tensor, and row-wise with one scale per last-dim row,
-which keeps the tensor's shape (the 8-bit AdamW moments use it).
+which keeps the tensor's shape (the 8-bit AdamW moments use it), and
+:func:`compressed_psum`, the error-feedback int8 mean over a process
+group (the cross-pod gradient sync; the train step that calls it under a
+mesh is ROADMAP Queue 1 A4b).
 
 Elementwise work that the reference does outside any Pallas kernel, so
 plain PyTorch here.  Every step is float32 and rounds half to even, as
-the reference's does.  ``compressed_psum`` (the error-feedback int8
-all-reduce over a process group) is ROADMAP Queue 1 A4: the port runs on
-one card.
+the reference's does.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .collectives import all_gather
 
 BLOCK = 256
 
@@ -60,6 +63,24 @@ def quantize_int8_rowwise(x: torch.Tensor
 def dequantize_int8_rowwise(q: torch.Tensor, scale: torch.Tensor,
                             dtype=torch.float32) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def compressed_psum(x: torch.Tensor, err: torch.Tensor, group
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback compressed all-reduce (mean) over ``group``.
+
+    Returns (mean_of_dequantized, new_error).  The wire format is int8:
+    each rank all-gathers its int8 codes plus one float32 scale a last-dim
+    row (~3.9x less traffic than a float32 all-reduce), then dequantizes
+    and averages locally.  Error feedback keeps the long-run mean
+    unbiased."""
+    target = x + err
+    q, scale = quantize_int8_rowwise(target)
+    new_err = target - dequantize_int8_rowwise(q, scale)
+    q_all = all_gather(q, group, tiled=False)           # [n, ...] int8
+    s_all = all_gather(scale, group, tiled=False)       # [n, ...] f32 rows
+    deq_all = q_all.float() * s_all[..., None]
+    return torch.mean(deq_all, dim=0), new_err
 
 
 def compression_ratio(shape) -> float:

@@ -1,10 +1,13 @@
 """Training (``repro.train``): the train and eval steps, the train state
-and the fault-tolerant loop, on one card.  The reference's sharding
-specs (``param_specs``, ``state_specs``) are mesh layouts, ROADMAP
-Queue 1 A4."""
+and the fault-tolerant loop, on one card, and the train state's sharding
+specs (``param_specs``, ``state_specs``).  The sharded train step is
+ROADMAP Queue 1 A4b."""
 from .loop import LoopConfig, StragglerMonitor, run
-from .steps import abstract_state, init_state, loss_and_grads, \
-    make_eval_step, make_train_step
+from .steps import abstract_state, batch_specs, init_state, \
+    loss_and_grads, make_eval_step, make_train_step, opt_state_specs, \
+    param_spec, param_specs, state_specs
 
-__all__ = ["LoopConfig", "StragglerMonitor", "abstract_state", "init_state",
-           "loss_and_grads", "make_eval_step", "make_train_step", "run"]
+__all__ = ["LoopConfig", "StragglerMonitor", "abstract_state", "batch_specs",
+           "init_state", "loss_and_grads", "make_eval_step",
+           "make_train_step", "opt_state_specs", "param_spec", "param_specs",
+           "run", "state_specs"]

@@ -11,8 +11,9 @@
 * a straggler monitor: an EWMA of step wall time, and a step slower than
   ``straggler_factor`` times it raises a flag.
 
-The reference's elastic rescale (restoring onto another mesh) is a mesh
-knob, ROADMAP Queue 1 A4.  A step's time ``dt`` covers the device's
+The loop trains on one card; restoring a checkpoint onto a mesh (elastic
+rescale) is ``checkpoint.ckpt.restore(..., shardings=)``, and a loop over
+a mesh needs the sharded train step (ROADMAP Queue 1 A4b).  A step's time ``dt`` covers the device's
 work: reading ``float(metrics["loss"])`` waits for it.
 """
 from __future__ import annotations

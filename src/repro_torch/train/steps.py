@@ -1,12 +1,14 @@
 """Train and eval steps (``repro.train.steps``): loss, gradient and
-AdamW on one card.
+AdamW on one card, and the sharding rules of the train state.
 
-The reference builds its step for ``jit`` under a mesh: sharding rules
-per leaf (``param_spec``, ``param_specs``, ``param_shardings``,
-``opt_state_specs``, ``batch_specs``, ``state_specs``) and the
-compressed cross-pod gradient sync.  Those are mesh layouts, ROADMAP
-Queue 1 A4; here the step runs eagerly on one device and every mesh
-knob raises ``ValueError``.
+The rules (``_RULES``, :func:`param_spec`, :func:`param_specs`,
+:func:`opt_state_specs`, :func:`batch_specs`, :func:`state_specs`) give
+each leaf's spec over a mesh, as the reference's do; a rank takes its
+block with ``ParallelCtx.shard`` (the reference's ``param_shardings``
+places a global array instead).  The step itself runs eagerly on one
+device: the sharded step and the compressed cross-pod gradient sync are
+ROADMAP Queue 1 A4b, and every mesh knob of the step raises
+``ValueError``.
 
 Gradients come from autograd through the model's forward: the card's
 flash attention through ``kernels.jet_flash_attention.FlashAttention``
@@ -25,8 +27,84 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..models import transformer
 from ..optim import adamw
+from ..parallel.sharding import P, ParallelCtx
 
 METRICS = ("loss", "lb_loss", "overflow")
+
+# (tp_dim, fsdp_dim) by leaf name, negative indices from the end
+_RULES = {
+    "wq": (-1, -2), "wk": (-1, -2), "wv": (-1, -2),
+    "w_in": (-1, -2), "w_gate": (-1, -2), "w_x": (-1, -2),
+    "w_xbc": (-1, -2), "w_z": (-1, -2), "w_dt": (-1, -2),
+    "w_if": (-1, -2),
+    "wo": (-2, -1), "w_out": (-2, -1),
+    "e_in": (-3, -2), "e_gate": (-3, -2), "e_out": (-3, -1),
+    "embed": (-2, -1), "unembed": (-1, -2),
+}
+
+
+def param_spec(path, leaf, ctx: ParallelCtx) -> P:
+    """The spec of the leaf at ``path`` (dict keys and sequence indices,
+    as ``_tree.flatten`` gives them), by the last key's rule: the model
+    axis on its TP dim and ``data`` on its FSDP dim, each where it
+    divides; ``P()`` for a leaf with no rule or with no mesh."""
+    name = next((k for k in reversed(path) if isinstance(k, str)), None)
+    rule = _RULES.get(name)
+    if rule is None or not ctx.have_mesh:
+        return P()
+    tp, fs = rule
+    nd = len(leaf.shape)
+    parts: list = [None] * nd
+    tp_i, fs_i = tp % nd, fs % nd
+    if leaf.shape[tp_i] % ctx.model_size == 0 and leaf.shape[tp_i] > 1:
+        parts[tp_i] = ctx.model_axis
+    if (ctx.fsdp and fs_i != tp_i and "data" in ctx.mesh.axis_names
+            and leaf.shape[fs_i] % ctx.mesh.shape["data"] == 0
+            and leaf.shape[fs_i] > 1):
+        parts[fs_i] = "data"
+    return P(*parts)
+
+
+def param_specs(params, ctx: ParallelCtx):
+    return _tree.tree_map_with_path(
+        lambda path, leaf: param_spec(path, leaf, ctx), params)
+
+
+def opt_state_specs(opt_state, params_specs, ctx: ParallelCtx):
+    """Moments inherit their parameter's spec (ZeRO).  Row-wise int8
+    moments: ``q`` keeps the parameter's exact shape (same spec); ``s``
+    drops the last dim (the same spec truncated) — no reshape, so the
+    parameter's sharding carries over."""
+    def match(path, leaf):
+        is_scale = path[-1] == "s"
+        trimmed = [k for k in path if k not in ("q", "s")]
+        if len(leaf.shape) == 0:
+            return P()
+        if is_scale:
+            # the parent parameter's spec, truncated to the scale's dims
+            parent = torch.empty(tuple(leaf.shape) + (1,), device="meta")
+            return P(*param_spec(trimmed, parent, ctx)[:len(leaf.shape)])
+        return param_spec(trimmed, leaf, ctx)
+    return {"m": _tree.tree_map_with_path(match, opt_state["m"]),
+            "v": _tree.tree_map_with_path(match, opt_state["v"]),
+            "count": P()}
+
+
+def batch_specs(batch, ctx: ParallelCtx):
+    def one(x):
+        ax = ctx.batch_axes_for(x.shape[0])
+        return P(ax if ax else None, *([None] * (len(x.shape) - 1)))
+    return _tree.tree_map(one, batch)
+
+
+def state_specs(state, ctx: ParallelCtx):
+    p_specs = param_specs(state["params"], ctx)
+    specs = {"params": p_specs,
+             "opt": opt_state_specs(state["opt"], p_specs, ctx),
+             "step": P()}
+    if "err" in state:
+        specs["err"] = p_specs       # residuals mirror the param sharding
+    return specs
 
 
 def loss_and_grads(cfg: ArchConfig, params, batch,

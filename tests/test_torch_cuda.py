@@ -1560,3 +1560,215 @@ def test_ssd_backward_does_not_spill_at_the_path_widths(card, tmp_path):
     bwd = {k: v for k, v in seen.items() if "ssd_bwd_" in k}
     assert len(bwd) == 55, sorted(bwd)
     assert not any(sum(v) for v in bwd.values()), bwd
+
+
+# --------------------------------------------------------------------------- #
+# The distribution layer over NCCL, one rank a card.  NCCL refuses two
+# ranks on one card ("Duplicate GPU detected"), so these need two or more
+# cards and skip on one; tests/test_torch_multidev.py holds the same
+# functions to the reference on 8 gloo ranks on the CPU.
+MULTI_JOIN_S = 300.0
+MULTI_TOL = 2e-4
+
+
+def _rank_main(rank, world, store, backend, fn):
+    """One rank: its card (or the CPU under gloo), the group, ``fn``."""
+    import faulthandler
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_group
+    torch.set_num_threads(1)
+    # a rank still running near the join limit prints where it waits
+    faulthandler.dump_traceback_later(MULTI_JOIN_S - 20, exit=True)
+    dev = torch.device(f"cuda:{rank}") if backend == "nccl" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        full_fp32_matmul()
+    init_group(backend, rank, world, store,
+               device=dev if dev.type == "cuda" else None)
+    try:
+        fn(dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(fn, store, world=2, backend="nccl"):
+    """``fn(device)`` on ``world`` spawned ranks; a rank's failure or a
+    rank still running after ``MULTI_JOIN_S`` fails the test."""
+    import time
+    import torch.multiprocessing as mp
+    procs = mp.start_processes(_rank_main, args=(world, str(store), backend,
+                                                 fn),
+                               nprocs=world, start_method="spawn",
+                               join=False)
+    deadline = time.monotonic() + MULTI_JOIN_S
+    try:
+        while not procs.join(timeout=1.0):
+            assert time.monotonic() < deadline, \
+                f"ranks still running after {MULTI_JOIN_S} s"
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def _multi_scout(experts, shared):
+    import dataclasses
+    return dataclasses.replace(tiny_config(get_arch("llama4-scout-17b-a16e")),
+                               num_experts=experts, shared_expert=shared)
+
+
+def _moe_inputs(cfg, dev, xshape, seed=0):
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(seed)
+    params = moe.moe_init(g, cfg)
+    x = torch.randn(xshape + (cfg.d_model,), generator=g)
+    to = lambda t: t.to(dev)    # noqa: E731
+    from repro_torch._tree import tree_map
+    return tree_map(to, params), to(x)
+
+
+def _ep_two_model_ranks(dev):
+    """EP at 2 model ranks past capacity: each model rank routes its half
+    of the tokens with slabs sized by its own count, which is
+    ``moe_apply`` on that half; y within 2e-4, overflow and the kept set
+    exact."""
+    from repro_torch.launch.mesh import ctx_for_mesh, make_mesh
+    from repro_torch.models import moe
+    cfg = _multi_scout(4, False)
+    params, x = _moe_inputs(cfg, dev, (2, 16))
+    ctx = ctx_for_mesh(make_mesh((1, 2), ("data", "model")),
+                       moe_capacity_factor=0.5, fsdp=False)
+    local, xl = moe.ep_local(params, x, ctx)
+    routes, want_routes = [], []
+    with torch.no_grad():
+        y, aux = moe.moe_ep(local, xl, cfg, ctx,
+                            on_route=lambda e, k, m: routes.append(k))
+        # model rank i routes batch row i (16 of the 32 tokens)
+        halves = [moe.moe_apply(params, x[i:i + 1], cfg, 0.5,
+                                on_route=lambda e, k, m: want_routes.append(k))
+                  for i in range(2)]
+    want = torch.cat([h[0] for h in halves]).reshape(x.shape)
+    r = ctx.mesh.coord("model")
+    _close_to_scale(y, want, MULTI_TOL)
+    assert torch.equal(routes[0], want_routes[r])
+    overflow = sum(float(h[1]["overflow"]) for h in halves) / 2
+    assert float(aux["overflow"]) == pytest.approx(overflow, abs=1e-7)
+    assert 0.0 < float(aux["overflow"])
+
+
+def _staged_data_ring(dev):
+    """The staged expert FFN with FSDP shards on a ``data`` ring of 2:
+    each rank's block of y within 2e-4 of the dispatch on that block."""
+    from repro_torch.launch.mesh import ctx_for_mesh, make_mesh
+    from repro_torch.models import moe
+    cfg = _multi_scout(4, True)
+    params, x = _moe_inputs(cfg, dev, (4, 16), seed=1)
+    ctx = ctx_for_mesh(make_mesh((2, 1), ("data", "model")),
+                       moe_capacity_factor=16.0, fsdp=True,
+                       jet_collectives=True)
+    local, xl = moe.ep_local(params, x, ctx)
+    assert local["e_in"].shape[1] == cfg.d_model // 2
+    with torch.no_grad():
+        y, _ = moe.moe_ep(local, xl, cfg, ctx)
+        want, _ = moe.moe_dense_ref(params, xl, cfg, 16.0)
+    _close_to_scale(y, want, MULTI_TOL)
+
+
+def _collectives_and_gpipe(dev):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import pipeline as pp
+    from repro_torch.parallel.compression import (compressed_psum,
+                                                  dequantize_int8_rowwise,
+                                                  quantize_int8_rowwise)
+    mesh = make_mesh((2,), ("model",))
+    g, r = mesh.group("model"), mesh.coord("model")
+    gen = torch.Generator().manual_seed(3)
+    x, w = torch.randn(16, 64, generator=gen), torch.randn(64, 32,
+                                                           generator=gen)
+    y = coll.ring_allgather_matmul(x.to(dev), w[r * 32:(r + 1) * 32].to(dev),
+                                   g, frags=2)
+    _close_to_scale(y.cpu(), x @ w, 1e-4)
+    parts = torch.randn(2, 16, 64, generator=gen)
+    rs = coll.ring_reduce_scatter(parts[r].to(dev), g)
+    _close_to_scale(rs.cpu(), parts.sum(0)[:, r * 32:(r + 1) * 32], 1e-4)
+    rows = torch.randn(64, 8, generator=gen)
+    assert torch.equal(coll.windowed_allgather(
+        rows[r * 32:(r + 1) * 32].to(dev), g, window=4).cpu(), rows)
+    grads, errs = torch.randn(2, 512, generator=gen), \
+        torch.randn(2, 512, generator=gen) * 1e-2
+    mean, new_err = compressed_psum(grads[r].to(dev), errs[r].to(dev), g)
+    deq = [dequantize_int8_rowwise(*quantize_int8_rowwise(grads[i] + errs[i]))
+           for i in range(2)]
+    assert torch.allclose(mean.cpu(), (deq[0] + deq[1]) / 2, rtol=0,
+                          atol=1e-6)
+    assert torch.allclose(new_err.cpu(), grads[r] + errs[r] - deq[r],
+                          rtol=0, atol=1e-6)
+    # GPipe: 2 stages of 3 tanh layers against the sequential stack
+    wl = torch.randn(6, 16, 16, generator=gen) * 16 ** -0.5
+    xm = torch.randn(4, 8, 16, generator=gen)
+    w_stage = pp.stack_stages(wl, 2)[r].to(dev).requires_grad_(True)
+
+    def stage_fn(h):
+        hh = h.reshape(-1, 16)
+        for wi in w_stage:
+            hh = torch.tanh(hh @ wi)
+        return hh.reshape(h.shape)
+    out = pp.broadcast_from_last(pp.gpipe(stage_fn, xm.to(dev), g, 2), g, 2)
+    (gw,) = torch.autograd.grad(out.sum(), [w_stage])
+    wr = wl.clone().requires_grad_(True)
+    h = xm.reshape(-1, 16)
+    for wi in wr:
+        h = torch.tanh(h @ wi)
+    (gs,) = torch.autograd.grad(h.sum(), [wr])
+    assert torch.allclose(out.detach().cpu(), h.detach().reshape(xm.shape),
+                          rtol=5e-4, atol=5e-4)
+    assert torch.allclose(gw.cpu(), gs[r * 3:(r + 1) * 3], rtol=5e-4,
+                          atol=5e-4)
+
+
+def _srq_over_paged_halves(dev):
+    """Each rank decodes its half of a zamba2 page table with the paged
+    decode kernel; ``srq_combine`` of the two (o, lse) within 2e-4 of
+    the whole table's decode."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives as coll
+    mesh = make_mesh((2,), ("model",))
+    g, r = mesh.group("model"), mesh.coord("model")
+    page, maxp = 16, 64
+    lengths = [64, 128, 256, 512, 1000, 1024]
+    b, hq, hkv, d = len(lengths), 32, 32, 64     # zamba2's shared attention
+    gen = torch.Generator().manual_seed(4)
+    n_pool = b * maxp
+    table = torch.randperm(n_pool, generator=gen)[:b * maxp].reshape(
+        b, maxp).int()
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    need = (lens + page - 1) // page
+    table[torch.arange(maxp)[None] >= need[:, None]] = -1
+    kp = torch.randn(n_pool, page, hkv, d, generator=gen)
+    vp = torch.randn(n_pool, page, hkv, d, generator=gen)
+    q = torch.randn(b, hq, d, generator=gen)
+    on = [t.to(dev) for t in (q, kp, vp, table, lens)]
+    whole, _ = ops.decode_attention(*on)
+    half = maxp // 2
+    mine = table[:, r * half:(r + 1) * half].contiguous()
+    mlen = torch.clamp(lens - r * half * page, min=0, max=half * page)
+    o, lse = ops.decode_attention(on[0], on[1], on[2], mine.to(dev),
+                                  mlen.to(dev))
+    merged = coll.srq_combine(o, lse, g)
+    assert torch.allclose(merged, whole, rtol=MULTI_TOL, atol=MULTI_TOL)
+
+
+MULTI_CARD = {"ep_moe_two_model_ranks_overflow": _ep_two_model_ranks,
+              "staged_ffn_data_ring_of_two": _staged_data_ring,
+              "collectives_compressed_psum_gpipe": _collectives_and_gpipe,
+              "srq_combine_over_paged_decode_halves": _srq_over_paged_halves}
+
+
+@pytest.mark.skipif(not torch.cuda.is_available()
+                    or torch.cuda.device_count() < 2,
+                    reason="needs two or more cards")
+@pytest.mark.parametrize("case", sorted(MULTI_CARD))
+def test_distribution_over_nccl_on_two_cards(card, tmp_path, case):
+    _spawn_ranks(MULTI_CARD[case], tmp_path / "store")

@@ -1,6 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or the
-reference package ``repro`` (``repro_torch`` itself is allowed)."""
+``chip_smoke.py``, no script under ``tools/`` and not the port side of
+the multi-rank tests (``tests/torch_multidev_port.py``) imports ``jax``
+or the reference package ``repro`` (``repro_torch`` itself is allowed);
+the reference side (``tests/torch_multidev_ref.py``) imports nothing of
+the port."""
 import ast
 from pathlib import Path
 
@@ -11,7 +14,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
+    + [ROOT / "tests" / "torch_multidev_port.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -43,8 +47,16 @@ def test_scan_covers_the_package_and_the_smoke_script():
     assert {"vector.py", "fused.py", "ops.py", "ssm.py", "engine.py",
             "cc.py", "messages.py", "faults.py", "chip_smoke.py",
             "adamw.py", "compression.py", "pipeline.py", "ckpt.py",
-            "steps.py", "loop.py", "train.py", "_tree.py"} <= names
+            "steps.py", "loop.py", "train.py", "_tree.py", "sharding.py",
+            "collectives.py", "compat.py", "mesh.py",
+            "torch_multidev_port.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
+
+
+def test_reference_side_of_the_multirank_tests_imports_no_port():
+    mods = {m.split(".")[0] for m in _imports(
+        ROOT / "tests" / "torch_multidev_ref.py")}
+    assert "repro" in mods and "repro_torch" not in mods
 
 
 def test_detector_flags_banned_imports(tmp_path):
@@ -59,7 +71,10 @@ def test_detector_flags_banned_imports(tmp_path):
 
 @pytest.mark.parametrize("module", ["fabric.cc", "fabric.messages",
                                     "fabric.faults", "fabric.vector",
-                                    "train.loop", "launch.train"])
+                                    "train.loop", "launch.train",
+                                    "parallel.collectives",
+                                    "parallel.pipeline", "models.moe",
+                                    "launch.mesh"])
 def test_fabric_layers_load_without_jax(module):
     """Importing each fabric layer in a fresh interpreter loads neither
     ``jax`` nor the reference package."""

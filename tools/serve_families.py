@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The engine-served families alone on one CUDA card: ``chip_smoke.py``'s
 two flash rows at the dense and MoE prefill shapes and its three family
-serve phases (``serve_danube``, ``serve_scout`` with ``moe_dispatch``,
-``serve_xlstm``), with the same checks, in about a minute; then, for
+serve phases (``serve_danube``, ``serve_scout`` with ``moe_dispatch``
+and ``ep_moe``, ``serve_xlstm``), with the same checks, in about a minute; then, for
 each phase's model, a ``profile_family`` line: one prefill of its
 longest prompt up to 1,024 tokens and 4 four-lane decode steps under
 ``torch.profiler`` (kernels a step, device busy µs and share over the
@@ -110,6 +110,8 @@ def main() -> int:
     except cs.SmokeFailure as e:
         print(f"serve_families: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        cs.close_nccl()
     for phase in phases:
         profile_family(cs, phase, torch.device("cuda"))
     print(json.dumps({"phase": "serve_families_s", **seconds}), flush=True)
