@@ -444,6 +444,12 @@ RING_TOL = 1e-4             # tests/multidev_driver.py ring_allgather_matmul
 # NCCL's host records name them
 EP_COLLECTIVES = {"nccl:all_to_all": 2, "nccl:all_gather": 1,
                   "nccl:all_reduce": 1}
+# moe_ep's forward and backward on a one-rank mesh: the two all-to-alls
+# and their reverses, the gather of y, the aux all-reduce, and the
+# all-reduces that sum the block's and the router's gradient parts
+EP_GRAD_COLLECTIVES = {"nccl:all_to_all": 4, "nccl:all_gather": 1,
+                       "nccl:all_reduce": 3}
+MESH_LAYERS = 6             # train_mesh: danube's depth cut 24 -> 6
 ATTN_KINDS = ("attn_dense", "attn_moe", "mamba_attn")   # prefill: flash
 SSD_KINDS = ("mamba", "mamba_attn")                     # prefill: SSD
 # the engine-served families on the card: phase -> (arch, layers kept
@@ -3618,6 +3624,77 @@ def ep_moe_phase(ffn, h, cfg) -> dict:
     return row
 
 
+def ep_moe_grad_phase(ffn, h, cfg) -> dict:
+    """``moe.moe_ep``'s forward and backward on the one-rank NCCL mesh
+    against autograd of ``moe.moe_apply`` at the same input, plain (no
+    FSDP) and staged (FSDP experts on a ``data`` ring of 1,
+    ``jet_collectives``), of the loss sum(y * w) + ``lb_loss`` (w drawn
+    from seed 0): y, dx and the gradients of the router, ``e_gate``,
+    ``e_in``, ``e_out`` and the shared expert within MOE_TOL of each
+    one's largest magnitude, bit-equality recorded; NCCL's collectives of
+    one forward and backward ``EP_GRAD_COLLECTIVES``; ms of each."""
+    import torch
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import ctx_for_mesh
+    from repro_torch.models import moe
+    mesh = nccl_mesh()
+    cf = cfg.capacity_factor
+    w = torch.randn(h.shape, generator=torch.Generator(device=h.device)
+                    .manual_seed(0), device=h.device)
+
+    def grads(fn, params):
+        live = _tree.tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+        x = h.detach().requires_grad_(True)
+        y, aux = fn(live, x)
+        out = torch.autograd.grad((y * w).sum() + aux["lb_loss"],
+                                  [x] + _tree.leaves(live))
+        names = ["dx"] + [_tree.key(p) for p, _ in _tree.flatten(live)]
+        return y.detach(), dict(zip(names, out))
+
+    def plain(p, x):
+        return moe.moe_apply(p, x, cfg, cf)
+    y0, g0 = grads(plain, ffn)
+    rows = {}
+    for variant, kw in (("plain", {"fsdp": False}),
+                        ("staged", {"fsdp": True, "jet_collectives": True})):
+        ctx = ctx_for_mesh(mesh, moe_capacity_factor=cf, **kw)
+        local, _ = moe.ep_local(ffn, h, ctx)
+
+        def ep(p, x):
+            return moe.moe_ep(p, x, cfg, ctx)
+        y, g = grads(ep, local)
+        nccl = nccl_records(lambda: grads(ep, local))
+        rel_of = {k: float((g[k] - g0[k]).abs().max()
+                           / g0[k].abs().max().clamp(min=1e-30)) for k in g0}
+        rows[variant] = {
+            "fsdp": ctx.fsdp, "jet_collectives": ctx.jet_collectives,
+            "y_rel": float((y - y0).abs().max() / y0.abs().max()),
+            "y_bitwise_equal": bool(torch.equal(y, y0)),
+            "grad_rel": rel_of, "grad_rel_max": max(rel_of.values()),
+            "grads_bitwise_equal": all(torch.equal(g[k], g0[k])
+                                       for k in g0),
+            "nccl_host": nccl["host"], "nccl_device": nccl["device"],
+            "ms": cuda_ms(lambda: grads(ep, local), 3, warmup=1)}
+    plain_ms = cuda_ms(lambda: grads(plain, ffn), 3, warmup=1)
+    n = h.shape[0] * h.shape[1]
+    row = {"arch": cfg.name, "mesh": dict(mesh.shape), "backend": "nccl",
+           "tokens": n, "experts": cfg.num_experts,
+           "capacity": moe.capacity(cf, n, cfg.num_experts),
+           "want_nccl": EP_GRAD_COLLECTIVES, "apply_grad_ms": plain_ms,
+           **rows}
+    emit("ep_moe_grad", **row)
+    for variant in ("plain", "staged"):
+        r = rows[variant]
+        check(r["y_rel"] <= MOE_TOL and r["grad_rel_max"] <= MOE_TOL,
+              f"moe_ep's backward ({variant}) deviates from moe_apply's: "
+              f"{r}")
+        check(r["nccl_host"] == EP_GRAD_COLLECTIVES,
+              f"moe_ep's backward ({variant}) issued {r['nccl_host']} "
+              f"collectives, want {EP_GRAD_COLLECTIVES}")
+    return row
+
+
 def collectives_phase(decoded) -> dict:
     """The staged collectives and ``compressed_psum`` on the one-rank NCCL
     mesh at scout widths, and ``srq_combine`` over the paged decode
@@ -3804,6 +3881,7 @@ def serve_phase(cfg, dev, phase: str = "serve", prompt_lens=SERVE_PROMPTS,
         ffn, h = moe_input(params, cfg, prompts[-1])
         out["moe_dispatch"] = moe_dispatch_phase(ffn, h, cfg)
         out["ep_moe"] = ep_moe_phase(ffn, h, cfg)
+        out["ep_moe_grad"] = ep_moe_grad_phase(ffn, h, cfg)
     return out
 
 
@@ -4692,6 +4770,126 @@ def train_vs_plain_phase(cfg=None, dev=None, seq: int = 1024) -> dict:
     return out
 
 
+def mesh_step_collectives(cfg) -> dict:
+    """The collectives one sharded train step issues on a one-rank (data
+    1 x model 1) mesh under ``remat="full"``, by NCCL's host record
+    names, for a model of attention and MLP layers only, each layer its
+    own checkpointed unit (danube).  A layer gathers its 4 attention and
+    2 or 3 MLP weights over ``data`` in the forward and again in the
+    replay, and reduce-scatters their gradients back once; its two
+    tensor-parallel sublayers all-reduce their outputs in the forward and
+    their inputs' gradients in the backward, and the attention's output
+    again in the replay (which stops after the last tensor the backward
+    saves, before the MLP's all-reduce).  The embedding and unembedding
+    are gathered over both axes and reduce-scattered over ``data``; then
+    one all-reduce sums the replicated leaves' gradients over ``data``,
+    one averages the figures and two sum the gradient norm's squares
+    over ``data`` and ``model``."""
+    layers = cfg.num_layers
+    weights = 4 + (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+    return {"nccl:all_gather": 2 * weights * layers + 4,
+            "nccl:_reduce_scatter_base": weights * layers + 2,
+            "nccl:all_reduce": 5 * layers + 4}
+
+
+def train_mesh_phase(dev=None) -> dict:
+    """``train.steps.make_train_step(..., ctx=)`` on the one-rank NCCL
+    mesh against the unsharded step from the same state: h2o-danube-1.8b
+    at full width, depth cut to MESH_LAYERS, batch 2 x 4,096 of the
+    ``for_arch`` pipeline, float32, ``remat="full"``.  Gates: the loss and
+    gradient norm within TRAIN_TOL, every new parameter and moment leaf
+    within GRAD_TOL of its largest magnitude, flash attention and its
+    backward launched as ``train_launches(cfg, 1)`` says, NCCL's host
+    records of a step :func:`mesh_step_collectives`.  Recorded: whether
+    every leaf is bit-equal, ms a step of each in turns (unsharded,
+    sharded, sharded, unsharded) and the sharded step's peak memory."""
+    import torch
+    from repro_torch import _tree
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ctx_for_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    dev = dev or torch.device("cuda")
+    cfg = dataclasses.replace(get_arch("h2o-danube-1.8b"),
+                              num_layers=MESH_LAYERS)
+    b, t = TRAIN_BATCH, TRAIN_SEQ
+    data = pipeline.for_arch(cfg, ShapeConfig("train_mesh", "train", t, b),
+                             seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.next_batch().items()}
+    opt_cfg = adamw.OptConfig()
+    state = steps.init_state(cfg, opt_cfg,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in _leaves(state["params"]))
+    ctx = ctx_for_mesh(nccl_mesh())
+    local = steps.shard_state(state, ctx)
+    local_batch = steps.shard_batch(batch, ctx)
+    plain_step = steps.make_train_step(cfg, opt_cfg, remat="full")
+    mesh_step = steps.make_train_step(cfg, opt_cfg, remat="full", ctx=ctx)
+    new_u, m_u = plain_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    new_s, m_s = mesh_step(local, local_batch)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES.read()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    leaf_rel, equal = {}, True
+    for part in ("params", "opt"):
+        for (path, a), w in zip(_tree.flatten(new_s[part]),
+                                _tree.leaves(new_u[part])):
+            if not a.is_floating_point():
+                equal = equal and bool(torch.equal(a, w))
+                continue
+            leaf_rel[f"{part}/{_tree.key(path)}"] = float(
+                (a - w).abs().max() / w.abs().max().clamp(min=1e-30))
+            equal = equal and bool(torch.equal(a, w))
+    del new_u, new_s
+    nccl = nccl_records(lambda: mesh_step(local, local_batch))
+    times = {"unsharded": [], "sharded": []}
+    for which in ("unsharded", "sharded", "sharded", "unsharded"):
+        fn = (lambda: plain_step(state, batch)) if which == "unsharded"             else (lambda: mesh_step(local, local_batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        float(out[1]["loss"])
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+        del out
+    want_nccl = mesh_step_collectives(cfg)
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))  # noqa
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "batch": b, "seq": t, "remat": "full", "dtype": "float32",
+           "mesh": dict(ctx.mesh.shape), "backend": "nccl",
+           "loss": float(m_s["loss"]), "loss_unsharded": float(m_u["loss"]),
+           "loss_rel": rel(m_s["loss"], m_u["loss"]),
+           "grad_norm": float(m_s["grad_norm"]),
+           "grad_norm_unsharded": float(m_u["grad_norm"]),
+           "grad_norm_rel": rel(m_s["grad_norm"], m_u["grad_norm"]),
+           "leaf_rel_max": max(leaf_rel.values()), "bitwise_equal": equal,
+           "launches": launches, "want_launches": train_launches(cfg, 1),
+           "nccl_host": nccl["host"], "nccl_device": nccl["device"],
+           "want_nccl": want_nccl, "ms": times,
+           "ms_sharded": sum(times["sharded"]) / 2,
+           "ms_unsharded": sum(times["unsharded"]) / 2,
+           "peak_mem_gb": peak}
+    emit("train_mesh", **row)
+    check(row["loss_rel"] <= TRAIN_TOL and row["grad_norm_rel"] <= TRAIN_TOL,
+          f"train_mesh: loss / grad_norm deviate: {row}")
+    check(row["leaf_rel_max"] <= GRAD_TOL,
+          f"train_mesh: a leaf deviates: "
+          f"{sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:5]}")
+    check(launches == row["want_launches"],
+          f"train_mesh: launches {launches}, want {row['want_launches']}")
+    check(nccl["host"] == want_nccl,
+          f"train_mesh: NCCL issued {nccl['host']}, want {want_nccl}")
+    del state, local
+    torch.cuda.empty_cache()
+    return row
+
+
 def train_loop_phase(dev=None) -> dict:
     """``train.loop.run`` on the card: tiny danube (2 layers) for 6 steps
     with a checkpoint every 2, once straight through and once with a
@@ -5008,6 +5206,8 @@ def run() -> int:
         lap("train_vs_plain")
         train_loop_phase()
         lap("train_loop")
+        model_runs["train_mesh"] = train_m = train_mesh_phase()
+        lap("train_mesh")
         torch.cuda.empty_cache()
         # the card runs of the last three phases first, timed with no
         # CPU reference running beside them; then the references
@@ -5056,7 +5256,8 @@ def run() -> int:
                         for r in [serve, *model_runs.values()]),
                     "flash_attention_bwd":
                         train["launches"]["flash_attention_bwd"]
-                        + train_z["launches"]["flash_attention_bwd"],
+                        + train_z["launches"]["flash_attention_bwd"]
+                        + train_m["launches"]["flash_attention_bwd"],
                     "ssd_scan": serve["launches"]["ssd_scan"]
                         + train_z["launches"]["ssd_scan"],
                     "ssd_scan_bwd": train_z["launches"]["ssd_scan_bwd"],

@@ -36,6 +36,27 @@ def leaves(tree: Any) -> list:
     return [leaf for _, leaf in flatten(tree)]
 
 
+def flatten_up_to(tree: Any, other: Any) -> list:
+    """The subtree of ``other`` at each leaf of ``tree``, in
+    :func:`flatten`'s order (JAX's ``flatten_up_to``): a spec tree's
+    entries, say, whose specs are tuples themselves."""
+    out: list = []
+
+    def walk(node, sub):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], sub[k])
+        elif isinstance(node, (tuple, list)):
+            for v, s in zip(node, sub):
+                walk(v, s)
+        else:
+            out.append(sub)
+    walk(tree, other)
+    return out
+
+
 def key(path: Path) -> str:
     """A path as the reference's checkpoint key: ``pattern/0/attn/wq``."""
     return "/".join(str(p) for p in path)

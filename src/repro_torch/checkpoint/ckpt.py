@@ -9,7 +9,10 @@ writes ``step_<N>.tmp`` and renames it, so a crashed writer never
 corrupts the latest checkpoint; ``keep_last`` trims history.
 ``restore(..., shardings=)`` is elastic reshard: each rank of the target
 mesh reads every leaf and keeps only its block (a checkpoint written by
-one process restores onto a 2 x 4 mesh, or any other).
+one process restores onto a 2 x 4 mesh, or any other).  A bfloat16 leaf
+(the error-feedback residuals of ``compressed_pod_grads``) is written
+widened to float32, which numpy can hold, and restored to the type of
+``like``'s leaf.
 """
 from __future__ import annotations
 
@@ -31,9 +34,8 @@ def _host(tree) -> Dict[str, np.ndarray]:
     out = {}
     for path, leaf in _tree.flatten(tree):
         if isinstance(leaf, torch.Tensor):
-            if leaf.dtype == torch.bfloat16:
-                raise TypeError(f"{_tree.key(path)}: bfloat16 has no numpy "
-                                f"type; checkpoints hold numpy arrays")
+            if leaf.dtype == torch.bfloat16:     # exact in float32
+                leaf = leaf.float()
             leaf = leaf.detach().to("cpu", copy=True).numpy()
         out[_tree.key(path)] = np.asarray(leaf)
     return out
@@ -126,14 +128,17 @@ def restore(directory: str, like, step: Optional[int] = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     out = []
-    for p, _ in _tree.flatten(like):
+    for p, want in _tree.flatten(like):
         meta = manifest["leaves"][_tree.key(p)]
         sh = None if shardings is None else _at(shardings, p)
         arr = np.load(os.path.join(path, meta["file"]),
                       mmap_mode=None if sh is None else "r")
         if sh is not None:
             arr = np.array(arr[sh.index(arr.shape)])   # a copy, 0-d kept
-        out.append(torch.from_numpy(arr).to(dev))
+        t = torch.from_numpy(arr).to(dev)
+        if getattr(want, "dtype", None) == torch.bfloat16:
+            t = t.to(torch.bfloat16)
+        out.append(t)
     return _tree.unflatten(like, out), manifest.get("extra", {})
 
 

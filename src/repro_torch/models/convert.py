@@ -10,7 +10,8 @@ cross-attention layer adds ``ln_x`` and ``xattn``), so the carry is a
 plain mapping, and both
 packages then compute the same function.  ``state_from_jax`` carries a
 whole train state across (parameters, AdamW moments, float32 or int8
-``{"q", "s"}``, the step count), so both packages step from one state.
+``{"q", "s"}``, the step count, the ``compressed_pod_grads``
+residuals), so both packages step from one state.
 It reads arrays through ``numpy.asarray`` and imports nothing of the
 reference.
 """
@@ -92,16 +93,23 @@ def state_from_jax(state: Any, cfg: ArchConfig, device: DeviceLike = None
     tree, numpy leaves) -> the port's (``repro_torch.train.steps``), on
     ``device`` (CUDA unless the caller asks for the CPU): ``params`` via
     :func:`params_from_jax`, ``opt`` ``{"m", "v", "count"}`` and ``step``
-    leaf for leaf, types kept (int8 moment codes, int32 counts)."""
-    if set(state) != {"params", "opt", "step"}:
+    leaf for leaf, types kept (int8 moment codes, int32 counts), and with
+    ``compressed_pod_grads`` the bfloat16 residuals ``err`` (numpy has no
+    bfloat16 of its own: they are read through float32, exactly)."""
+    if set(state) - {"err"} != {"params", "opt", "step"}:
         raise ValueError(f"train state has {sorted(state)}; want params, "
-                         f"opt and step (the compressed_pod_grads "
-                         f"residuals 'err' belong to the sharded train "
-                         f"step: ROADMAP Queue 1 A4b)")
+                         f"opt and step, and err with "
+                         f"compressed_pod_grads")
     opt = state["opt"]
     if set(opt) != {"m", "v", "count"}:
         raise ValueError(f"optimizer state has {sorted(opt)}; want m, v, "
                          f"count")
-    return {"params": params_from_jax(state["params"], cfg, device),
-            "opt": tree_from_numpy(opt, device),
-            "step": tree_from_numpy(state["step"], device)}
+    out = {"params": params_from_jax(state["params"], cfg, device),
+           "opt": tree_from_numpy(opt, device),
+           "step": tree_from_numpy(state["step"], device)}
+    if "err" in state:
+        out["err"] = tree_map(
+            lambda t: t.to(torch.bfloat16),
+            tree_from_numpy(tree_map(lambda e: np.asarray(e, np.float32),
+                                     state["err"]), device))
+    return out

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import copy_to_model, reduce_from_model
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -64,12 +66,27 @@ def _gelu(v: torch.Tensor) -> torch.Tensor:
     return F.gelu(v, approximate="tanh")
 
 
-def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_tp(d_ff: int, tp):
+    """``tp`` (a ``parallel.sharding.TP``) where the model axis divides
+    the FFN width, else None (the MLP runs unsplit)."""
+    return tp if tp is not None and d_ff % tp.size == 0 else None
+
+
+def mlp_apply(params: dict, x: torch.Tensor, kind: str,
+              tp=None) -> torch.Tensor:
+    """The MLP.  ``tp``: tensor-parallel over the model axis, ``w_in``
+    and ``w_gate`` this rank's column blocks and ``w_out`` its row block;
+    the input is ``copy_to_model``'d and the output the all-reduce of the
+    ranks' parts (``reduce_from_model``, a ``"layer_out"`` tensor)."""
+    if tp is not None:
+        x = copy_to_model(x, tp.group)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
         h = act(x @ params["w_gate"]) * (x @ params["w_in"])
-        return h @ params["w_out"]
-    return _gelu(x @ params["w_in"]) @ params["w_out"]
+        out = h @ params["w_out"]
+    else:
+        out = _gelu(x @ params["w_in"]) @ params["w_out"]
+    return out if tp is None else reduce_from_model(out, tp.group)
 
 
 def normal(shape, std: float, generator: torch.Generator, dtype,

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..parallel.collectives import (all_gather, all_reduce, all_to_all,
-                                    ppermute, ppermute_many)
+                                    copy_to_model, ppermute, ppermute_many,
+                                    reduce_from_model)
 from ..parallel.sharding import P, ParallelCtx
 from .layers import _gelu, mlp_apply, mlp_init, normal
 
@@ -202,6 +203,14 @@ def ep_local(params: dict, x: torch.Tensor, ctx: ParallelCtx
                                  None, None))
 
 
+def _gather_experts(ctx: ParallelCtx, w_gate, w_in, w_out):
+    """The expert stacks' FSDP shards gathered on D over ``data`` (their
+    gradients reduce-scattered back in the backward)."""
+    dg = ctx.mesh.group("data")
+    return all_gather(w_gate, dg, 1), all_gather(w_in, dg, 1), \
+        all_gather(w_out, dg, 2)
+
+
 def _ep_body_decode(wr, w_gate, w_in, w_out, x_blk, *, cfg: ArchConfig,
                     cap_factor: float, ctx: ParallelCtx, fsdp_gather: bool,
                     on_route: Optional[RouteObserver] = None):
@@ -211,19 +220,19 @@ def _ep_body_decode(wr, w_gate, w_in, w_out, x_blk, *, cfg: ArchConfig,
     small-message path (no all-to-all latency on the decode critical
     path)."""
     if fsdp_gather:
-        dg = ctx.mesh.group("data")
-        w_in = all_gather(w_in, dg, 1)
-        w_out = all_gather(w_out, dg, 2)
-        w_gate = all_gather(w_gate, dg, 1)
+        w_gate, w_in, w_out = _gather_experts(ctx, w_gate, w_in, w_out)
+    w_gate, w_in, w_out = (w.to(x_blk.dtype) for w in (w_gate, w_in, w_out))
     mg = ctx.mesh.group(ctx.model_axis)
     b_loc, t, d = x_blk.shape
     e = cfg.num_experts
-    e_loc = e // ctx.model_size
+    m = ctx.model_size
+    e_loc = e // m
     r = ctx.mesh.coord(ctx.model_axis)
     n = b_loc * t
     dev = x_blk.device
-    xt = x_blk.reshape(n, d)
-    idx, gate, probs = _route_top1(xt @ wr)
+    # each rank serves its experts' share of every token: a part of a sum
+    xt = copy_to_model(x_blk, mg).reshape(n, d)
+    idx, gate, probs = _route_top1(xt @ copy_to_model(wr, mg))
     c = capacity(cap_factor, n, e)
     local_idx = idx - r * e_loc
     is_local = (local_idx >= 0) & (local_idx < e_loc)
@@ -244,13 +253,16 @@ def _ep_body_decode(wr, w_gate, w_in, w_out, x_blk, *, cfg: ArchConfig,
     y = torch.zeros_like(xt)
     y[order] = flat[dest] * keep[:, None].to(out.dtype)
     y = y * gate[:, None].to(y.dtype)
-    y = all_reduce(y, mg)                     # SRQ combine
+    y = reduce_from_model(y, mg)              # SRQ combine
     kept = torch.zeros(n, dtype=torch.float32, device=dev)
     kept[order] = keep.float()
     kept = all_reduce(kept, mg)               # each token kept by one rank
     _observe(on_route, idx, kept > 0, probs)
     overflow = 1.0 - kept.sum() / n
-    return y.reshape(b_loc, t, d), _aux_losses(probs, idx, e), overflow
+    # every rank routed every token: lb is whole on each, while the
+    # router's gradient sums the ranks' parts, so each contributes 1/m
+    lb = reduce_from_model(_aux_losses(probs, idx, e) / m, mg)
+    return y.reshape(b_loc, t, d), lb, overflow
 
 
 def _staged_expert_ffn(w_gate, w_in, w_out, x, kind: str, group):
@@ -311,19 +323,19 @@ def _ep_body(wr, w_gate, w_in, w_out, x_blk, *, cfg: ArchConfig,
     if fsdp_gather and not staged:
         # ZeRO-3: expert weights arrive sharded on D over 'data'; gather
         # (this all-gather is the jet staged-collective hillclimb target)
-        dg = ctx.mesh.group("data")
-        w_in = all_gather(w_in, dg, 1)
-        w_out = all_gather(w_out, dg, 2)
-        w_gate = all_gather(w_gate, dg, 1)
+        w_gate, w_in, w_out = _gather_experts(ctx, w_gate, w_in, w_out)
+    w_gate, w_in, w_out = (w.to(x_blk.dtype) for w in (w_gate, w_in, w_out))
     mg = ctx.mesh.group(ctx.model_axis)
     b_loc, t, d = x_blk.shape
     e = cfg.num_experts
     r = ctx.mesh.coord(ctx.model_axis)
     n = b_loc * t // m
     dev = x_blk.device
-    mine = x_blk.reshape(b_loc * t, d)[r * n:(r + 1) * n]
+    # the block is whole on every model rank and each routes its rows, so
+    # the gradients of the block and of the router sum the ranks' parts
+    mine = copy_to_model(x_blk, mg).reshape(b_loc * t, d)[r * n:(r + 1) * n]
 
-    idx, gate, probs = _route_top1(mine @ wr)
+    idx, gate, probs = _route_top1(mine @ copy_to_model(wr, mg))
     c = capacity(cap_factor, n, e)
     order = torch.sort(idx, stable=True).indices
     se = idx[order]                                  # sorted expert ids
@@ -355,10 +367,13 @@ def _ep_body(wr, w_gate, w_in, w_out, x_blk, *, cfg: ArchConfig,
         _observe(on_route, idx, kept, probs)
 
     # ---- small-message path: combine across model ranks (SRQ) ------------ #
-    y_all = all_gather(y_mine, mg, 0)
+    # every model rank goes on with the whole block: its cotangent is the
+    # same on each, and this rank's rows of it are its own
+    y_all = all_gather(y_mine, mg, 0, backward="slice")
     # pmean of both figures in one all-reduce
-    aux = all_reduce(torch.stack([_aux_losses(probs, idx, e),
-                                  1.0 - torch.mean(keep.float())]), mg) / m
+    aux = reduce_from_model(torch.stack([_aux_losses(probs, idx, e),
+                                         1.0 - torch.mean(keep.float())]),
+                            mg) / m
     return y_all.reshape(b_loc, t, d), aux[0], aux[1]
 
 
@@ -379,19 +394,20 @@ def moe_ep(params: dict, x: torch.Tensor, cfg: ArchConfig,
     gives the first device's, data coordinate 0's: the figure the ranks
     of data coordinate 0 return here.  Nothing is averaged over ``data``.
 
-    Not differentiable: its all-to-alls and gathers have no backward, so
-    it raises under grad (the MoE arch trained under EP is ROADMAP Queue
-    1 A4b)."""
+    Differentiable, for the sharded train step: the all-to-alls run in
+    reverse in the backward, the expert stacks' FSDP gathers
+    reduce-scatter their gradients over ``data``, and the block and the
+    router, which each model rank uses for its share of the tokens, have
+    their gradients summed over the model ranks.  The expert stacks are
+    cast to ``x``'s type after their gather.  The shared expert runs on
+    the whole block on every rank."""
     if not ctx.have_mesh:
         raise ValueError("moe_ep needs a context with a mesh")
     if "e_gate" not in params:
         raise ValueError("EP path expects gated experts (llama4)")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, params["router"], params["e_gate"],
-                                      params["e_in"], params["e_out"])):
-        raise RuntimeError("moe_ep: its collectives have no backward; run "
-                           "it under torch.no_grad() (training the MoE "
-                           "arch under EP is ROADMAP Queue 1 A4b)")
+    if cfg.num_experts % ctx.model_size:
+        raise ValueError(f"{cfg.num_experts} experts do not split over "
+                         f"{ctx.model_size} model ranks")
     cf = cap_factor or ctx.moe_capacity_factor or cfg.capacity_factor
     b, t, d = x.shape
     fsdp_gather = _fsdp_gather(ctx, d)

@@ -20,12 +20,25 @@ Activation checkpointing (the reference's ``_remat``) is applied per
 pattern unit with ``torch.utils.checkpoint.checkpoint(...,
 use_reentrant=False)``: ``remat="none"`` keeps every activation,
 ``"full"`` keeps a unit's input and replays the unit in the backward,
-``"dots"`` also keeps the outputs of its matrix products (a selective
-checkpoint policy).  Every policy gives the same gradients.  The
-reference's ``"layer_out"`` saves the tensor-parallel all-reduced
-sublayer outputs, and ``bf16_weight_gather`` casts before the FSDP
-gathers: both are mesh knobs of the sharded train step (ROADMAP Queue 1
-A4b), and ``"layer_out"`` raises.
+``"dots"`` also keeps the outputs of its matrix products and
+``"layer_out"`` only the sublayer outputs marked by :func:`layer_out`
+(the tensor-parallel all-reduced ones: attention, MLP and MoE outputs),
+each a selective checkpoint policy.  Every policy gives the same
+gradients.
+
+On a mesh (``ctx`` with a mesh, ``params`` this rank's blocks by
+``specs``, the tree of ``train.steps.param_specs``), each pattern unit
+gathers its blocks inside its checkpointed body: over ``data`` (FSDP,
+the gradients reduce-scattered back), and over the model axis where a
+sublayer reads a weight whole (Mamba2 and xLSTM mixers, attention whose
+heads the axis does not divide, KV weights whose heads it does not
+divide).  Tensor-parallel sublayers keep their model blocks (see
+``attention`` and ``layers.mlp_apply``).  So ``remat="full"`` gathers
+again in the backward and one unit's full weights are live at a time
+(ZeRO-3).  ``ctx.bf16_weight_gather`` casts each block to the compute
+type before its gather (the same values, half the bytes on the wire);
+otherwise the gathered weight is cast.  The embedding and unembedding
+are gathered whole and the logits cover the full vocabulary.
 """
 from __future__ import annotations
 
@@ -38,11 +51,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_map
 from ..configs.base import ArchConfig
+from ..parallel.sharding import P, ParallelCtx
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm, xlstm
 from .layers import (cross_entropy, embed_init, init_rms, mlp_apply,
-                     mlp_init, rms_norm)
+                     mlp_init, mlp_tp, rms_norm)
 
 Params = Dict[str, Any]
 
@@ -177,41 +191,109 @@ def unstack(tree, n: int) -> list:
 # per-layer application, embedding, unembedding
 # --------------------------------------------------------------------------- #
 def _shared_block(shared: Params, x: torch.Tensor, cfg: ArchConfig,
-                  impl: str = "auto") -> torch.Tensor:
-    x = x + attn.self_attention(shared["attn"],
-                                rms_norm(x, shared["ln1"]), cfg, impl=impl)
-    x = x + mlp_apply(shared["ffn"], rms_norm(x, shared["ln2"]), cfg.mlp)
+                  impl: str = "auto", tp=None,
+                  mark=lambda v: v) -> torch.Tensor:
+    x = x + mark(attn.self_attention(shared["attn"],
+                                     rms_norm(x, shared["ln1"]), cfg,
+                                     impl=impl, tp=attn.tp_for(cfg, tp)))
+    x = x + mark(mlp_apply(shared["ffn"], rms_norm(x, shared["ln2"]),
+                           cfg.mlp, mlp_tp(cfg.d_ff, tp)))
     return x
 
 
 def _apply_layer(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig,
                  shared: Optional[Params], patches: Optional[torch.Tensor],
                  aux: Dict[str, torch.Tensor], impl: str = "auto",
-                 cap_factor: Optional[float] = None):
+                 cap_factor: Optional[float] = None,
+                 ctx: Optional[ParallelCtx] = None, mark=lambda v: v):
     """One layer of the forward pass -> (x, aux), the MoE aux added.
-    ``cap_factor``: the MoE capacity factor (None: the config's)."""
+    ``cap_factor``: the MoE capacity factor (None: the config's).  On a
+    mesh ``p`` is :func:`gather_layer`'s; ``mark`` tags the sublayer
+    outputs that ``remat="layer_out"`` keeps."""
+    tp = ctx.tp() if ctx is not None else None
+    a_tp = attn.tp_for(cfg, tp)
     h = rms_norm(x, p["ln1"])
     if kind.startswith("attn"):
-        x = x + attn.self_attention(p["attn"], h, cfg, impl=impl)
+        x = x + mark(attn.self_attention(p["attn"], h, cfg, impl=impl,
+                                         tp=a_tp))
         if kind == "attn_cross":
-            x = x + attn.cross_attention(p["xattn"], rms_norm(x, p["ln_x"]),
-                                         patches, cfg, impl=impl)
+            x = x + mark(attn.cross_attention(
+                p["xattn"], rms_norm(x, p["ln_x"]), patches, cfg, impl=impl,
+                tp=a_tp))
         h2 = rms_norm(x, p["ln2"])
         if kind == "attn_moe":
-            y, a = moe_mod.moe_apply(p["ffn"], h2, cfg, cap_factor)
+            y, a = moe_mod.moe_apply(p["ffn"], h2, cfg, cap_factor, ctx=ctx)
             aux = {k: aux[k] + a[k] for k in aux}
-            x = x + y
+            x = x + mark(y)
         else:
-            x = x + mlp_apply(p["ffn"], h2, cfg.mlp)
+            x = x + mark(mlp_apply(p["ffn"], h2, cfg.mlp,
+                                   mlp_tp(cfg.d_ff, tp)))
     elif kind in ("mamba", "mamba_attn"):
         x = x + ssm.mamba_apply(p["mamba"], h, cfg, impl=impl)
         if kind == "mamba_attn":
-            x = _shared_block(shared, x, cfg, impl)
+            x = _shared_block(shared, x, cfg, impl, tp, mark)
     elif kind == "mlstm":
         x = x + xlstm.mlstm_apply(p["mlstm"], h, cfg)
     else:
         x = x + xlstm.slstm_apply(p["slstm"], h, cfg)
     return x, aux
+
+
+# --------------------------------------------------------------------------- #
+# the gathers of one layer on a mesh
+# --------------------------------------------------------------------------- #
+def _attn_gather(p: Params, spec, cfg: ArchConfig, ctx: ParallelCtx, leaf):
+    tp = attn.tp_for(cfg, ctx.tp())
+    if tp is None:                       # the layer runs unsplit
+        return tree_map(lambda t, s: leaf(t, s, "whole"), p, spec)
+    kv = "block" if attn.kv_heads_split(cfg, tp) else "partial"
+    return {k: leaf(t, spec[k], kv if k in ("wk", "wv") else "block")
+            for k, t in p.items()}
+
+
+def _ffn_gather(kind: str, p: Params, spec, cfg: ArchConfig,
+                ctx: ParallelCtx, leaf):
+    if kind == "attn_moe" and ctx.use_ep:
+        # moe_ep takes the expert stacks as this rank's blocks (it gathers
+        # their FSDP shards itself), the router whole, and runs the shared
+        # expert unsplit
+        return {k: (t if k.startswith("e_") or k == "router" else
+                    tree_map(lambda u, s: leaf(u, s, "whole"), t, spec[k]))
+                for k, t in p.items()}
+    use = "block" if kind != "attn_moe" and mlp_tp(cfg.d_ff, ctx.tp()) \
+        else "whole"
+    return tree_map(lambda t, s: leaf(t, s, use), p, spec)
+
+
+def gather_layer(kind: str, p: Params, spec, cfg: ArchConfig,
+                 ctx: ParallelCtx, dtype) -> Params:
+    """One layer's parameters as :func:`_apply_layer` runs them on a mesh,
+    from this rank's blocks ``p`` (specs ``spec``): each leaf gathered
+    over ``data``, and over the model axis unless a tensor-parallel
+    sublayer uses its block (``"block"``) or it is an expert stack that
+    ``moe_ep`` gathers itself; a weight that a tensor-parallel sublayer
+    reads whole (KV heads the axis does not divide) is gathered
+    ``partial`` (its gradient summed over the model ranks).  Cast to
+    ``dtype`` before the gathers under ``ctx.bf16_weight_gather``, after
+    them otherwise."""
+    first = ctx.bf16_weight_gather
+
+    def leaf(t, s, use):
+        if first:
+            t = cast_tree(t, dtype)
+        keep = (ctx.model_axis,) if use == "block" else ()
+        t = ctx.gather(t, s, keep=keep, partial=use == "partial")
+        return t if first else cast_tree(t, dtype)
+
+    out = {}
+    for k, v in p.items():
+        if k in ("attn", "xattn"):
+            out[k] = _attn_gather(v, spec[k], cfg, ctx, leaf)
+        elif k == "ffn":
+            out[k] = _ffn_gather(kind, v, spec[k], cfg, ctx, leaf)
+        else:             # norms and the Mamba2 / xLSTM mixers: whole
+            out[k] = tree_map(lambda t, s: leaf(t, s, "whole"), v, spec[k])
+    return out
 
 
 AUX0 = {"lb_loss": 0.0, "overflow": 0.0}
@@ -257,28 +339,39 @@ def cast_tree(tree: Optional[Any], dtype) -> Optional[Any]:
 # --------------------------------------------------------------------------- #
 # activation checkpointing
 # --------------------------------------------------------------------------- #
-REMATS = ("none", "full", "dots")
+REMATS = ("none", "full", "dots", "layer_out")
 # the matrix products whose outputs "dots" keeps (jax's checkpoint_dots)
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                    torch.ops.aten.addmm.default,
                    torch.ops.aten.baddbmm.default})
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
-        else CheckpointPolicy.PREFER_RECOMPUTE
+@torch.library.custom_op("repro_torch::layer_out", mutates_args=())
+def layer_out(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``checkpoint_name(x, "layer_out")``: an identity
+    (a copy) whose output the ``"layer_out"`` policy saves."""
+    return x.clone()
 
 
-def _dots_context():
-    return create_selective_checkpoint_contexts(_dots_policy)
+@layer_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+layer_out.register_autograd(lambda ctx, g: g)
+
+_SAVE = {"dots": _DOTS,
+         "layer_out": frozenset({torch.ops.repro_torch.layer_out.default})}
+
+
+def _policy(saved):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return lambda: create_selective_checkpoint_contexts(policy)
 
 
 def check_remat(remat: str) -> None:
-    if remat == "layer_out":
-        raise ValueError("remat='layer_out' saves the tensor-parallel "
-                         "all-reduced sublayer outputs: a mesh knob of "
-                         "the sharded train step, which the port does not "
-                         "have yet (ROADMAP Queue 1 A4b)")
     if remat not in REMATS:
         raise ValueError(f"unknown remat {remat!r} ({' | '.join(REMATS)})")
 
@@ -288,40 +381,71 @@ def _remat(fn, remat: str):
     pass without grad keeps nothing anyway and runs ``fn`` itself."""
     if remat == "none" or not torch.is_grad_enabled():
         return fn
-    kw = {"context_fn": _dots_context} if remat == "dots" else {}
+    kw = {"context_fn": _policy(_SAVE[remat])} if remat in _SAVE else {}
     return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
 # --------------------------------------------------------------------------- #
 # forward and loss
 # --------------------------------------------------------------------------- #
+def _unit_spec(spec):
+    """A stacked leaf's spec without its unit dim (never sharded)."""
+    if spec and spec[0] is not None:
+        raise ValueError(f"a pattern leaf is sharded on its unit dim: "
+                         f"{spec}")
+    return P(*spec[1:])
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             patches: Optional[torch.Tensor] = None,
             compute_dtype=torch.float32, impl: str = "auto",
-            remat: str = "none",
-            cap_factor: Optional[float] = None) -> Tuple[torch.Tensor, Dict]:
+            remat: str = "none", cap_factor: Optional[float] = None,
+            ctx: Optional[ParallelCtx] = None,
+            specs=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits [B, T, V], aux ``{"lb_loss",
     "overflow"}`` summed over the MoE layers).  ``patches`` [B, P, D]
     feed the cross-attention layers.  ``impl`` goes to the kernels
     (``"ref"``: their plain versions).  ``remat`` checkpoints each
     pattern unit (:data:`REMATS`); ``cap_factor`` is the MoE capacity
-    factor (None: the config's).  Runs where ``tokens`` and ``params``
-    lie."""
+    factor (None: the config's).  With a ``ctx`` that has a mesh,
+    ``params`` are this rank's blocks by ``specs`` and ``tokens`` its
+    batch block (module docstring).  Runs where ``tokens`` and
+    ``params`` lie."""
     check_remat(remat)
     dev = resolve_device(tokens.device)
     pattern, n_units, rem = segments(cfg)
-    x = embed_tokens(params, tokens, cfg, compute_dtype)
+    mesh = ctx is not None and ctx.have_mesh
+    if mesh and specs is None:
+        raise ValueError("a forward on a mesh needs the parameters' specs")
+    mark = layer_out if remat == "layer_out" else (lambda v: v)
+    whole = (lambda k: ctx.gather(params[k], specs[k])) if mesh \
+        else (lambda k: params[k])
+    top = {k: whole(k) for k in ("embed", "unembed", "final_norm")
+           if k in params}
+    x = embed_tokens(top, tokens, cfg, compute_dtype)
     if patches is not None:
         patches = patches.to(compute_dtype)
-    shared = cast_tree(params.get("shared_attn"), compute_dtype)
+
+    def layer_params(kind, p, spec):
+        if not mesh:
+            return cast_tree(p, compute_dtype)
+        return gather_layer(kind, p, spec, cfg, ctx, compute_dtype)
+
+    shared = params.get("shared_attn")
+    if shared is not None:
+        shared = layer_params("shared", shared,
+                              specs["shared_attn"] if mesh else None)
+    unit_specs = tuple(tree_map(lambda _, s: _unit_spec(s), p, sp)
+                       for p, sp in zip(params["pattern"],
+                                        specs["pattern"])) if mesh \
+        else (None,) * len(pattern)
 
     def unit_body(x, unit_params):
         aux = dict(AUX0)    # Python floats: a unit without MoE copies none
         for pos, kind in enumerate(pattern):
-            x, aux = _apply_layer(kind, cast_tree(unit_params[pos],
-                                                  compute_dtype),
-                                  x, cfg, shared, patches, aux, impl,
-                                  cap_factor)
+            x, aux = _apply_layer(
+                kind, layer_params(kind, unit_params[pos], unit_specs[pos]),
+                x, cfg, shared, patches, aux, impl, cap_factor, ctx, mark)
         return x, aux["lb_loss"], aux["overflow"]
 
     body = _remat(unit_body, remat)
@@ -331,22 +455,26 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         x, lb, of = body(x, unit_params)
         aux = {"lb_loss": aux["lb_loss"] + lb,
                "overflow": aux["overflow"] + of}
-    for p_l, kind in zip(params["remainder"], rem):
-        x, aux = _apply_layer(kind, cast_tree(p_l, compute_dtype), x, cfg,
-                              shared, patches, aux, impl, cap_factor)
-    return unembed(params, x, cfg), aux
+    for i, (p_l, kind) in enumerate(zip(params["remainder"], rem)):
+        x, aux = _apply_layer(
+            kind, layer_params(kind, p_l,
+                               specs["remainder"][i] if mesh else None),
+            x, cfg, shared, patches, aux, impl, cap_factor, ctx, mark)
+    return unembed(top, x, cfg), aux
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             compute_dtype=torch.float32, impl: str = "auto",
-            remat: str = "none",
-            cap_factor: Optional[float] = None) -> Tuple[torch.Tensor, Dict]:
+            remat: str = "none", cap_factor: Optional[float] = None,
+            ctx: Optional[ParallelCtx] = None,
+            specs=None) -> Tuple[torch.Tensor, Dict]:
     """``batch``: ``tokens``, ``targets`` [B, T], and ``patches`` where
     the model reads them -> (loss, metrics ``{"loss", "lb_loss",
     "overflow"}``).  MoE models add ``0.01 * lb_loss / num_layers``.
-    ``remat`` and ``cap_factor`` as :func:`forward`."""
+    ``remat``, ``cap_factor``, ``ctx`` and ``specs`` as :func:`forward`;
+    on a mesh the loss is this rank's batch block's."""
     logits, aux = forward(params, cfg, batch["tokens"], batch.get("patches"),
-                          compute_dtype, impl, remat, cap_factor)
+                          compute_dtype, impl, remat, cap_factor, ctx, specs)
     loss = cross_entropy(logits, batch["targets"])
     if cfg.num_experts:
         loss = loss + 0.01 * aux["lb_loss"] / max(1, cfg.num_layers)

@@ -11,24 +11,30 @@ update are float32, as the reference computes them.
 This is elementwise work that the reference leaves to XLA outside any
 Pallas kernel, so it is plain PyTorch here (a fused optimizer kernel is
 later speed work).  :func:`update` returns new trees and leaves its
-inputs as they were.  ``compressed_pod_grads`` (the int8 cross-pod
-gradient mean, ``parallel.compression.compressed_psum``) belongs to the
-sharded train step: ROADMAP Queue 1 A4b, and it raises.
+inputs as they were.
+
+On a mesh (``ctx`` with a mesh, ``specs`` the parameters' specs) every
+leaf is this rank's block: the update is elementwise, the global norm
+all-reduces each leaf's sum of squares over exactly the axes the leaf is
+sharded on (a replicated leaf counts once), and an int8 moment's row
+scale takes its max over the whole row, all-reduced over the axes its
+last dim is sharded on, so the codes are the single-device ones.
+``compressed_pod_grads`` (the int8 cross-pod gradient mean) is the
+train step's (``train.steps``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .. import _tree
 from ..parallel.compression import (dequantize_int8_rowwise,
-                                    quantize_int8_rowwise)
-
-MESH_KNOB = ("needs the sharded train step under a mesh, which the port "
-             "does not have yet (ROADMAP Queue 1 A4b)")
+                                    quantize_int8_rowwise, row_groups)
+from ..parallel.sharding import ParallelCtx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,13 +49,8 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
-    # the reference's int8 cross-pod gradient mean: a mesh knob (A4b)
+    # the int8 + error-feedback gradient mean over a mesh's ``pod`` axis
     compressed_pod_grads: bool = False
-
-
-def check_config(cfg: OptConfig) -> None:
-    if cfg.compressed_pod_grads:
-        raise ValueError(f"compressed_pod_grads {MESH_KNOB}")
 
 
 def schedule(step, cfg: OptConfig) -> torch.Tensor:
@@ -64,8 +65,8 @@ def schedule(step, cfg: OptConfig) -> torch.Tensor:
                             + (1 - cfg.min_lr_ratio) * cos)
 
 
-def _q(x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    q, s = quantize_int8_rowwise(x)
+def _q(x: torch.Tensor, groups=()) -> Dict[str, torch.Tensor]:
+    q, s = quantize_int8_rowwise(x, groups)
     return {"q": q, "s": s}
 
 
@@ -74,7 +75,6 @@ def _dq(m: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def init(params, cfg: OptConfig) -> Dict[str, Any]:
-    check_config(cfg)
     dev = _tree.leaves(params)[0].device
 
     def zeros(p):
@@ -88,25 +88,43 @@ def init(params, cfg: OptConfig) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None,
+                ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, summed in
-    the reference's leaf order."""
+    the reference's leaf order.  On a mesh (``specs`` and ``ctx``) each
+    leaf's sum over its block is all-reduced over the axes it is sharded
+    on, the leaves sharded alike in one all-reduce."""
+    if ctx is None or not ctx.have_mesh:
+        total = None
+        for g in _tree.leaves(tree):
+            sq = torch.sum(g.float() ** 2)
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for g, s in zip(_tree.leaves(tree), _tree.flatten_up_to(tree, specs)):
+        by_axes.setdefault(tuple(sorted(ctx.spec_axes(s))), []).append(
+            torch.sum(g.float() ** 2))
     total = None
-    for g in _tree.leaves(tree):
-        sq = torch.sum(g.float() ** 2)
-        total = sq if total is None else total + sq
+    for axes, sums in by_axes.items():
+        part = torch.stack(sums).sum()
+        for a in axes:
+            dist.all_reduce(part, group=ctx.mesh.group(a))
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
-def update(grads, state, params, cfg: OptConfig
+def update(grads, state, params, cfg: OptConfig, specs=None,
+           ctx: Optional[ParallelCtx] = None
            ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step -> (new_params, new_state, ``{"lr", "grad_norm"}``);
     gradients are clipped to a global norm of ``grad_clip`` first, and
-    ``grad_norm`` reports the norm before clipping."""
-    check_config(cfg)
+    ``grad_norm`` reports the norm before clipping.  On a mesh
+    (``specs``, the parameters' specs, and ``ctx``) every tree holds this
+    rank's blocks (module docstring)."""
+    mesh = ctx is not None and ctx.have_mesh
     count = state["count"] + 1
     lr = schedule(state["count"], cfg)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, ctx)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     countf = count.float()
@@ -115,15 +133,18 @@ def update(grads, state, params, cfg: OptConfig
     decay = 1 - lr * cfg.weight_decay
     is_q = cfg.int8_moments
 
-    def leafwise(p, g, m, v):
+    def leafwise(p, g, m, v, spec=None):
+        rows = row_groups(ctx, spec) if mesh else ()
         g = g.float() * scale
         m_n = cfg.b1 * (_dq(m) if is_q else m) + (1 - cfg.b1) * g
         v_n = cfg.b2 * (_dq(v) if is_q else v) + (1 - cfg.b2) * g * g
         upd = (m_n / bc1) / (torch.sqrt(v_n / bc2) + cfg.eps)
         p_new = (p.float() * decay - lr * upd).to(p.dtype)
-        return p_new, (_q(m_n) if is_q else m_n), (_q(v_n) if is_q else v_n)
+        return p_new, (_q(m_n, rows) if is_q else m_n), \
+            (_q(v_n, rows) if is_q else v_n)
 
-    out = _tree.tree_map(leafwise, params, grads, state["m"], state["v"])
+    rest = (grads, state["m"], state["v"]) + ((specs,) if mesh else ())
+    out = _tree.tree_map(leafwise, params, *rest)
     pick = lambda i: _tree.tree_map(lambda p, o: o[i], params, out)
     return pick(0), {"m": pick(1), "v": pick(2), "count": count}, \
         {"lr": lr, "grad_norm": gnorm}

@@ -4,7 +4,7 @@
 compression with the error-feedback ``compressed_psum``
 (``compression``), GPipe over the ``pod`` axis (``pipeline``) and the
 farm's device probe (``compat``).  The sharded train step that puts them
-together is ROADMAP Queue 1 A4b."""
+together is ``train.steps.make_train_step(..., ctx=)``."""
 from .compression import (BLOCK, compressed_psum, compression_ratio,
                           dequantize_int8, dequantize_int8_rowwise,
                           quantize_int8, quantize_int8_rowwise)

@@ -16,11 +16,25 @@ name; the reference's ``lax.scan`` over ring hops is a Python loop here.
   * windowed_allgather    — chunked all-gather with bounded in-flight bytes
   * srq_combine           — small-message combine for (o, lse) partials
 
-and the plain collectives under them: :func:`all_gather` (the reference's
-``all_gather``, tiled along any dim or stacked), :func:`all_to_all` (its
-tiled ``all_to_all``), :func:`all_reduce` (``psum``).  Only
-:func:`ppermute` and :func:`psum_replicated` have a backward; the others
-are not autograd-aware.
+and the collectives under them, autograd-aware where the sharded train
+step differentiates through them:
+
+  * :func:`all_gather` — the reference's ``all_gather``, tiled along any
+    dim or stacked.  Its backward is chosen by what consumes the result:
+    ``"sum"``, the reduce-scatter back to this rank's block (JAX's
+    transpose: ranks that hold different tokens, as over a data axis),
+    or ``"slice"``, this rank's block of the cotangent (every rank
+    computed the same cotangent from the same tokens, as over the model
+    axis for a weight a sublayer uses whole);
+  * :func:`reduce_scatter` — the sum over the group, this rank's block;
+  * :func:`all_to_all` — its tiled ``all_to_all``; backward, the reverse
+    all-to-all;
+  * Megatron's pair over the model axis: :func:`copy_to_model` (identity
+    forward, all-reduce backward: the input of a sublayer whose ranks
+    each compute a part) and :func:`reduce_from_model` (all-reduce
+    forward, identity backward: that sublayer's summed output, which
+    every rank then holds whole);
+  * :func:`all_reduce` — ``psum``, not autograd-aware.
 """
 from __future__ import annotations
 
@@ -28,6 +42,11 @@ from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+# the name since torch 2.13; reduce_scatter_tensor before it
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def _size_rank(group):
@@ -91,21 +110,68 @@ def ppermute_many(xs: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     return list(_PPermute.apply(group, True, *xs))
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0,
-               tiled: bool = True) -> torch.Tensor:
-    """Every rank's ``x`` in rank order: concatenated along ``dim``
-    (``tiled``) or stacked on a new dim 0."""
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     m, _ = _size_rank(group)
     parts = [torch.empty_like(x) for _ in range(m)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim) if tiled else torch.stack(parts)
+    return torch.cat(parts, dim)
 
 
-def all_to_all(x: torch.Tensor, group, split_dim: int,
-               concat_dim: int) -> torch.Tensor:
-    """The reference's tiled ``all_to_all``: ``x``'s ``split_dim`` cut
-    into m chunks, chunk j to rank j, the chunks received concatenated
-    along ``concat_dim`` in rank order."""
+def _block(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``g`` along ``dim`` (a copy)."""
+    m, r = _size_rank(group)
+    n = g.shape[dim] // m
+    return g.narrow(dim, r * n, n).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, cut into m blocks
+    along ``dim``: this rank's block."""
+    m, _ = _size_rank(group)
+    if x.shape[dim] % m:
+        raise ValueError(f"dim {dim} ({x.shape[dim]}) does not split over "
+                         f"{m} ranks")
+    send = x.movedim(dim, 0).contiguous()
+    out = torch.empty((send.shape[0] // m,) + tuple(send.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _reduce_scatter(out, send, group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, backward):
+        ctx.group, ctx.dim, ctx.backward = group, dim, backward
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.backward == "sum":
+            return reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+        return _block(g, ctx.group, ctx.dim), None, None, None
+
+
+GATHER_BACKWARDS = ("sum", "slice")
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0, tiled: bool = True,
+               backward: str = "sum") -> torch.Tensor:
+    """Every rank's ``x`` in rank order: concatenated along ``dim``
+    (``tiled``) or stacked on a new dim 0.  ``backward``: ``"sum"``
+    reduce-scatters the cotangent back to this rank's block, ``"slice"``
+    keeps this rank's block of it (see the module docstring)."""
+    if backward not in GATHER_BACKWARDS:
+        raise ValueError(f"backward must be one of {GATHER_BACKWARDS}, "
+                         f"got {backward!r}")
+    if not tiled:
+        return all_gather(x.unsqueeze(0), group, 0, True, backward)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, group, dim, backward)
+    return _gather(x, group, dim)
+
+
+def _all_to_all(x: torch.Tensor, group, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
     m, _ = _size_rank(group)
     n = x.shape[split_dim]
     if n % m:
@@ -120,11 +186,56 @@ def all_to_all(x: torch.Tensor, group, split_dim: int,
     return recv.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """``psum``: the sum over ``group`` (a new tensor)."""
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = group, split_dim, concat_dim
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """The reference's tiled ``all_to_all``: ``x``'s ``split_dim`` cut
+    into m chunks, chunk j to rank j, the chunks received concatenated
+    along ``concat_dim`` in rank order.  Its backward is the reverse
+    all-to-all (chunk i of the cotangent back to rank i)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, group, split_dim, concat_dim)
+    return _all_to_all(x, group, split_dim, concat_dim)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """``psum`` (or ``op``) over ``group``: a new tensor."""
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, all_reduce(g, ctx.group)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, all-reduce backward: ``x`` is replicated over
+    ``group`` and each rank's use of it computes one part of a sum (its
+    heads, its FFN columns, its share of the tokens), so its cotangent is
+    the sum of the ranks' parts."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToModel.apply(group, x)
+    return x
 
 
 class _PsumReplicated(torch.autograd.Function):
@@ -143,6 +254,9 @@ def psum_replicated(x: torch.Tensor, group) -> torch.Tensor:
     backward passes it through (JAX's transpose of ``psum`` into an
     unmapped output)."""
     return _PsumReplicated.apply(group, x)
+
+
+reduce_from_model = psum_replicated     # Megatron's name for the same op
 
 
 # --------------------------------------------------------------------------- #

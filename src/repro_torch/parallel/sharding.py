@@ -20,8 +20,10 @@ process at production sizes, as the reference's run on an
 Where the reference places a global array on the mesh, a rank here holds
 its local block: :meth:`ParallelCtx.shard` slices it from a full tensor
 by its spec, :meth:`ParallelCtx.gather` puts the full tensor back
-together from every rank's block.  Spec trees mirror the tree they
-describe; since a spec is a tuple, walk them through that tree
+together from every rank's block (differentiably: see its docstring),
+and :meth:`ParallelCtx.shard_tree` / :meth:`ParallelCtx.gather_tree` do
+so leaf by leaf for a whole train state.  Spec trees mirror the tree
+they describe; since a spec is a tuple, walk them through that tree
 (``_tree.tree_map(fn, params, specs)``).
 """
 from __future__ import annotations
@@ -31,7 +33,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .collectives import all_gather
+from .. import _tree
+from .collectives import all_gather, copy_to_model
 
 
 class P(tuple):
@@ -85,6 +88,15 @@ class Mesh:
         return {a: self.coord(a) for a in self.axis_names}
 
 
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place on the model axis, for a tensor-parallel
+    sublayer: the axis's process group, its size and this rank's index."""
+    group: Any
+    size: int
+    rank: int
+
+
 @dataclasses.dataclass
 class ParallelCtx:
     """Everything the model needs to know about distribution.
@@ -128,6 +140,14 @@ class ParallelCtx:
         for a in self.data_axes:
             s *= self.axis_size(a)
         return s
+
+    def tp(self) -> Optional[TP]:
+        """The model axis of a mesh over a process group (None without a
+        mesh)."""
+        if not self.have_mesh:
+            return None
+        return TP(self.mesh.group(self.model_axis), self.model_size,
+                  self.mesh.coord(self.model_axis))
 
     def _div(self, n: int, axis: Optional[str]) -> bool:
         return axis is not None and self.have_mesh and \
@@ -182,10 +202,11 @@ class ParallelCtx:
         return NamedSharding(self.mesh, spec)
 
     def constrain(self, x, spec: P):
-        """A no-op.  The reference hands GSPMD a layout hint here; an SPMD
-        program of one process a rank holds its blocks itself, so there is
-        nothing to hint until the sharded train step (ROADMAP Queue 1
-        A4b) decides where activations are resharded."""
+        """A no-op.  The reference hands GSPMD a layout hint here.  The
+        sharded train step keeps every activation as this rank's batch
+        block (whole over the model axis, which each tensor-parallel
+        sublayer re-establishes with its all-reduce), so no activation is
+        ever resharded and there is nothing to hint."""
         return x
 
     # ---- local blocks ---------------------------------------------------- #
@@ -197,15 +218,50 @@ class ParallelCtx:
             return t
         return NamedSharding(self.mesh, spec).shard(t, coords)
 
-    def gather(self, t: torch.Tensor, spec: P) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, spec: P, keep: Sequence[str] = (),
+               partial: bool = False) -> torch.Tensor:
         """The full tensor from every rank's block ``t`` (all-gathers along
-        each sharded dim; every rank returns the whole)."""
+        each sharded dim; every rank returns the whole), except along the
+        axes in ``keep``, whose blocks stay.
+
+        Differentiable, with a backward that depends on the axis.  Over a
+        data axis the ranks hold different tokens, so the cotangents are
+        summed back to each block (a reduce-scatter).  Over the model axis
+        every rank computed the same cotangent of a weight it used whole
+        from the same tokens, so the backward takes this rank's block of
+        it; with ``partial``, each model rank's use computed one part of a
+        sum (a tensor-parallel sublayer that reads a weight whole), so the
+        parts are summed there too, and a leaf the spec leaves whole over
+        the model axis has its cotangent all-reduced over it."""
         if not self.have_mesh:
             return t
+        model_sharded = False
         for dim, entry in enumerate(spec):
             for axis in reversed(_axes(entry)):   # innermost axis first
-                t = all_gather(t, self.mesh.group(axis), dim)
+                if axis == self.model_axis:
+                    model_sharded = True
+                if axis in keep:
+                    continue
+                back = "slice" if axis == self.model_axis and not partial \
+                    else "sum"
+                t = all_gather(t, self.mesh.group(axis), dim, backward=back)
+        if partial and not model_sharded:
+            t = copy_to_model(t, self.mesh.group(self.model_axis))
         return t
+
+    def shard_tree(self, tree, specs):
+        """This rank's block of every leaf of a whole ``tree`` (a train
+        state, say) by its ``specs`` (``train.steps.state_specs``)."""
+        return _tree.tree_map(lambda t, s: self.shard(t, s), tree, specs)
+
+    def gather_tree(self, tree, specs):
+        """Every leaf of ``tree``, this rank's blocks, whole again (a
+        collective: every rank of the mesh calls it)."""
+        return _tree.tree_map(lambda t, s: self.gather(t, s), tree, specs)
+
+    def spec_axes(self, spec: P) -> Tuple[str, ...]:
+        """The mesh axes a leaf of ``spec`` is sharded over."""
+        return tuple(a for entry in spec for a in _axes(entry))
 
 
 @dataclasses.dataclass(frozen=True)

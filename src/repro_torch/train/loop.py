@@ -11,10 +11,16 @@
 * a straggler monitor: an EWMA of step wall time, and a step slower than
   ``straggler_factor`` times it raises a flag.
 
-The loop trains on one card; restoring a checkpoint onto a mesh (elastic
-rescale) is ``checkpoint.ckpt.restore(..., shardings=)``, and a loop over
-a mesh needs the sharded train step (ROADMAP Queue 1 A4b).  A step's time ``dt`` covers the device's
-work: reading ``float(metrics["loss"])`` waits for it.
+On a mesh (``ctx``) every rank runs the loop on its blocks: it draws the
+same global batch from the pipeline and keeps its block, so the data
+cursor is the step on every rank and a resume reproduces the stream; a
+checkpoint gathers the whole leaves, rank 0 writes them and the ranks
+meet at a barrier after the last one, so the files are the one-card
+layout (either package reads them); a resume restores each rank's blocks
+through ``ckpt.restore(..., shardings=)``, on the same mesh or another
+(elastic).  The loss logged is the mean over the data blocks, the same
+on every rank.  A step's time ``dt`` covers the device's work: reading
+``float(metrics["loss"])`` waits for it.
 """
 from __future__ import annotations
 
@@ -25,11 +31,14 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import _tree
 from .._device import DeviceLike, resolve_device
 from ..checkpoint import ckpt
 from ..configs.base import ArchConfig
 from ..optim import adamw
+from ..parallel.sharding import ParallelCtx
 from . import steps as steps_mod
 
 # checkpoints stay inside the checkout by default (``build/`` is ignored
@@ -70,6 +79,42 @@ class StragglerMonitor:
         return is_straggler
 
 
+class _Saver:
+    """Checkpoints of this rank's state: on one card the async writer; on
+    a mesh the whole leaves gathered on every rank (a collective) and
+    written by rank 0."""
+
+    def __init__(self, ctx: Optional[ParallelCtx], specs):
+        self.ctx, self.specs = ctx, specs
+        self.mesh = ctx is not None and ctx.have_mesh
+        self.writer = ckpt.AsyncSaver()
+
+    def _whole(self, state):
+        return self.ctx.gather_tree(state, self.specs) if self.mesh \
+            else state
+
+    def save(self, state, loop_cfg: "LoopConfig", step: int,
+             sync: bool = False) -> None:
+        whole = self._whole(state)
+        if self.mesh and dist.get_rank() != 0:
+            return
+        extra = {"step": step, "cursor": step}
+        if sync:
+            self.writer.wait()
+            ckpt.save(whole, loop_cfg.ckpt_dir, step, extra=extra,
+                      keep_last=loop_cfg.keep_last)
+        else:
+            self.writer.save(whole, loop_cfg.ckpt_dir, step, extra=extra,
+                             keep_last=loop_cfg.keep_last)
+
+    def wait(self) -> None:
+        self.writer.wait()
+
+    def barrier(self) -> None:
+        if self.mesh:
+            dist.barrier()
+
+
 def run(cfg: ArchConfig, opt_cfg: adamw.OptConfig, loop_cfg: LoopConfig,
         data: Iterable[Dict[str, np.ndarray]],
         generator: Optional[torch.Generator],
@@ -77,34 +122,46 @@ def run(cfg: ArchConfig, opt_cfg: adamw.OptConfig, loop_cfg: LoopConfig,
         state: Optional[Dict[str, Any]] = None,
         compute_dtype=None, accum_steps: int = 1, *,
         device: DeviceLike = None, remat: str = "full",
-        cap_factor: Optional[float] = None) -> Dict[str, Any]:
+        cap_factor: Optional[float] = None,
+        ctx: Optional[ParallelCtx] = None) -> Dict[str, Any]:
     """Run (or resume) training on ``device`` (CUDA unless the caller
     asks for the CPU) -> ``{"state", "history", "straggler_flags",
     "final_step"}``.  Without ``state`` it resumes from the latest
     checkpoint in ``loop_cfg.ckpt_dir``, or starts from parameters drawn
     from ``generator``.  ``accum_steps > 1`` splits each batch into
     microbatches ``[A, B/A, ...]``; ``remat`` and ``cap_factor`` go to
-    :func:`steps.make_train_step`."""
+    :func:`steps.make_train_step`.  ``ctx`` with a mesh: this rank's part
+    of the sharded run (module docstring); ``data`` yields global batches
+    and ``state``, when given, is this rank's blocks."""
     dev = resolve_device(device)
     compute_dtype = compute_dtype or torch.float32
+    mesh = ctx is not None and ctx.have_mesh
     train_step = steps_mod.make_train_step(
         cfg, opt_cfg, compute_dtype, accum_steps=accum_steps, remat=remat,
-        cap_factor=cap_factor)
-    saver = ckpt.AsyncSaver()
+        cap_factor=cap_factor, ctx=ctx)
+    like = steps_mod.abstract_state(cfg, opt_cfg)
+    specs = steps_mod.state_specs(like, ctx) if mesh else None
+    saver = _Saver(ctx, specs)
     data_it = iter(data)
 
     start_step = 0
     if state is None:
+        saver.barrier()      # a previous run's rank 0 has written all
         latest = ckpt.latest_step(loop_cfg.ckpt_dir)
         if latest is not None:
-            like = steps_mod.abstract_state(cfg, opt_cfg)
-            state, extra = ckpt.restore(loop_cfg.ckpt_dir, like, device=dev)
+            shardings = _tree.tree_map(lambda _, s: ctx.sharding(s), like,
+                                       specs) if mesh else None
+            state, extra = ckpt.restore(loop_cfg.ckpt_dir, like, device=dev,
+                                        shardings=shardings)
             start_step = int(extra.get("step", latest))
             # fast-forward the data cursor for an identical resume
             for _ in range(int(extra.get("cursor", start_step))):
                 next(data_it)
         else:
             state = steps_mod.init_state(cfg, opt_cfg, generator, dev)
+            if mesh:
+                state = _tree.tree_map(lambda t: t.clone(),
+                                       ctx.shard_tree(state, specs))
 
     monitor = StragglerMonitor(loop_cfg.straggler_factor,
                                loop_cfg.straggler_ewma)
@@ -121,6 +178,8 @@ def run(cfg: ArchConfig, opt_cfg: adamw.OptConfig, loop_cfg: LoopConfig,
                                        v.shape[0] // accum_steps)
                                       + tuple(v.shape[1:]))
                          for k, v in batch.items()}
+            if mesh:
+                batch = steps_mod.shard_batch(batch, ctx, accum_steps)
             t0 = time.time()
             state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])
@@ -131,15 +190,10 @@ def run(cfg: ArchConfig, opt_cfg: adamw.OptConfig, loop_cfg: LoopConfig,
                 history.append({"step": step, "loss": loss, "dt": dt,
                                 "straggler": straggle})
             if step % loop_cfg.ckpt_every == 0:
-                saver.save(state, loop_cfg.ckpt_dir, step,
-                           extra={"step": step, "cursor": step},
-                           keep_last=loop_cfg.keep_last)
+                saver.save(state, loop_cfg, step)
     except KeyboardInterrupt:
         # preemption: a synchronous checkpoint at the step boundary
-        saver.wait()
-        ckpt.save(state, loop_cfg.ckpt_dir, step,
-                  extra={"step": step, "cursor": step},
-                  keep_last=loop_cfg.keep_last)
+        saver.save(state, loop_cfg, step, sync=True)
         raise
     except BaseException:
         # a fault: the checkpoint in flight commits before the error
@@ -147,9 +201,7 @@ def run(cfg: ArchConfig, opt_cfg: adamw.OptConfig, loop_cfg: LoopConfig,
         # process would otherwise race it on the same directory)
         saver.wait()
         raise
-    saver.wait()
-    ckpt.save(state, loop_cfg.ckpt_dir, step,
-              extra={"step": step, "cursor": step},
-              keep_last=loop_cfg.keep_last)
+    saver.save(state, loop_cfg, step, sync=True)
+    saver.barrier()
     return {"state": state, "history": history,
             "straggler_flags": monitor.flags, "final_step": step}

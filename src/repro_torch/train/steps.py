@@ -1,14 +1,29 @@
 """Train and eval steps (``repro.train.steps``): loss, gradient and
-AdamW on one card, and the sharding rules of the train state.
+AdamW, on one card or sharded over a process mesh, and the sharding
+rules of the train state.
 
 The rules (``_RULES``, :func:`param_spec`, :func:`param_specs`,
 :func:`opt_state_specs`, :func:`batch_specs`, :func:`state_specs`) give
 each leaf's spec over a mesh, as the reference's do; a rank takes its
-block with ``ParallelCtx.shard`` (the reference's ``param_shardings``
-places a global array instead).  The step itself runs eagerly on one
-device: the sharded step and the compressed cross-pod gradient sync are
-ROADMAP Queue 1 A4b, and every mesh knob of the step raises
-``ValueError``.
+blocks with :func:`shard_state` and :func:`shard_batch` (the reference's
+``param_shardings`` places a global array instead).
+
+``make_train_step(..., ctx=)`` is the reference's step under a mesh, one
+process a rank (SPMD over ``torch.distributed``): each rank holds its
+blocks of ``params``, ``opt`` and ``err`` and its batch block, runs the
+forward and backward on them (FSDP gathers over ``data``, tensor-parallel
+attention and MLP over the model axis, the MoE under expert
+parallelism: ``models.transformer``), reduces the gradients to their
+mean over the data axes and updates its blocks.  The loss is the mean
+over the data blocks of each block's loss, CE + 0.01 * lb_loss / L for
+an MoE model, where a block's ``lb_loss`` is the one ``moe.moe_ep``
+returns on it (the mean over the model ranks of each rank's share).
+For equal blocks that is the global CE plus the mean block ``lb_loss``.
+With ``OptConfig.compressed_pod_grads`` on a mesh with a ``pod`` axis
+the gradients are reduced inside the pod and then averaged over ``pod``
+through the int8 error-feedback ``compressed_psum``, each block keeping
+its bfloat16 residual in ``state["err"]`` (the reference's
+``pod_body``); without a ``pod`` axis the flag leaves the step exact.
 
 Gradients come from autograd through the model's forward: the card's
 flash attention through ``kernels.jet_flash_attention.FlashAttention``
@@ -18,15 +33,17 @@ every family trains on the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .. import _tree
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from ..models import transformer
 from ..optim import adamw
+from ..parallel.compression import compressed_psum, row_groups
 from ..parallel.sharding import P, ParallelCtx
 
 METRICS = ("loss", "lb_loss", "overflow")
@@ -107,28 +124,110 @@ def state_specs(state, ctx: ParallelCtx):
     return specs
 
 
-def loss_and_grads(cfg: ArchConfig, params, batch,
-                   compute_dtype=torch.float32, impl: str = "auto",
-                   remat: str = "full", cap_factor: Optional[float] = None):
-    """(grads, loss, metrics) of one batch: the gradients of the loss in
-    the parameters' tree (their type), the loss and ``{"loss",
-    "lb_loss", "overflow"}`` detached.  The first half of a train step;
-    the second is ``adamw.update``."""
+def shard_state(state, ctx: ParallelCtx):
+    """This rank's blocks of a whole train state (views)."""
+    return ctx.shard_tree(state, state_specs(state, ctx))
+
+
+def shard_batch(batch, ctx: ParallelCtx, accum_steps: int = 1):
+    """This rank's block of a global batch: the batch dim over the data
+    axes that divide it, or with ``accum_steps > 1`` the micro dim of
+    the ``[A, B/A, ...]`` batch (the accumulation dim stays whole)."""
+    if not ctx.have_mesh:
+        return batch
+    if accum_steps == 1:
+        return ctx.shard_tree(batch, batch_specs(batch, ctx))
+
+    def one(x):
+        ax = ctx.batch_axes_for(x.shape[1])
+        return ctx.shard(x, P(None, ax or None, *([None] * (x.ndim - 2))))
+    return _tree.tree_map(one, batch)
+
+
+def _sum_grads(grads, specs, ctx: ParallelCtx, axes: Tuple[str, ...]):
+    """Each leaf's gradient summed over the ``axes`` it is not sharded on
+    (a sharded leaf's was summed by its gather's reduce-scatter): the
+    leaves that share their axes in one all-reduce a type."""
+    flat = _tree.leaves(grads)
+    buckets: Dict[tuple, list] = {}
+    for i, (g, s) in enumerate(zip(flat, _tree.flatten_up_to(grads,
+                                                              specs))):
+        todo = tuple(a for a in axes if a not in ctx.spec_axes(s))
+        if todo:
+            buckets.setdefault((todo, g.dtype), []).append(i)
+    out = list(flat)
+    for (todo, _), idx in buckets.items():
+        buf = torch.cat([flat[i].reshape(-1) for i in idx])
+        for a in todo:
+            dist.all_reduce(buf, group=ctx.mesh.group(a))
+        for i, part in zip(idx, buf.split([flat[i].numel() for i in idx])):
+            out[i] = part.view_as(flat[i])
+    return _tree.unflatten(grads, out)
+
+
+def _data_mean(values: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """The mean of per-rank figures over the data axes (one all-reduce
+    an axis)."""
+    out = values.clone()
+    for a in ctx.data_axes:
+        dist.all_reduce(out, group=ctx.mesh.group(a))
+    return out / ctx.dp_size
+
+
+def _local_grads(cfg, params, batch, compute_dtype, impl, remat, cap_factor,
+                 ctx, specs):
+    """(grads, metrics) of this rank's batch block: no reduction across
+    ranks beyond what the forward's gathers transpose to."""
     flat = _tree.leaves(params)
     live = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
         loss, metrics = transformer.loss_fn(
             _tree.unflatten(params, live), cfg, batch, compute_dtype, impl,
-            remat, cap_factor)
+            remat, cap_factor, ctx, specs)
         grads = torch.autograd.grad(loss, live)
-    return _tree.unflatten(params, list(grads)), loss.detach(), \
+    return _tree.unflatten(params, list(grads)), \
         {k: metrics[k].detach() for k in METRICS}
+
+
+def _reduce(grads, metrics, specs, ctx: Optional[ParallelCtx],
+            axes: Tuple[str, ...]):
+    """Gradients to their mean over the data ``axes`` and the figures to
+    their mean over every data axis (identity without a mesh)."""
+    if ctx is None or not ctx.have_mesh:
+        return grads, metrics
+    n = 1
+    for a in axes:
+        n *= ctx.axis_size(a)
+    grads = _sum_grads(grads, specs, ctx, axes)
+    grads = _tree.tree_map(lambda g: g / n, grads)
+    figs = _data_mean(torch.stack([metrics[k].float() for k in METRICS]),
+                      ctx)
+    return grads, dict(zip(METRICS, figs.unbind()))
+
+
+def loss_and_grads(cfg: ArchConfig, params, batch,
+                   compute_dtype=torch.float32, impl: str = "auto",
+                   remat: str = "full", cap_factor: Optional[float] = None,
+                   ctx: Optional[ParallelCtx] = None, specs=None):
+    """(grads, loss, metrics) of one batch: the gradients of the loss in
+    the parameters' tree (their type), the loss and ``{"loss",
+    "lb_loss", "overflow"}`` detached.  The first half of a train step;
+    the second is ``adamw.update``.  On a mesh ``params`` and ``batch``
+    are this rank's blocks (``specs``: the parameters'), the gradients
+    this rank's blocks of their mean over the data axes and the loss and
+    figures the mean over the data blocks (module docstring)."""
+    grads, metrics = _local_grads(cfg, params, batch, compute_dtype, impl,
+                                  remat, cap_factor, ctx, specs)
+    grads, metrics = _reduce(grads, metrics, specs, ctx,
+                             ctx.data_axes if ctx is not None else ())
+    return grads, metrics["loss"], metrics
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                     compute_dtype=torch.float32, accum_steps: int = 1,
                     remat: str = "full", impl: str = "auto",
-                    cap_factor: Optional[float] = None):
+                    cap_factor: Optional[float] = None,
+                    ctx: Optional[ParallelCtx] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
     are ``loss``, ``lb_loss``, ``overflow``, ``lr`` and ``grad_norm``
     (0-d tensors).  The state passed in is left as it was.
@@ -137,42 +236,69 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
     the float32 gradients of the A microbatches are summed and scaled by
     1/A (as the reference's ``lax.scan``), so activation memory divides
     by A.  ``remat``: the activation-checkpoint policy of each pattern
-    unit (``transformer.REMATS``; ``"layer_out"`` is a mesh knob and
-    raises).  ``impl`` goes to the kernels; ``cap_factor`` is the MoE
-    capacity factor (None: the config's)."""
-    adamw.check_config(opt_cfg)
+    unit (``transformer.REMATS``).  ``impl`` goes to the kernels;
+    ``cap_factor`` is the MoE capacity factor (None: the config's).
+    ``ctx`` with a mesh: the sharded step on this rank's blocks
+    (``shard_state``, ``shard_batch``; module docstring)."""
     transformer.check_remat(remat)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    mesh = ctx is not None and ctx.have_mesh
+    specs = state_specs(abstract_state(cfg, opt_cfg), ctx)["params"] \
+        if mesh else None
+    pod = (opt_cfg.compressed_pod_grads and mesh
+           and "pod" in ctx.mesh.axis_names)
+    # the pod path reduces inside the pod and averages over it compressed
+    axes = tuple(a for a in ctx.data_axes if not (pod and a == "pod")) \
+        if mesh else ()
 
     def compute_grads(params, batch):
+        def one(mb):
+            return _local_grads(cfg, params, mb, compute_dtype, impl, remat,
+                                cap_factor, ctx, specs)
         if accum_steps == 1:
-            return loss_and_grads(cfg, params, batch, compute_dtype, impl,
-                                  remat, cap_factor)
-        g_acc = loss = aux = None
-        for a in range(accum_steps):
-            mb = {k: v[a] for k, v in batch.items()}
-            g, l, m = loss_and_grads(cfg, params, mb, compute_dtype, impl,
-                                     remat, cap_factor)
-            g = _tree.tree_map(lambda t: t.float(), g)
-            if g_acc is None:
-                g_acc, loss, aux = g, l, m
-            else:
-                g_acc = _tree.tree_map(torch.add, g_acc, g)
-                loss = loss + l
-                aux = {k: aux[k] + m[k] for k in METRICS}
-        inv = 1.0 / accum_steps
-        return _tree.tree_map(lambda t: t * inv, g_acc), loss * inv, \
-            {k: v * inv for k, v in aux.items()}
+            grads, metrics = one(batch)
+        else:
+            grads = metrics = None
+            for a in range(accum_steps):
+                g, m = one({k: v[a] for k, v in batch.items()})
+                g = _tree.tree_map(lambda t: t.float(), g)
+                if grads is None:
+                    grads, metrics = g, m
+                else:
+                    grads = _tree.tree_map(torch.add, grads, g)
+                    metrics = {k: metrics[k] + m[k] for k in METRICS}
+            inv = 1.0 / accum_steps
+            grads = _tree.tree_map(lambda t: t * inv, grads)
+            metrics = {k: v * inv for k, v in metrics.items()}
+        return _reduce(grads, metrics, specs, ctx, axes)
+
+    def pod_mean(grads, err):
+        """The gradient blocks' int8 error-feedback mean over ``pod``."""
+        group = ctx.mesh.group("pod")
+
+        def one(g, e, s):
+            mean, new_e = compressed_psum(g.float(), e.float(), group,
+                                          row_groups(ctx, s))
+            return mean, new_e.to(torch.bfloat16)
+        pairs = _tree.tree_map(one, grads, err, specs)
+        pick = lambda i: _tree.tree_map(lambda g, o: o[i], grads, pairs)
+        return pick(0), pick(1)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]
-        grads, _, metrics = compute_grads(params, batch)
+        grads, metrics = compute_grads(params, batch)
+        out = {"step": state["step"] + 1}
+        if pod:
+            grads, out["err"] = pod_mean(grads, state["err"])
+        elif "err" in state:
+            out["err"] = state["err"]
         new_params, new_opt, stats = adamw.update(grads, state["opt"],
-                                                  params, opt_cfg)
+                                                  params, opt_cfg, specs,
+                                                  ctx)
         del grads
-        return ({"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}, {**metrics, **stats})
+        return ({"params": new_params, "opt": new_opt, **out},
+                {**metrics, **stats})
 
     return train_step
 
@@ -195,12 +321,18 @@ def init_state(cfg: ArchConfig, opt_cfg: adamw.OptConfig,
                dtype=torch.float32) -> Dict[str, Any]:
     """``{"params", "opt", "step"}``: parameters drawn from ``generator``
     (which lives on ``device``: CUDA unless the caller asks for the CPU),
-    the AdamW state and a 0-d int32 step."""
-    adamw.check_config(opt_cfg)
+    the AdamW state and a 0-d int32 step; with
+    ``compressed_pod_grads``, also ``err``, the bfloat16 error-feedback
+    residuals of the cross-pod gradient mean (zeros)."""
     dev = resolve_device(device)
     params = transformer.init_params(cfg, generator, dtype, dev)
-    return {"params": params, "opt": adamw.init(params, opt_cfg),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"params": params, "opt": adamw.init(params, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if opt_cfg.compressed_pod_grads:
+        state["err"] = _tree.tree_map(
+            lambda t: torch.zeros(t.shape, dtype=torch.bfloat16,
+                                  device=t.device), params)
+    return state
 
 
 def abstract_state(cfg: ArchConfig, opt_cfg: adamw.OptConfig,

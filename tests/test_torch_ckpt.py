@@ -4,8 +4,8 @@ CPU against the reference.
 * The pipeline: batches bit-equal to the reference's (plain tokens,
   musicgen's codebooks, vision's patches, a 2-process split) and a
   cursor resume.
-* Checkpoints: round trip, ``keep_last``, no ``.tmp`` left, the async
-  saver's snapshot; a port checkpoint restored by
+* Checkpoints: round trip, ``keep_last``, no ``.tmp`` left, bfloat16
+  leaves through float32, the async saver's snapshot; a port checkpoint restored by
   ``repro.checkpoint.ckpt.restore`` and a reference one by the port's,
   both equal leaf for leaf (int8 moment codes included).
 * The loop: a crash at step 4 and a resume land on the uninterrupted
@@ -13,8 +13,9 @@ CPU against the reference.
   same order); the port's and the reference's loops from one carried
   state log the same losses within the train step's 1e-5; a preemption
   writes a checkpoint at the step boundary; the straggler monitor.
-* The launcher: ``--tiny --device cpu`` trains; ``--mesh 2x4`` and
-  ``--remat layer_out`` raise (mesh knobs).
+* The launcher: ``--tiny --device cpu`` trains, with ``--remat
+  layer_out`` too; ``--mesh 2x4`` in one process raises, naming the
+  ranks the mesh needs, and the production meshes name the dry-run.
 """
 import dataclasses
 import json
@@ -117,6 +118,21 @@ def test_roundtrip_keep_last_and_atomic_commit(tmp_path):
     assert ckpt.latest_step(str(tmp_path / "none")) is None
     with pytest.raises(FileNotFoundError):
         ckpt.restore(str(tmp_path / "none"), tree, device="cpu")
+
+
+def test_bfloat16_leaves_round_trip_through_float32(tmp_path):
+    """The ``compressed_pod_grads`` residuals are bfloat16, which numpy
+    lacks: written widened to float32 (exactly), restored to ``like``'s
+    bfloat16, bit for bit."""
+    err = torch.randn(4, 6, generator=torch.Generator().manual_seed(0)
+                      ).to(torch.bfloat16)
+    tree = {"err": err, "w": torch.ones(3)}
+    ckpt.save(tree, str(tmp_path), 1)
+    with open(tmp_path / "step_00000001" / "manifest.json") as f:
+        assert json.load(f)["leaves"]["err"]["dtype"] == "float32"
+    got, _ = ckpt.restore(str(tmp_path), tree, device="cpu")
+    assert got["err"].dtype == torch.bfloat16
+    assert torch.equal(got["err"], err) and torch.equal(got["w"], tree["w"])
 
 
 def test_async_saver_snapshots_before_returning(tmp_path):
@@ -289,8 +305,15 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     assert ckpt.latest_step(str(tmp_path)) == 2
 
 
+def test_launcher_trains_with_remat_layer_out(tmp_path, capsys):
+    launch_train.main(["--arch", "h2o-danube-1.8b", "--tiny", "--device",
+                       "cpu", "--steps", "1", "--batch", "2", "--seq", "16",
+                       "--remat", "layer_out", "--ckpt-dir", str(tmp_path)])
+    assert "final step 1" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh", "2x4"], "A4"), (["--remat", "layer_out"], "mesh knob")])
+    (["--mesh", "2x4"], "needs 8 ranks"), (["--mesh", "single"], "dry-run")])
 def test_launcher_refuses_mesh_knobs(tmp_path, flags, match):
     with pytest.raises(ValueError, match=match):
         launch_train.main(["--arch", "h2o-danube-1.8b", "--tiny",

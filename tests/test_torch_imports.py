@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py``, no script under ``tools/`` and not the port side of
-the multi-rank tests (``tests/torch_multidev_port.py``) imports ``jax``
+``chip_smoke.py``, no script under ``tools/`` and not the port sides of
+the multi-rank tests (``tests/torch_multidev_port.py``,
+``tests/torch_train_mesh_port.py``) imports ``jax``
 or the reference package ``repro`` (``repro_torch`` itself is allowed);
 the reference side (``tests/torch_multidev_ref.py``) imports nothing of
 the port."""
@@ -15,7 +16,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
-    + [ROOT / "tests" / "torch_multidev_port.py"]
+    + [ROOT / "tests" / "torch_multidev_port.py",
+       ROOT / "tests" / "torch_train_mesh_port.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -49,7 +51,7 @@ def test_scan_covers_the_package_and_the_smoke_script():
             "adamw.py", "compression.py", "pipeline.py", "ckpt.py",
             "steps.py", "loop.py", "train.py", "_tree.py", "sharding.py",
             "collectives.py", "compat.py", "mesh.py",
-            "torch_multidev_port.py"} <= names
+            "torch_multidev_port.py", "torch_train_mesh_port.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 

@@ -215,8 +215,17 @@ def test_moe_ep_overflow_keeps_the_reference_tokens(runs):
 
 
 def test_moe_ep_refuses_grad(runs):
-    _, port = runs
-    assert "ROADMAP Queue 1 A4b" in str(port[0]["moe_grad_refused"])
+    """``moe_ep`` no longer refuses grad: under it, each rank's block of
+    d(sum y)/dx on (2, 4) equals ``jax.grad`` of the reference's dense
+    oracle (the full backward: ``tests/test_torch_train_mesh.py``)."""
+    ref, port = runs
+    name = "moe_ep_equals_dense_ref"
+    _, mesh, _, _, _, _, _, xs = _moe(name)
+    for out in port:
+        np.testing.assert_allclose(
+            out[f"{name}/dx"],
+            _block(ref[f"{name}/dx_dense"], mesh, out[f"{name}/coords"],
+                   xs[0]), **MOE_TOL)
 
 
 def test_ring_allgather_matmul(runs):

@@ -207,11 +207,26 @@ def test_int8_moments_track_float32():
 
 
 def test_compressed_pod_grads_is_a_mesh_knob():
-    o = adamw.OptConfig(compressed_pod_grads=True)
-    with pytest.raises(ValueError, match="A4"):
-        adamw.init({"w": torch.zeros(2)}, o)
-    with pytest.raises(ValueError, match="A4"):
-        steps.make_train_step(tiny_config(get_arch("h2o-danube-1.8b")), o)
+    """The flag acts only on a mesh with a ``pod`` axis (the reference's
+    ``want_pod``): without one the step is the exact step, bit for bit,
+    and carries the residuals ``err`` (bfloat16 zeros) unchanged."""
+    cfg = dataclasses.replace(tiny_config(get_arch("h2o-danube-1.8b")),
+                              num_layers=2)
+    exact, flag = adamw.OptConfig(), adamw.OptConfig(compressed_pod_grads=True)
+    s0 = steps.init_state(cfg, flag, torch.Generator().manual_seed(0), "cpu")
+    assert all(e.dtype == torch.bfloat16 and not e.any()
+               for e in _tree.leaves(s0["err"]))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                                 .astype(np.int32))
+             for k in ("tokens", "targets")}
+    s1, m1 = steps.make_train_step(cfg, flag)(s0, batch)
+    s2, m2 = steps.make_train_step(cfg, exact)(
+        {k: v for k, v in s0.items() if k != "err"}, batch)
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(
+        _tree.leaves(s1["params"]), _tree.leaves(s2["params"])))
+    assert s1["err"] is s0["err"]
 
 
 # --------------------------------------------------------------------------- #

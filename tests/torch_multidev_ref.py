@@ -69,6 +69,9 @@ def moe_case(c: dict, inp, out: dict) -> None:
     with mesh:
         y, aux = jax.jit(lambda p, xx: moe_ep(p, xx, cfg, ctx))(params, x)
     y_ref, aux_ref = moe_dense_ref(params, x, cfg, cap_factor=c["cf"])
+    if name == "moe_ep_equals_dense_ref":    # the port's moe_ep under grad
+        out[f"{name}/dx_dense"] = np.asarray(jax.grad(
+            lambda xx: moe_dense_ref(params, xx, cfg, c["cf"])[0].sum())(x))
     out[f"{name}/y"] = np.asarray(y)
     out[f"{name}/y_dense"] = np.asarray(y_ref)
     for k in ("lb_loss", "overflow"):
