@@ -363,7 +363,14 @@ whole, 38 layers, the same batch, pipeline and optimizer: one warm-up
 and two timed steps, the same checks, the SSD scan 74 launches a step
 (the 36 layers of the six checkpointed units twice, the 2 remainder
 layers once), its backward 38 (all on ``bwd_mma_3xtf32``), flash
-attention 12 and its backward 6);
+attention 12 and its backward 6); before each of the two, its own step
+traced on the meta device in this process
+(``launch.dryrun.build_cell(..., mesh=None)``, no process group): the
+dry-run's kernel launches equal to one step's, its predicted peak
+(``dryrun_peak_gb``: arguments and the traced peak beyond them) within
+10 % of the steps' ``max_memory_allocated``, the two ``dryrun_s``
+under 60 s together; the SSD backward rows also hold the C launcher's
+scratch size to the meta path's (``mamba2_ssd.bwd_scratch_floats``);
 ``train_vs_plain`` (danube at full width cut to 2 layers, then zamba2 at
 full width cut to 6, 5 Mamba2 layers and one with the shared attention
 block, each 2 x 1,024 tokens: loss and gradient norm within 1e-5, every
@@ -509,6 +516,8 @@ LSE_TOL = 1e-4
 TRAIN_TOL = 1e-5
 GRAD_TOL = 1e-4
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096      # train_4k rows, batch cut
+DRYRUN_MEM_TOL = 0.10       # the dry-run's predicted peak vs the card's
+DRYRUN_LIMIT_S = 60.0       # both train phases' dry-runs, build and trace
 # the SSD backward's gradients within this share of each one's largest
 # magnitude of autograd's gradient of the plain forward and of the plain
 # backward, by input type
@@ -2577,15 +2586,6 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
-def visible_pairs(t: int, s: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask lets through, right-aligned."""
-    import numpy as np
-    tq = np.arange(t, dtype=np.int64) + (s - t)
-    hi = np.minimum(tq, s - 1) if causal else np.full(t, s - 1)
-    lo = np.maximum(tq - window + 1, 0) if window else np.zeros(t, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
                 d: int, causal: bool, window, dtype: str, seed: int,
                 iters: int, plain_iters: int, expect: str) -> dict:
@@ -2629,7 +2629,7 @@ def flash_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
             math.log2(top))
     esize = q.element_size()
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * esize
-    nops = 4.0 * b * hq * d * visible_pairs(t, s, causal, window)
+    nops = jfa.flops(b, hq, t, s, d, causal, window)
     # each variant's ceiling: the float32 split does three TF32 products
     # for one float32 product; simt runs on the CUDA cores
     bms, by = bound(nbytes, nops, {"mma_bf16": BF16_OPS_PER_S,
@@ -2788,13 +2788,7 @@ def ssd_phase(label: str, B: int, T: int, H: int, P: int, G: int, N: int,
         return [float(err.max()), float(
             (err / (tol_y + tol_y * truth.abs())).max())]
     f64 = {"kernel": vs_truth(y), "plain": vs_truth(y0)}
-    nc = T // L
-    # per (batch, head): the causal half of scores (c.b) and of scores @ x
-    # in every chunk, every chunk's own state (b w)^T x, and c @ h_in in the
-    # chunks after the first (h_in is 0 in the first); the same work
-    # whichever variant does it
-    nops = float(B * H) * (nc * L * (L + 1) * (N + P)
-                           + 2.0 * L * N * P * (2 * nc - 1))
+    nops = mssd.flops(B, T, H, N, P, L)
     nbytes = x.element_size() * (2 * x.numel() + dt.numel() + b.numel()
                                  + c.numel()) + 4 * (a.numel() + h.numel())
     # each variant's ceiling: the split does three TF32 products for one
@@ -4265,8 +4259,7 @@ def flash_bwd_phase(label: str, b: int, hq: int, hkv: int, t: int, s: int,
     esize = q.element_size()
     nbytes = (q.numel() * 4 + k.numel() * 2 + v.numel() * 2) * esize \
         + lse.numel() * 4
-    pairs = visible_pairs(t, s, causal, window)
-    nops = 10.0 * b * hq * d * pairs
+    nops = jfa.bwd_flops(b, hq, t, s, d, causal, window)
     # the card's peak for the route the type takes: bfloat16 on the tensor
     # cores, float32 through 3xTF32 (the TF32 rate over 3); the CUDA
     # cores' float32 peak, the first design's ceiling, beside it
@@ -4326,31 +4319,6 @@ def flash_bwd_rows() -> dict:
     flash_bwd_phase("gemma-7b bf16", 1, 16, 16, 1024, 1024, 256, True, None,
                     "bfloat16", 54, iters=10, plain_iters=2, prev_iters=3)
     return rows
-
-
-def ssd_bwd_work(B: int, T: int, H: int, G: int, N: int, P: int, L: int,
-                 esize: int, recompute: bool) -> tuple:
-    """(flops, bytes) that the SSD backward must do and move at dh None, as
-    the timed call runs it.  Per (b, h) and chunk: the causal half of the
-    L x L pairs (L (L + 1) / 2), each taking c.b, dy.x and the three
-    products into dx, db and dc (3 N + 2 P multiply-adds); and the state
-    terms, 2 L N P each: D_k = sum exp(cum) c dy^T for every chunk but the
-    first (D_0 feeds only the zero initial state's gradient), c H dy for
-    every chunk but the first (H_0 = 0), and the G terms of dx and db for
-    every chunk but the last (G_last = dh = 0); with the states
-    recomputed, also the states entering chunks 1 .. nc - 1.  Bytes: x,
-    dt, b, c read and their gradients written in their type, dy read
-    once, a read and da written in float32, and the forward's float32
-    states and cum read where they are kept."""
-    nc = T // L
-    terms = 4 * (nc - 1) + (nc - 1 if recompute else 0)
-    nops = float(B * H) * (nc * L * (L + 1) * (3 * N + 2 * P)
-                           + 2.0 * L * N * P * terms)
-    x_n, dt_n, bc_n = B * T * H * P, B * T * H, B * T * G * N
-    nbytes = esize * (3 * x_n + 2 * dt_n + 4 * bc_n) + 4 * 2 * H
-    if not recompute:
-        nbytes += 4 * (B * H * nc * N * P + B * H * T)
-    return nops, nbytes
 
 
 def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
@@ -4460,9 +4428,13 @@ def ssd_bwd_phase(label: str, B: int, T: int, H: int, P: int, G: int,
     ms = min(ms_runs)
     plain_ms = cuda_ms(plain, plain_iters, warmup=1)
     kplan = mssd.bwd_plan(want_bwd, B, T, H, G, N, P, L, recompute)
+    scratch = (mssd._bwd_lib().ssd_scan_bwd_scratch(B, T, H, P, G, N, L),
+               mssd.bwd_scratch_floats(B, T, H, P, G, N, L))
+    check(scratch[0] == scratch[1], f"ssd_scan_bwd ({label}): the C "
+          f"scratch {scratch[0]} floats, the meta path's {scratch[1]}")
     dev = device_us(kernel, list(kplan))
-    nops, nbytes = ssd_bwd_work(B, T, H, G, N, P, L, x.element_size(),
-                                recompute)
+    nops, nbytes = mssd.bwd_work(B, T, H, G, N, P, L, x.element_size(),
+                                 recompute)
     # the card's peak for the type: bfloat16 on the tensor cores, float32
     # through 3xTF32 (the TF32 rate over 3); the CUDA cores' float32 peak,
     # the first design's route, beside it
@@ -4589,6 +4561,24 @@ def train_launches(cfg, n_steps: int) -> dict:
             "decode_attention_paged": 0, "staged_matmul": 0}
 
 
+def dryrun_cell(phase: str, cfg, seq: int) -> dict:
+    """The dry-run of the step ``train_model_phase`` runs
+    (``launch.dryrun.build_cell(..., mesh=None)``: batch 2 x ``seq``,
+    ``remat="full"``, float32, AdamW with float32 moments), traced in this
+    process on the meta device with no process group: its record, and
+    ``dryrun_s``, the seconds to build and trace it."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    fn, args = dryrun.build_cell(
+        cfg, ShapeConfig(phase, "train", seq, TRAIN_BATCH), None,
+        {"remat": "full"}, torch.float32)
+    rec = dryrun.trace_step(fn, args)
+    rec["dryrun_s"] = time.perf_counter() - t0
+    return rec
+
+
 def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
     """``cfg`` trained on the card through ``train.steps.make_train_step``:
     batch 2 x ``seq`` tokens of the ``for_arch`` pipeline (seed 0),
@@ -4597,7 +4587,11 @@ def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
     versions' loss on the same state, every loss and gradient norm
     finite, each kernel launched as :func:`train_launches` says, on the
     variants the float32 path selects; then one more step traced in two
-    halves."""
+    halves.  Before the card runs, the dry-run of the same step
+    (:func:`dryrun_cell`): its kernel launches a step equal to
+    :func:`train_launches` of one step, and its predicted peak (the
+    arguments and the traced peak of live storages beyond them) within
+    DRYRUN_MEM_TOL of the steps' ``max_memory_allocated``."""
     import numpy as np
     import torch
     from repro_torch.configs import ShapeConfig
@@ -4608,6 +4602,7 @@ def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
     from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train import steps
+    dry = dryrun_cell(phase, cfg, seq)
     b, t = TRAIN_BATCH, seq
     data = pipeline.for_arch(cfg, ShapeConfig(phase, "train", t, b), seed=0)
     batches = [{k: torch.from_numpy(v).to(dev)
@@ -4651,7 +4646,12 @@ def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
            "first_loss_plain": plain,
            "first_loss_rel": abs(rows[0]["loss"] - plain) / abs(plain),
            "launches": launches, "launches_per_step": per_step,
-           "variants": variants, "peak_mem_gb": peak, "profile": prof}
+           "variants": variants, "peak_mem_gb": peak,
+           "dryrun_peak_gb": (dry["argument_size_in_bytes"]
+                              + dry["temp_size_in_bytes"]) / 1e9,
+           "dryrun_launches": dry["kernel_launches"],
+           "dryrun_s": dry["dryrun_s"], "dryrun": dry, "profile": prof}
+    out["dryrun_peak_rel"] = abs(out["dryrun_peak_gb"] - peak) / peak
     emit(phase, **out)
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
               for r in rows), f"{phase}: a step is not finite: {rows}")
@@ -4659,6 +4659,12 @@ def train_model_phase(phase: str, cfg, dev, seq: int, n_steps: int) -> dict:
           f"{phase}: first loss {rows[0]['loss']} vs plain {plain}")
     want = train_launches(cfg, len(rows))
     check(launches == want, f"{phase}: launches {launches}, want {want}")
+    check(dry["kernel_launches"] == train_launches(cfg, 1),
+          f"{phase}: the dry-run launches {dry['kernel_launches']}, want "
+          f"{train_launches(cfg, 1)}")
+    check(out["dryrun_peak_rel"] <= DRYRUN_MEM_TOL,
+          f"{phase}: the dry-run's peak {out['dryrun_peak_gb']} GB vs the "
+          f"card's {peak} GB")
     fv, sv = variants["flash"], variants["ssd"]
     check(fv["mma_3xtf32"] == want["flash_attention"]
           and fv["bwd_mma_3xtf32"] == want["flash_attention_bwd"]
@@ -5199,6 +5205,9 @@ def run() -> int:
         lap("train_danube")
         model_runs["train_zamba2"] = train_z = train_zamba2_phase()
         lap("train_zamba2")
+        check(train["dryrun_s"] + train_z["dryrun_s"] < DRYRUN_LIMIT_S,
+              f"the two dry-runs took {train['dryrun_s']} and "
+              f"{train_z['dryrun_s']} s")
         train_vs_plain_phase()
         # zamba2 at full width cut to 6 layers: 5 Mamba2 and one with the
         # shared attention block, so both backward kernels run

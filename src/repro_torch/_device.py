@@ -10,10 +10,16 @@ CPU float32 and float64 are both allowed, float64 being the oracle mode.
 Every kernel wrapper dispatches through :func:`resolve_impl` and counts
 its launches in a :class:`LaunchCounts`.  A kernel without a backward
 calls :func:`require_no_grad` before it launches.
+
+A ``meta`` tensor (shapes, no data) takes the card's path: the wrapper
+checks, picks its variant and allocates as on the card, then calls
+:func:`meta_launch` in place of its launch, so that an op trace of a
+step (``launch.hlo_analysis``, the dry-run) sees each kernel.  It builds
+nothing, loads no library and asks for no stream.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -59,14 +65,15 @@ def full_fp32_matmul() -> None:
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     """The dispatch of every kernel wrapper: ``auto`` -> ``cuda`` for a
-    CUDA tensor, ``ref`` (the plain version) for a CPU one; ``cuda``
-    demands a CUDA tensor; ``ref`` forces the plain version on any device.
-    Nothing falls back: a build or launch failure propagates."""
+    CUDA or a ``meta`` tensor (the dry-run's trace of the card's path),
+    ``ref`` (the plain version) for a CPU one; ``cuda`` demands a CUDA or
+    meta tensor; ``ref`` forces the plain version on any device.  Nothing
+    falls back: a build or launch failure propagates."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} ({' | '.join(IMPLS)})")
     if impl == "ref":
         return "ref"
-    if device.type == "cuda":
+    if device.type in ("cuda", "meta"):
         return "cuda"
     if impl == "cuda":
         raise ValueError("impl='cuda' needs CUDA tensors; CPU tensors run "
@@ -91,6 +98,22 @@ def require_no_grad(name: str, *tensors) -> None:
             f"requires grad; run it under torch.no_grad(), or train on "
             f"the CPU's plain version, until its backward kernel is "
             f"ported")
+
+
+@torch.library.custom_op("repro_torch::meta_launch", mutates_args=())
+def meta_launch(kernel: str, flops: float,
+                tensors: List[torch.Tensor]) -> None:
+    """What a kernel wrapper calls in place of launching ``kernel`` on
+    ``meta`` tensors: no work, one op that an op trace of the call sees,
+    carrying the kernel's operation count (``flops``) and the ``tensors``
+    it reads and writes.  Only meta tensors reach it; on any other device
+    it raises."""
+    raise RuntimeError(f"meta_launch({kernel!r}) takes meta tensors only")
+
+
+@meta_launch.register_fake
+def _(kernel, flops, tensors):
+    return None
 
 
 class LaunchCounts(dict):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from .base import SHAPES, ArchConfig, ShapeConfig
+from .base import SHAPES, ArchConfig, ShapeConfig, eligible
 from .chatglm3_6b import CONFIG as _chatglm3
 from .gemma_7b import CONFIG as _gemma
 from .h2o_danube_1_8b import CONFIG as _danube
@@ -76,5 +76,5 @@ def _tiny_layers(arch: ArchConfig) -> int:
     return n
 
 
-__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeConfig", "get_arch",
-           "tiny_config"]
+__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeConfig", "eligible",
+           "get_arch", "tiny_config"]

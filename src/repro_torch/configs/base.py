@@ -153,3 +153,11 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
 }
+
+
+def eligible(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic attention (the reference's
+    ``eligible``)."""
+    if shape.name == "long_500k":
+        return arch.subquadratic
+    return True

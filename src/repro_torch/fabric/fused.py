@@ -208,8 +208,16 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _cuda_only(dev: torch.device, name: str) -> None:
+    # a meta tensor takes the card's path (``resolve_impl``), but the
+    # fabric's kernels have no meta stand-in: no dry-run traces a tick
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+
+
 def _launch_setup(demand: torch.Tensor):
     dev = demand.device
+    _cuda_only(dev, "the water-fill kernels")
     if dev.index is not None and dev.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {dev} but the current CUDA device "
                          f"is {torch.cuda.current_device()}")
@@ -290,6 +298,7 @@ def seg_launch(rows: int, n: int, size: int, n_long: int = 0,
 
 def _seg_sum_cuda(vals, plan: SegPlan, variant: str):
     dev = vals.device
+    _cuda_only(dev, "the seg_sum kernel")
     if dev != plan.device:
         raise ValueError(f"vals is on {dev}, the plan on {plan.device}")
     if dev.index != torch.cuda.current_device():

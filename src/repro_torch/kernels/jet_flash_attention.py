@@ -37,9 +37,12 @@ another: a build or launch error raises.
 This wrapper checks what the kernel takes (CUDA, float32 or bfloat16,
 contiguous, the head dim its variant takes, Hq a multiple of Hkv, 16-byte
 aligned for the mma variants) and raises on the rest, allocates the
-output, and launches on the current stream.  Asked for it, each variant
-also writes the row log-sum-exp ``lse`` (float32 ``[B, Hq, T]``); the
-serve paths do not ask.
+output, and launches on the current stream.  On ``meta`` tensors it does
+all of that but the launch, in whose place it calls
+``_device.meta_launch`` with the operation count (:func:`flops`,
+:func:`bwd_flops`), and counts the launch all the same.  Asked for it,
+each variant also writes the row log-sum-exp ``lse`` (float32
+``[B, Hq, T]``); the serve paths do not ask.
 
 **The gradient.**  The reference's kernel is forward-only (JAX
 differentiates its plain attention); here the output comes through
@@ -74,10 +77,11 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .._build import library
-from .._device import LaunchCounts
+from .._device import LaunchCounts, meta_launch
 
 _SOURCE = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,6 +101,29 @@ BWD_FLUSH_ROWS = 256  # float32: rows between adds of the accumulators into
 VARIANT_LAUNCHES = LaunchCounts(mma_bf16=0, mma_3xtf32=0, simt=0,
                                 bwd_mma_bf16=0, bwd_mma_3xtf32=0,
                                 bwd_simt=0)
+
+
+def visible_pairs(t: int, s: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through for T queries over S
+    keys, causality right-aligned (the last query sees the last key)."""
+    tq = np.arange(t, dtype=np.int64) + (s - t)
+    hi = np.minimum(tq, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(tq - window + 1, 0) if window else np.zeros(t, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flops(b: int, hq: int, t: int, s: int, d: int, causal: bool,
+          window) -> float:
+    """The forward's operations: 4·D a visible pair (q·k and p·v) for
+    each of the B·Hq heads."""
+    return 4.0 * b * hq * d * visible_pairs(t, s, causal, window)
+
+
+def bwd_flops(b: int, hq: int, t: int, s: int, d: int, causal: bool,
+              window) -> float:
+    """The gradient's operations: 10·D a visible pair (the scores, dv,
+    dp, dq and dk products; the kernel recomputes the scores, 14·D)."""
+    return 10.0 * b * hq * d * visible_pairs(t, s, causal, window)
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
@@ -264,9 +291,9 @@ def _bwd_lib():
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> str:
-    if q.device.type != "cuda":
-        raise ValueError(f"the flash attention kernel needs CUDA tensors, "
-                         f"got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the flash attention kernel needs CUDA tensors "
+                         f"(or meta ones, to trace), got {q.device}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -309,7 +336,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    if out.numel():
+    if out.numel() and q.device.type == "meta":
+        meta_launch("flash_attention",
+                    flops(b, hq, t, s, d, causal, window),
+                    [q, k, v, out] + ([lse] if with_lse else []))
+        VARIANT_LAUNCHES[name] += 1
+    elif out.numel():
         err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, hq, hkv, t, s, d,
@@ -361,6 +393,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t_pad = -(-t // BWD_PAD_T) * BWD_PAD_T
     stats = torch.empty((b, hq, t_pad, 2), dtype=torch.float32,
                         device=q.device)
+    if q.device.type == "meta":
+        meta_launch("flash_attention_bwd",
+                    bwd_flops(b, hq, t, s, d, causal, window),
+                    [q, k, v, out, dout, lse, dq, dk, dv])
+        VARIANT_LAUNCHES[name] += 1
+        return dq, dk, dv
     err = _bwd_lib().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),

@@ -71,7 +71,12 @@ This wrapper checks what the kernel takes (CUDA; x, dt, b, c of one type,
 float32 or bfloat16; a float32; contiguous; T a multiple of the chunk, H
 of G; 16-byte aligned for ``mma_3xtf32``; ``simt``'s working set within
 the card's shared memory per block) and raises on the rest, allocates y
-and h, and launches on the current stream.
+and h, and launches on the current stream.  On ``meta`` tensors it does
+all of that but the launch (the shared memory from :func:`smem_bytes`
+against :data:`SMEM_PER_BLOCK`, the backward's scratch from
+:func:`bwd_scratch_floats`), in whose place it calls
+``_device.meta_launch`` with the operation count (:func:`flops`,
+:func:`bwd_work`), and counts the launch all the same.
 """
 from __future__ import annotations
 
@@ -81,7 +86,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .._build import library
-from .._device import LaunchCounts
+from .._device import LaunchCounts, meta_launch
 
 _SOURCE = "ssd_scan"
 _BWD_SOURCE = "ssd_scan_bwd"
@@ -128,6 +133,57 @@ def variant(dtype: torch.dtype, n: int, p: int) -> str:
     if n % 8 == 0 and p % 8 == 0 and n <= MAX_WIDTH and p <= MAX_WIDTH:
         return "mma_3xtf32"
     return "simt"
+
+
+def flops(B: int, T: int, H: int, N: int, P: int, chunk: int) -> float:
+    """The forward's operations, whichever variant does them: per (batch,
+    head) the causal half of the scores (c·b) and of scores @ x in every
+    chunk, every chunk's own state (b w)ᵀ x, and c @ h_in in the chunks
+    after the first (h_in is 0 in the first)."""
+    nc = T // chunk
+    return float(B * H) * (nc * chunk * (chunk + 1) * (N + P)
+                           + 2.0 * chunk * N * P * (2 * nc - 1))
+
+
+def bwd_work(B: int, T: int, H: int, G: int, N: int, P: int, L: int,
+             esize: int, recompute: bool) -> Tuple[float, float]:
+    """(flops, bytes) that the backward must do and move at dh None (as
+    the train path runs it).  Per (b, h) and chunk: the causal half of
+    the L x L pairs (L (L + 1) / 2), each taking c.b, dy.x and the three
+    products into dx, db and dc (3 N + 2 P multiply-adds); and the state
+    terms, 2 L N P each: D_k = sum exp(cum) c dy^T for every chunk but
+    the first (D_0 feeds only the zero initial state's gradient), c H dy
+    for every chunk but the first (H_0 = 0), and the G terms of dx and db
+    for every chunk but the last (G_last = dh = 0); with the states
+    recomputed, also the states entering chunks 1 .. nc - 1.  Bytes: x,
+    dt, b, c read and their gradients written in their type (``esize``
+    bytes an element), dy read once, a read and da written in float32,
+    and the forward's float32 states and cum read where they are kept."""
+    nc = T // L
+    terms = 4 * (nc - 1) + (nc - 1 if recompute else 0)
+    nops = float(B * H) * (nc * L * (L + 1) * (3 * N + 2 * P)
+                           + 2.0 * L * N * P * terms)
+    x_n, dt_n, bc_n = B * T * H * P, B * T * H, B * T * G * N
+    nbytes = esize * (3 * x_n + 2 * dt_n + 4 * bc_n) + 4 * 2 * H
+    if not recompute:
+        nbytes += 4 * (B * H * nc * N * P + B * H * T)
+    return nops, nbytes
+
+
+def bwd_scratch_floats(B: int, T: int, H: int, P: int, G: int, N: int,
+                       L: int) -> int:
+    """The float32 scratch a backward launch needs at these sizes, either
+    design (``Scratch`` in ``csrc/ssd_scan_bwd.cu``; the C launcher's
+    ``ssd_scan_bwd_scratch`` returns the same): the G_k states, the
+    per-head db and dc parts, four row vectors and two chunk vectors;
+    -1 where the backward does not take the sizes."""
+    if not (B >= 1 and L >= 1 and T >= L and T % L == 0 and G >= 1
+            and H % G == 0 and 1 <= N <= BWD_MAX_WIDTH
+            and 1 <= P <= BWD_MAX_WIDTH):
+        return -1
+    nc = T // L
+    return (B * H * nc * N * P + 2 * B * T * H * N + 4 * B * H * T
+            + 2 * B * H * nc)
 
 
 def width_tile(w: int) -> int:
@@ -305,9 +361,9 @@ def plan(name: str, batch: int, t: int, heads: int, n: int, p: int,
 
 
 def _check(x, dt, a, b, c, chunk: int, force: Optional[str]) -> str:
-    if x.device.type != "cuda":
-        raise ValueError(f"the SSD kernel needs CUDA tensors, got "
-                         f"{x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"the SSD kernel needs CUDA tensors (or meta "
+                         f"ones, to trace), got {x.device}")
     for name, t in (("dt", dt), ("a", a), ("b", b), ("c", c)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -347,9 +403,12 @@ def _check(x, dt, a, b, c, chunk: int, force: Optional[str]) -> str:
         raise ValueError(f"tensors on {x.device} but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
     if name == "simt":
-        need = plan(name, B, T, H, N, P, chunk)["ssd_simt_kernel"][0]
-        limit = getattr(torch.cuda.get_device_properties(x.device),
-                        "shared_memory_per_block_optin", SMEM_PER_BLOCK)
+        if x.device.type == "meta":
+            need, limit = smem_bytes(name, N, P, chunk), SMEM_PER_BLOCK
+        else:
+            need = plan(name, B, T, H, N, P, chunk)["ssd_simt_kernel"][0]
+            limit = getattr(torch.cuda.get_device_properties(x.device),
+                            "shared_memory_per_block_optin", SMEM_PER_BLOCK)
         if need > limit:
             raise ValueError(f"chunk {chunk} at N={N}, P={P} needs {need} "
                              f"bytes of shared memory per block, over the "
@@ -381,6 +440,11 @@ def ssd_scan_states(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         cum = st + 4 * n_st
         states = (scratch[:n_st].view(B, H, T // chunk, N, P),
                   scratch[n_st:].view(B, H, T))
+    if x.device.type == "meta":
+        meta_launch("ssd_scan", flops(B, T, H, N, P, chunk),
+                    [x, dt, a, b, c, y, h])
+        VARIANT_LAUNCHES[name] += 1
+        return y, h, states
     err = _lib().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), y.data_ptr(), h.data_ptr(), cum, st, B, T, H, P, G, N,
@@ -462,13 +526,23 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         st = torch.empty((B, H, nc, N, P), dtype=torch.float32,
                          device=x.device)
         cum = torch.empty((B, H, T), dtype=torch.float32, device=x.device)
-    lib = _bwd_lib()
-    n_scratch = lib.ssd_scan_bwd_scratch(B, T, H, P, G, N, chunk)
+    meta = x.device.type == "meta"
+    lib = None if meta else _bwd_lib()
+    n_scratch = bwd_scratch_floats(B, T, H, P, G, N, chunk) if meta else \
+        lib.ssd_scan_bwd_scratch(B, T, H, P, G, N, chunk)
     if n_scratch < 0:
         raise ValueError(f"the SSD backward does not take N={N}, P={P}, "
                          f"T={T}, chunk={chunk}")
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     dx, ddt, da, db, dc = grads
+    if meta:
+        meta_launch("ssd_scan_bwd", bwd_work(B, T, H, G, N, P, chunk,
+                                             x.element_size(),
+                                             states is None)[0],
+                    [x, dt, a, b, c, dy] + ([] if dh is None else [dh])
+                    + ([] if states is None else [st, cum]) + list(grads))
+        VARIANT_LAUNCHES[name] += 1
+        return grads
     err = lib.ssd_scan_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),

@@ -1,10 +1,10 @@
 """Model API (``repro.models.api``): the entry points, and the inputs of
 every architecture per input shape.
 
-``input_specs`` returns tensors on the ``meta`` device (shapes and types,
-no memory): PyTorch's counterpart of the reference's
-``ShapeDtypeStruct``s.  ``synthetic_inputs`` draws concrete inputs of
-those specs from an explicit ``torch.Generator``.
+``input_specs`` and ``abstract_params`` return tensors on the ``meta``
+device (shapes and types, no memory): PyTorch's counterpart of the
+reference's ``ShapeDtypeStruct``s.  ``synthetic_inputs`` draws concrete
+inputs of those specs from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,12 @@ loss_fn = transformer.loss_fn
 prefill = decoding.prefill
 decode_step = decoding.decode_step
 init_decode_state = decoding.init_decode_state
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.float32):
+    """The parameter tree on the ``meta`` device: shapes and types, no
+    memory (the reference's ``eval_shape`` of ``init_params``)."""
+    return transformer.init_params(cfg, None, dtype, "meta")
 
 
 def token_shape(cfg: ArchConfig, batch: int, seq: int):
@@ -79,6 +85,7 @@ def synthetic_inputs(cfg: ArchConfig, shape: ShapeConfig,
     return out
 
 
-__all__ = ["decode_step", "forward", "init_decode_state", "init_params",
+__all__ = ["abstract_params", "decode_step", "forward",
+           "init_decode_state", "init_params",
            "input_specs", "loss_fn", "prefill", "synthetic_inputs",
            "token_shape"]

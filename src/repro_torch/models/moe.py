@@ -168,13 +168,15 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     y = torch.zeros_like(xt)
     y[order] = flat[dest] * kept[:, None].to(out.dtype)
     y = y * gate[:, None].to(y.dtype)
-    if "shared" in params:
-        y = y + mlp_apply(params["shared"], xt, cfg.mlp)
     keep = torch.empty_like(kept)
     keep[order] = kept
     _observe(on_route, idx, keep, probs)
     aux = {"lb_loss": _aux_losses(probs, idx, e),
            "overflow": 1.0 - torch.mean(keep.float())}
+    # the shared expert last: a checkpoint's replay stops after the last
+    # tensor the backward saves, so its down-projection is not replayed
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], xt, cfg.mlp)
     return y.reshape(b, t, d), aux
 
 

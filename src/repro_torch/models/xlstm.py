@@ -147,8 +147,10 @@ def _slstm_cell(params, cfg, xproj_t, carry):
     hidden, c, n = carry                     # [B,D] each
     b = hidden.shape[0]
     hh = hidden.reshape(b, h_heads, dh)
-    rec = torch.einsum("bhk,hkm->bhm", hh, params["r_h"]).reshape(
-        b, 4 * cfg.d_model)
+    # float32 carry against compute-dtype weights: the product in float32,
+    # as the reference's einsum promotes
+    rec = torch.einsum("bhk,hkm->bhm", hh,
+                       params["r_h"].to(hh.dtype)).reshape(b, 4 * cfg.d_model)
     za, ia, fa, oa = torch.chunk(xproj_t + rec + params["bias"], 4, dim=-1)
     z = torch.tanh(za)
     i = torch.sigmoid(ia)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py``, no script under ``tools/`` and not the port sides of
 the multi-rank tests (``tests/torch_multidev_port.py``,
-``tests/torch_train_mesh_port.py``) imports ``jax``
+``tests/torch_train_mesh_port.py``, ``tests/torch_dryrun_ranks.py``)
+imports ``jax``
 or the reference package ``repro`` (``repro_torch`` itself is allowed);
 the reference side (``tests/torch_multidev_ref.py``) imports nothing of
 the port."""
@@ -17,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
     + [ROOT / "tests" / "torch_multidev_port.py",
-       ROOT / "tests" / "torch_train_mesh_port.py"]
+       ROOT / "tests" / "torch_train_mesh_port.py",
+       ROOT / "tests" / "torch_dryrun_ranks.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -76,7 +78,8 @@ def test_detector_flags_banned_imports(tmp_path):
                                     "train.loop", "launch.train",
                                     "parallel.collectives",
                                     "parallel.pipeline", "models.moe",
-                                    "launch.mesh"])
+                                    "launch.mesh", "launch.dryrun",
+                                    "launch.inspect_hlo"])
 def test_fabric_layers_load_without_jax(module):
     """Importing each fabric layer in a fresh interpreter loads neither
     ``jax`` nor the reference package."""
