@@ -378,11 +378,17 @@ gradient leaf within 1e-4 of its largest magnitude, of the plain
 versions', and the kernels' launches as the step's);
 ``train_loop`` (``train.loop.run`` on tiny danube: 6 steps, a checkpoint
 every 2, a fault at step 4 and a resume, final loss within 1e-5 of the
-uninterrupted run's, equality recorded; one int8-moment step).  The
-``kernels`` line lists ``flash_attention_bwd`` with its launches in
-``train_danube`` and ``train_zamba2``, whose flash forward launches add
-to flash attention's, and ``ssd_scan_bwd`` with its launches in
-``train_zamba2``, whose SSD forwards add to the scan's.
+uninterrupted run's, equality recorded; one int8-moment step);
+``serve_mesh`` (after ``train_mesh``: ``prefill`` / ``decode_step`` over
+the one-rank NCCL mesh against the unsharded path, h2o-danube-1.8b whole
+and zamba2-1.2b at 6 layers, 16 greedy steps a prompt: logits within
+2e-3, tokens equal, flash and SSD launches a layer a prefill, NCCL's
+records of a prefill and a decode step, and the dry-run's danube
+prefill and decode peaks within 10 %).  The ``kernels`` line lists
+``flash_attention_bwd`` with its launches in ``train_danube`` and
+``train_zamba2``, whose flash forward launches add to flash attention's,
+and ``ssd_scan_bwd`` with its launches in ``train_zamba2``, whose SSD
+forwards add to the scan's, as ``serve_mesh``'s do.
 
 Then the card line as ``nvidia-smi`` prints it, the ``kernels`` summary
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -517,6 +523,12 @@ TRAIN_TOL = 1e-5
 GRAD_TOL = 1e-4
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096      # train_4k rows, batch cut
 DRYRUN_MEM_TOL = 0.10       # the dry-run's predicted peak vs the card's
+SERVE_MESH_NEW = 16         # serve_mesh: greedy decode steps a prompt
+SERVE_MESH_TOL = 2e-3       # logits vs the unsharded path, of the largest
+SERVE_MESH_MODELS = {       # arch: (layers, None = all; prompts; max_len)
+    "h2o-danube-1.8b": (None, ((2, 1024), (1, 4224)), 4352),
+    "zamba2-1.2b": (6, ((2, 1024),), 1040)}
+SERVE_MESH_DRYRUN = (2, 1024)   # the dry-run's prefill / decode cells
 DRYRUN_LIMIT_S = 60.0       # both train phases' dry-runs, build and trace
 # the SSD backward's gradients within this share of each one's largest
 # magnitude of autograd's gradient of the plain forward and of the plain
@@ -4896,6 +4908,267 @@ def train_mesh_phase(dev=None) -> dict:
     return row
 
 
+def mesh_serve_collectives(cfg) -> dict:
+    """The collectives one prefill and one decode step issue on a
+    one-rank (data 1 x model 1) mesh, by NCCL's host record names, for a
+    model of attention, MLP and Mamba2 layers (danube, zamba2).  Both
+    gather the vocabulary tables over both axes (4).  A dense attention
+    layer gathers its 4 attention and 2 or 3 MLP weights over ``data``
+    (the model axis keeps its blocks), zamba2's shared block the same 7
+    once a call, and a Mamba2 mixer its 4 sharded weights (``w_xbc``,
+    ``w_z``, ``w_dt``, ``w_out``) over both axes (8).  Each attention
+    sublayer all-reduces its output and its MLP's; in the prefill its K/V
+    go to their slot blocks in one all-to-all, in decode q and the new
+    k / v are gathered in one all-gather and the partial (o, lse) in two
+    (``srq_combine``)."""
+    from repro_torch.models import transformer
+    kinds = transformer.layer_kinds(cfg)
+    attn = sum(k in ("attn_dense", "mamba_attn") for k in kinds)
+    block = 4 + (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+    gathers = 4 + block * (kinds.count("attn_dense")
+                           + ("mamba_attn" in kinds)) \
+        + 8 * sum(k in ("mamba", "mamba_attn") for k in kinds)
+    return {"prefill": {"nccl:all_gather": gathers,
+                        "nccl:all_reduce": 2 * attn,
+                        "nccl:all_to_all": attn},
+            "decode": {"nccl:all_gather": gathers + 3 * attn,
+                       "nccl:all_reduce": 2 * attn}}
+
+
+def serve_greedy(params, cfg, tokens, max_len: int, steps: int, ctx=None,
+                 specs=None):
+    """``models.decoding.prefill`` of ``tokens`` and ``steps`` greedy
+    decode steps, with ``ctx`` / ``specs`` on a mesh: (the logits of
+    each, the tokens fed, the state, the lengths, the state's specs)."""
+    import torch
+    from repro_torch.models import decoding
+    s_specs = None if ctx is None else decoding.decode_state_specs(
+        decoding.init_decode_state(cfg, tokens.shape[0], max_len,
+                                   torch.float32, "meta"), ctx)
+    with torch.no_grad():
+        logits, state, lengths = decoding.prefill(
+            params, cfg, tokens, max_len=max_len, ctx=ctx, specs=specs)
+        seen, fed = [logits], []
+        for _ in range(steps):
+            fed.append(logits.argmax(-1).to(torch.int32))
+            logits, state = decoding.decode_step(
+                params, cfg, state, fed[-1], lengths, ctx=ctx, specs=specs,
+                state_specs=s_specs)
+            lengths = lengths + 1
+            seen.append(logits)
+    return seen, fed, state, lengths, s_specs
+
+
+def serve_dryrun_gate(cfg, params, dev) -> dict:
+    """The dry-run's unsharded prefill and decode cells
+    (``launch.dryrun.build_cell(..., mesh=None)``, batch and prompt
+    SERVE_MESH_DRYRUN, float32) against the same calls on the card: their
+    kernel launches equal, their predicted peaks (the arguments and the
+    traced peak of live storages beyond them) within DRYRUN_MEM_TOL of
+    ``max_memory_allocated`` less what was live before and is not an
+    argument."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import decoding
+    b, t = SERVE_MESH_DRYRUN
+    t0 = time.perf_counter()
+    dry = {}
+    for kind in ("prefill", "decode"):
+        fn, args = dryrun.build_cell(cfg, ShapeConfig("serve_mesh", kind, t,
+                                                      b),
+                                     None, {}, torch.float32)
+        dry[kind] = dryrun.trace_step(fn, args)
+        del fn, args
+    dry_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(3), dtype=torch.int32)
+    p_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    out = {}
+
+    def measure(kind, fn, arg_bytes):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        other = torch.cuda.memory_allocated() - arg_bytes
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - other) / 1e9
+        rec = dry[kind]
+        want = (rec["argument_size_in_bytes"]
+                + rec["temp_size_in_bytes"]) / 1e9
+        out[kind] = {"peak_gb": peak, "dryrun_peak_gb": want,
+                     "other_gb": other / 1e9,
+                     "peak_rel": abs(want - peak) / peak,
+                     "launches": ops.LAUNCHES.read(),
+                     "dryrun_launches": rec["kernel_launches"]}
+        return res
+    with torch.no_grad():
+        _, state, lengths = measure("prefill", lambda: decoding.prefill(
+            params, cfg, tokens, max_len=t),
+            p_bytes + tokens.numel() * 4)
+        tok = torch.zeros(b, dtype=torch.int32, device=dev)
+        lengths = torch.full_like(lengths, t - 1)
+        s_bytes = sum(x.numel() * x.element_size() for x in _leaves(state))
+        measure("decode", lambda: decoding.decode_step(
+            params, cfg, state, tok, lengths),
+            p_bytes + s_bytes + 2 * b * 4)
+    out["dryrun_s"] = dry_s
+    del state
+    return out
+
+
+def serve_mesh_model(cfg, prompts, max_len: int, ctx, dev) -> dict:
+    """One model of :func:`serve_mesh_phase`: its figures (its tensors die
+    with this call, so the next model's peak holds none of them)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, decoding, transformer
+    from repro_torch.train import steps
+    kinds = transformer.layer_kinds(cfg)
+    gen = torch.Generator(device=dev)
+    params = api.init_params(cfg, gen.manual_seed(0), device=dev)
+    specs = steps.param_specs(params, ctx)
+    local = ctx.shard_tree(params, specs)
+    toks = [torch.randint(0, cfg.vocab_size, shp, device=dev,
+                          generator=gen.manual_seed(10 + i),
+                          dtype=torch.int32)
+            for i, shp in enumerate(prompts)]
+    plain = [serve_greedy(params, cfg, tk, max_len, SERVE_MESH_NEW)
+             for tk in toks]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    mesh = [serve_greedy(local, cfg, tk, max_len, SERVE_MESH_NEW, ctx, specs)
+            for tk in toks]
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES.read()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = len(prompts) * sum(k in ATTN_KINDS
+                                                 for k in kinds)
+    want["ssd_scan"] = len(prompts) * sum(k in SSD_KINDS for k in kinds)
+    cases = []
+    for shp, (lu, tu, su, _, _), (lm, tm, sm, _, s_specs) in zip(
+            prompts, plain, mesh):
+        whole = ctx.gather_tree(sm, s_specs)
+        cases.append({
+            "prompt": list(shp),
+            "logit_rel": [tree_rel(a, b) for a, b in zip(lm, lu)],
+            "tokens_equal": all(bool(torch.equal(a, b))
+                                for a, b in zip(tm, tu)),
+            "state_rel": tree_rel(whole, su),
+            "bitwise_equal": all(bool(torch.equal(a, b))
+                                 for a, b in zip(lm, lu))
+            and all(bool(torch.equal(a, b)) for a, b in zip(
+                _leaves(whole), _leaves(su)))})
+    del plain, mesh, whole, lu, su, lm, sm
+    # a prefill and a decode step each way, in turns, and NCCL's records
+    # of one of each on the mesh
+    tk = toks[0]
+    s_specs = decoding.decode_state_specs(decoding.init_decode_state(
+        cfg, tk.shape[0], max_len, torch.float32, "meta"), ctx)
+    ms = {"prefill": {"unsharded": [], "sharded": []},
+          "decode": {"unsharded": [], "sharded": []}}
+    with torch.no_grad():
+        for which in ("unsharded", "sharded", "sharded", "unsharded"):
+            kw = {} if which == "unsharded" else {"ctx": ctx, "specs": specs}
+            p = params if which == "unsharded" else local
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state, lengths = decoding.prefill(p, cfg, tk,
+                                                      max_len=max_len, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            decoding.decode_step(p, cfg, state,
+                                 logits.argmax(-1).to(torch.int32), lengths,
+                                 **kw, **({} if which == "unsharded" else
+                                          {"state_specs": s_specs}))
+            torch.cuda.synchronize()
+            ms["prefill"][which].append((t1 - t0) * 1e3)
+            ms["decode"][which].append((time.perf_counter() - t1) * 1e3)
+            del logits, state
+        holder = {}
+
+        def prefill_once():
+            holder["out"] = decoding.prefill(local, cfg, tk, max_len=max_len,
+                                             ctx=ctx, specs=specs)
+        nccl_p = nccl_records(prefill_once)
+        logits, state, lengths = holder.pop("out")
+        nccl_d = nccl_records(lambda: decoding.decode_step(
+            local, cfg, state, logits.argmax(-1).to(torch.int32), lengths,
+            ctx=ctx, specs=specs, state_specs=s_specs))
+        del logits, state
+    row = {"arch": cfg.name, "layers": cfg.num_layers,
+           "mesh": dict(ctx.mesh.shape), "backend": "nccl",
+           "dtype": "float32", "max_len": max_len,
+           "new_tokens": SERVE_MESH_NEW, "cases": cases,
+           "launches": launches, "want_launches": want,
+           "nccl_host": {"prefill": nccl_p["host"], "decode": nccl_d["host"]},
+           "want_nccl": mesh_serve_collectives(cfg), "ms": ms,
+           "ms_prefill_sharded": sum(ms["prefill"]["sharded"]) / 2,
+           "ms_prefill_unsharded": sum(ms["prefill"]["unsharded"]) / 2,
+           "ms_decode_sharded": sum(ms["decode"]["sharded"]) / 2,
+           "ms_decode_unsharded": sum(ms["decode"]["unsharded"]) / 2,
+           "peak_mem_gb": peak}
+    if cfg.name == "h2o-danube-1.8b":
+        row["dryrun"] = serve_dryrun_gate(cfg, params, dev)
+    return row
+
+
+def serve_mesh_phase(dev=None) -> dict:
+    """``models.decoding.prefill`` / ``decode_step`` over the one-rank
+    NCCL mesh against the unsharded path from the same weights
+    (:func:`serve_mesh_model`): SERVE_MESH_MODELS at full width, float32
+    (h2o-danube-1.8b whole, prompts 2 x 1,024 and 1 x 4,224, whose 4,224
+    tokens roll its 4,096-slot ring; zamba2-1.2b cut to 6 layers, 5
+    Mamba2 and one with the shared attention block), SERVE_MESH_NEW
+    greedy steps each.  Gates: every step's logits within SERVE_MESH_TOL
+    of the unsharded ones' largest magnitude, the greedy tokens equal,
+    flash attention and the SSD scan launched once a layer that runs them
+    a prefill (decode runs the plain ring decode), NCCL's host records of
+    a prefill and a decode step :func:`mesh_serve_collectives`, and
+    :func:`serve_dryrun_gate` on danube.  Recorded: whether each run is
+    bit-equal to the unsharded one, ms a prefill and a decode step each
+    way in turns (unsharded, sharded, sharded, unsharded), the sharded
+    runs' peak memory."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import ctx_for_mesh
+    dev = dev or torch.device("cuda")
+    ctx = ctx_for_mesh(nccl_mesh())
+    rows = {}
+    for arch, (layers, prompts, max_len) in SERVE_MESH_MODELS.items():
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        rows[arch] = serve_mesh_model(cfg, prompts, max_len, ctx, dev)
+        torch.cuda.empty_cache()
+    total = {k: sum(r["launches"][k] for r in rows.values())
+             for k in ("flash_attention", "ssd_scan")}
+    out = {"models": rows, "launches": total}
+    emit("serve_mesh", **out)
+    for arch, row in rows.items():
+        for c in row["cases"]:
+            check(max(c["logit_rel"]) <= SERVE_MESH_TOL and c["tokens_equal"],
+                  f"serve_mesh: {arch} {c['prompt']} deviates: {c}")
+        check(row["launches"] == row["want_launches"],
+              f"serve_mesh: {arch} launches {row['launches']}, want "
+              f"{row['want_launches']}")
+        check(row["nccl_host"] == row["want_nccl"],
+              f"serve_mesh: {arch} NCCL issued {row['nccl_host']}, want "
+              f"{row['want_nccl']}")
+        for kind, g in row.get("dryrun", {}).items():
+            if kind == "dryrun_s":
+                continue
+            check(g["launches"] == g["dryrun_launches"]
+                  and g["peak_rel"] <= DRYRUN_MEM_TOL,
+                  f"serve_mesh: {arch} dry-run {kind}: {g}")
+    return out
+
+
 def train_loop_phase(dev=None) -> dict:
     """``train.loop.run`` on the card: tiny danube (2 layers) for 6 steps
     with a checkpoint every 2, once straight through and once with a
@@ -5218,6 +5491,8 @@ def run() -> int:
         model_runs["train_mesh"] = train_m = train_mesh_phase()
         lap("train_mesh")
         torch.cuda.empty_cache()
+        serve_m = serve_mesh_phase()
+        lap("serve_mesh")
         # the card runs of the last three phases first, timed with no
         # CPU reference running beside them; then the references
         bench_sweep, bench_finish = sweep_phase("bench 144", False)
@@ -5262,13 +5537,14 @@ def run() -> int:
         launches = {**traced["launches_by_name"],
                     "flash_attention": sum(
                         r["launches"]["flash_attention"]
-                        for r in [serve, *model_runs.values()]),
+                        for r in [serve, serve_m, *model_runs.values()]),
                     "flash_attention_bwd":
                         train["launches"]["flash_attention_bwd"]
                         + train_z["launches"]["flash_attention_bwd"]
                         + train_m["launches"]["flash_attention_bwd"],
                     "ssd_scan": serve["launches"]["ssd_scan"]
-                        + train_z["launches"]["ssd_scan"],
+                        + train_z["launches"]["ssd_scan"]
+                        + serve_m["launches"]["ssd_scan"],
                     "ssd_scan_bwd": train_z["launches"]["ssd_scan_bwd"],
                     "decode_attention_paged":
                         paged["launches"]["decode_attention_paged"],

@@ -28,16 +28,23 @@ view once), ``mesh_shape``, ``ok``, ``error``, ``total_s``.  New:
 hand kernels' launches, by name).  The XLA-only keys (``lower_s``,
 ``compile_s``, ``xla_flops_per_device``, ``xla_bytes_per_device``,
 ``trip_counts``, ``collective_bytes_raw``, ``hlo_lines``,
-``generated_code_size_in_bytes``) have no counterpart.  The state is not
-donated: the old state stays live beside the new one, as on the card.
+``generated_code_size_in_bytes``) have no counterpart.  A train cell's
+state is not donated: the old state stays live beside the new one, as on
+the card.
 
-Train cells only: the serve shapes (``prefill_32k``, ``decode_32k``,
-``long_500k``) need ``prefill`` / ``decode_step`` over a mesh, which the
-port's ``models.decoding`` does not take yet (ROADMAP Queue 1 A4d);
-``build_cell`` raises ``NotImplementedError`` for them.
+The serve shapes trace ``models.decoding``'s ``prefill`` (``prefill_32k``:
+the parameters and this rank's batch block of prompts, the decode cache
+sized to the prompt) and ``decode_step`` (``decode_32k``, ``long_500k``:
+one token against a cache of the shape's length, the state split by
+``decoding.decode_state_specs``, tokens and lengths over the batch axes),
+as the reference's ``build_cell`` builds them: parameters in float32, or
+bfloat16 under ``serve_bf16``, cut by ``train.steps.param_specs``.  Both
+run under ``torch.no_grad()``, so nothing is saved for a backward.  The
+decode step updates its state in place (the reference donates it), so
+the state counts once, among the arguments.
 
 Usage (the CPU suffices; no card, no environment variable):
-  python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape decode_32k
   python -m repro_torch.launch.dryrun --all [--mesh single|multi|both] \
       [--force]
 Outputs one JSON per cell under experiments/dryrun_torch/.
@@ -61,6 +68,7 @@ from ..configs import ARCHS, SHAPES, ArchConfig, ShapeConfig, eligible, \
     get_arch
 from ..kernels import ops
 from ..models import api as model_api
+from ..models import decoding
 from ..optim import adamw
 from ..parallel.sharding import Mesh
 from ..train import steps as steps_mod
@@ -92,21 +100,20 @@ def placeholder_group(world_size: int):
 def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
                mesh: Optional[Mesh], variant: Optional[dict] = None,
                compute_dtype=torch.bfloat16):
-    """Returns ``(fn, args)``: the train step of the cell and rank 0's
-    meta arguments, ``(state, batch)`` (its blocks, each in a storage of
-    its own).  ``mesh=None``: the unsharded one-card step.  ``variant``:
-    ``ParallelCtx`` overrides (``remat``, ``fsdp``, ``use_ep``,
-    ``seq_parallel_decode``, ``bf16_weight_gather``, ``jet_collectives``,
-    ``jet_window``), ``int8_moments`` (default: more than 50 B
-    parameters), ``compressed_pod_grads`` and ``accum`` (the batch in the
-    microbatched layout ``[A, B/A, ...]``), as the reference's."""
+    """Returns ``(fn, args)``: the step of the cell (the train step, the
+    prefill or the decode step, by the shape's kind) and rank 0's meta
+    arguments (its blocks, each in a storage of its own): ``(state,
+    batch)`` to train, ``(params, batch)`` to prefill, ``(params, state,
+    tokens, lengths)`` to decode.  ``mesh=None``: the unsharded one-card
+    step.  ``variant``: ``ParallelCtx`` overrides (``remat``, ``fsdp``,
+    ``use_ep``, ``seq_parallel_decode``, ``bf16_weight_gather``,
+    ``jet_collectives``, ``jet_window``), ``int8_moments`` (default: more
+    than 50 B parameters), ``compressed_pod_grads`` and ``accum`` (the
+    batch in the microbatched layout ``[A, B/A, ...]``) to train, and
+    ``serve_bf16`` (bfloat16 parameters) to serve, as the reference's."""
     variant = variant or {}
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     shape = shape if isinstance(shape, ShapeConfig) else SHAPES[shape]
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"{shape.name}: the dry-run's {shape.kind} cells need prefill "
-            f"and decode_step over a mesh (ROADMAP Queue 1 A4d)")
     remat = variant.get("remat", "full")
     ctx = None if mesh is None else ctx_for_mesh(
         mesh, remat=remat, fsdp=variant.get("fsdp", True),
@@ -115,12 +122,18 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
         bf16_weight_gather=variant.get("bf16_weight_gather", False),
         jet_collectives=variant.get("jet_collectives", False),
         jet_window=variant.get("jet_window", 4))
+    inputs = model_api.input_specs(cfg, shape, compute_dtype)
+    if shape.kind != "train":
+        fn, args = _serve_cell(cfg, shape, ctx, variant, inputs,
+                               compute_dtype)
+        # a block is a view of the whole meta tensor: its own storage
+        return fn, _tree.tree_map(torch.Tensor.clone, args)
     big = cfg.param_counts()[0] > 50e9
     opt_cfg = adamw.OptConfig(
         int8_moments=variant.get("int8_moments", big),
         compressed_pod_grads=variant.get("compressed_pod_grads", False))
     accum = int(variant.get("accum", 1))
-    batch = model_api.input_specs(cfg, shape, compute_dtype)
+    batch = inputs
     if accum > 1:
         batch = _tree.tree_map(
             lambda s: s.reshape((accum, s.shape[0] // accum)
@@ -134,6 +147,42 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
     fn = steps_mod.make_train_step(cfg, opt_cfg, compute_dtype,
                                    accum_steps=accum, remat=remat, ctx=ctx)
     return fn, (state, batch)
+
+
+def _serve_cell(cfg: ArchConfig, shape: ShapeConfig, ctx, variant: dict,
+                inputs: dict, compute_dtype):
+    """The prefill or decode step of a serve cell and rank 0's blocks of
+    its arguments (views; :func:`build_cell`)."""
+    params = model_api.abstract_params(
+        cfg, torch.bfloat16 if variant.get("serve_bf16") else torch.float32)
+    p_specs = None
+    if ctx is not None:
+        p_specs = steps_mod.param_specs(params, ctx)
+        params = ctx.shard_tree(params, p_specs)
+    if shape.kind == "prefill":
+        batch = inputs if ctx is None else steps_mod.shard_batch(inputs, ctx)
+
+        @torch.no_grad()
+        def prefill(params, batch):
+            return model_api.prefill(
+                params, cfg, batch["tokens"], batch.get("patches"),
+                max_len=shape.seq_len, compute_dtype=compute_dtype, ctx=ctx,
+                specs=p_specs)
+        return prefill, (params, batch)
+    state, tokens, lengths = (inputs[k] for k in ("state", "tokens",
+                                                   "lengths"))
+    s_specs = None
+    if ctx is not None:
+        s_specs = decoding.decode_state_specs(state, ctx)
+        state = ctx.shard_tree(state, s_specs)
+        tokens, lengths = steps_mod.shard_batch((tokens, lengths), ctx)
+
+    @torch.no_grad()
+    def decode(params, state, tokens, lengths):
+        return model_api.decode_step(
+            params, cfg, state, tokens, lengths, compute_dtype, ctx=ctx,
+            specs=p_specs, state_specs=s_specs)
+    return decode, (params, state, tokens, lengths)
 
 
 def trace_step(fn, args) -> dict:
@@ -197,12 +246,24 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
     return rec
 
 
+def list_cells(arch: Optional[str] = None, shape: Optional[str] = None,
+               mesh: str = "both", every: bool = False) -> list:
+    """The CLI's cells, ``(arch, shape, mesh kind)``: every arch and every
+    shape unless one is named (``every``: all of both), each on the
+    single-pod mesh, the multi-pod one or both, the ineligible
+    (``long_500k`` of a quadratic arch) left out."""
+    archs = list(ARCHS) if (every or not arch) else [arch]
+    shapes = list(SHAPES) if (every or not shape) else [shape]
+    meshes = ["single", "multi"] if mesh == "both" else [mesh]
+    return [(a, s, m) for a in archs for s in shapes
+            if eligible(get_arch(a), SHAPES[s]) for m in meshes]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None,
-                    help="default (and --all): the train shapes, the "
-                         "only kind the port's dry-run traces yet")
+                    help="default (and --all): every shape")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
@@ -212,18 +273,7 @@ def main() -> None:
                     help="JSON dict of ParallelCtx overrides + 'tag'")
     args = ap.parse_args()
     variant = json.loads(args.variant) if args.variant else {}
-
-    cells = []
-    archs = list(ARCHS) if (args.all or not args.arch) else [args.arch]
-    shapes = [s for s in SHAPES if SHAPES[s].kind == "train"] \
-        if (args.all or not args.shape) else [args.shape]
-    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    for a in archs:
-        for s in shapes:
-            if not eligible(get_arch(a), SHAPES[s]):
-                continue
-            for m in meshes:
-                cells.append((a, s, m))
+    cells = list_cells(args.arch, args.shape, args.mesh, args.all)
 
     n_ok = 0
     for i, (a, s, m) in enumerate(cells):

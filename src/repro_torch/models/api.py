@@ -22,6 +22,8 @@ loss_fn = transformer.loss_fn
 prefill = decoding.prefill
 decode_step = decoding.decode_step
 init_decode_state = decoding.init_decode_state
+decode_state_specs = decoding.decode_state_specs
+shard_decode_state = decoding.shard_decode_state
 
 
 def abstract_params(cfg: ArchConfig, dtype=torch.float32):
@@ -85,7 +87,7 @@ def synthetic_inputs(cfg: ArchConfig, shape: ShapeConfig,
     return out
 
 
-__all__ = ["abstract_params", "decode_step", "forward",
-           "init_decode_state", "init_params",
-           "input_specs", "loss_fn", "prefill", "synthetic_inputs",
+__all__ = ["abstract_params", "decode_state_specs", "decode_step",
+           "forward", "init_decode_state", "init_params", "input_specs",
+           "loss_fn", "prefill", "shard_decode_state", "synthetic_inputs",
            "token_shape"]

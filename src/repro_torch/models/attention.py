@@ -14,16 +14,26 @@ otherwise they arrive whole and each rank takes the KV heads its query
 heads read (query head h reads KV head h // (H / Hkv)).  Where the axis
 does not divide the query heads, the caller gathers every weight whole
 and passes no ``tp``: the layer then runs unsplit on every model rank.
+
+Decode on a mesh (:func:`decode_self_attention` with a ``ctx``) keeps
+the KV cache split by slots over the model axis where the state's specs
+say so (``models.decoding.decode_state_specs``): model rank r holds the
+ring slots ``[r·S/m, (r+1)·S/m)``, writes the new token's K/V only where
+its slot ``len % S`` falls in that block, attends over its block with
+every query head (the plain ring decode) and merges the ranks' partial
+(o, lse) with ``collectives.srq_combine``.  Under tensor parallelism the
+projections keep their head blocks: q and the new k / v are all-gathered
+over the model axis (one all-gather), and each rank takes its heads'
+share of the merged o into its ``wo`` block.
 """
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
-from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.collectives import (all_gather, copy_to_model,
+                                    reduce_from_model, srq_combine)
 from .layers import apply_rope, normal
 
 
@@ -39,12 +49,16 @@ def kv_heads_split(cfg: ArchConfig, tp) -> bool:
     return cfg.num_kv_heads % tp.size == 0
 
 
-def _local_kv(params: dict, cfg: ArchConfig, tp):
-    """(params with ``wk`` / ``wv`` cut to the KV heads this rank's query
-    heads read, and None or, where those heads do not read them in
-    uniform groups, the KV head of each local query head)."""
+def _local_kv(params: dict, cfg: ArchConfig, tp, keep_whole: bool = False):
+    """(params, heads, reads) of a rank's attention where ``wk`` / ``wv``
+    arrive whole: its query heads read the KV heads [lo, hi), which are
+    ``wk`` / ``wv``'s columns in the returned ``params`` or, with
+    ``keep_whole`` (a prefill whose cache keeps every KV head), the slice
+    ``heads`` of the whole projection; ``reads`` is None or, where the
+    query heads do not read those in uniform groups, the KV head (from
+    lo) of each local query head."""
     if kv_heads_split(cfg, tp):
-        return params, None
+        return params, None, None
     hq = cfg.num_heads // tp.size
     group = cfg.num_heads // cfg.num_kv_heads
     q0 = tp.rank * hq
@@ -52,10 +66,23 @@ def _local_kv(params: dict, cfg: ArchConfig, tp):
     reads = [(q0 + i) // group - lo for i in range(hq)]
     n = hi - lo
     uniform = hq % n == 0 and reads == [i // (hq // n) for i in range(hq)]
+    reads = None if uniform else reads
+    if keep_whole:
+        return params, slice(lo, hi), reads
     cols = slice(lo * cfg.hd, hi * cfg.hd)
     params = dict(params, wk=params["wk"][..., cols],
                   wv=params["wv"][..., cols])
-    return params, None if uniform else reads
+    return params, None, reads
+
+
+def _kv_read(k: torch.Tensor, v: torch.Tensor, heads, reads):
+    """The KV heads [B, T, ·, hd] a rank's query heads attend over
+    (:func:`_local_kv`'s ``heads`` and ``reads``)."""
+    if heads is not None:
+        k, v = k[:, :, heads], v[:, :, heads]
+    if reads is not None:
+        k, v = k[:, :, reads], v[:, :, reads]
+    return k, v
 
 
 def attn_init(generator: torch.Generator, cfg: ArchConfig,
@@ -97,15 +124,16 @@ def _heads_out(params: dict, o: torch.Tensor, tp) -> torch.Tensor:
 def self_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
                    return_kv: bool = False, impl: str = "auto", tp=None):
     """Prefill self-attention. x: [B, T, D].  ``tp``: tensor-parallel
-    over the model axis (module docstring)."""
+    over the model axis (module docstring); the K/V it returns are this
+    rank's heads where the axis splits the KV heads, else every one."""
     t = x.shape[1]
-    reads = None
+    heads = reads = None
     if tp is not None:
         x = copy_to_model(x, tp.group)
-        params, reads = _local_kv(params, cfg, tp)
+        params, heads, reads = _local_kv(params, cfg, tp, return_kv)
     positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
-    ka, va = (k, v) if reads is None else (k[:, :, reads], v[:, :, reads])
+    ka, va = _kv_read(k, v, heads, reads)
     # [B, H, T, hd], contiguous, for the kernel
     o = ops.flash_attention(q.transpose(1, 2).contiguous(),
                             ka.transpose(1, 2).contiguous(),
@@ -127,15 +155,15 @@ def cross_attention(params: dict, x: torch.Tensor, kv_src: torch.Tensor,
     :func:`self_attention`."""
     b, t, _ = x.shape
     p = kv_src.shape[1]
-    reads = None
+    heads = reads = None
     if tp is not None:
         x = copy_to_model(x, tp.group)
         kv_src = copy_to_model(kv_src, tp.group)
-        params, reads = _local_kv(params, cfg, tp)
+        params, heads, reads = _local_kv(params, cfg, tp, return_kv)
     q = (x @ params["wq"]).reshape(b, t, -1, cfg.hd)
     k = (kv_src @ params["wk"]).reshape(b, p, -1, cfg.hd)
     v = (kv_src @ params["wv"]).reshape(b, p, -1, cfg.hd)
-    ka, va = (k, v) if reads is None else (k[:, :, reads], v[:, :, reads])
+    ka, va = _kv_read(k, v, heads, reads)
     o = ops.flash_attention(q.transpose(1, 2).contiguous(),
                             ka.transpose(1, 2).contiguous(),
                             va.transpose(1, 2).contiguous(),
@@ -149,35 +177,92 @@ def cross_attention(params: dict, x: torch.Tensor, kv_src: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Decode (one token, KV cache)
 # --------------------------------------------------------------------------- #
-def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 k_new: torch.Tensor, v_new: torch.Tensor,
-                 lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Insert one token per sequence at ring slot ``len % S``.
-    cache: [B, S, Hkv, hd].  Unlike the reference, which returns new
-    arrays, the caches are written in place (a decode step would otherwise
-    copy every cache whole) and returned."""
-    b, s = cache_k.shape[0], cache_k.shape[1]
-    pos = lengths.long() % s
-    bidx = torch.arange(b, device=cache_k.device)
-    cache_k.index_put_((bidx, pos), k_new[:, 0])
-    cache_v.index_put_((bidx, pos), v_new[:, 0])
-    return cache_k, cache_v
+def gather_heads(parts, group):
+    """Tensors [B, T, h_i, hd], each this rank's block of heads (its
+    columns of a head-split weight), -> every rank's heads in head order,
+    each [B, T, m·h_i, hd]: one all-gather for them all."""
+    sizes = [p.shape[2] for p in parts]
+    both = all_gather(torch.cat(parts, dim=2), group, tiled=False)
+    return [o.permute(1, 2, 0, 3, 4).flatten(2, 3)
+            for o in both.split(sizes, dim=3)]
+
+
+def whole_kv(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, tp):
+    """(k, v) [B, T, Hkv, hd] of every KV head from a prefill sublayer's
+    own (``return_kv``): all-gathered over the model axis where it splits
+    the KV heads, as they are otherwise."""
+    if tp is not None and kv_heads_split(cfg, tp):
+        return tuple(gather_heads([k, v], tp.group))
+    return k, v
+
+
+def _heads_share(o: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
+    """o [B, Hq, hd] of every head through ``wo``: under ``tp`` this
+    rank's heads through its row block, summed over the model ranks."""
+    b = o.shape[0]
+    if tp is None:
+        return o.reshape(b, 1, -1) @ wo
+    hq = o.shape[1] // tp.size
+    o = o[:, tp.rank * hq:(tp.rank + 1) * hq]
+    return reduce_from_model(o.reshape(b, 1, -1) @ wo, tp.group)
 
 
 def decode_self_attention(params: dict, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          lengths: torch.Tensor, cfg: ArchConfig):
+                          lengths: torch.Tensor, cfg: ArchConfig,
+                          ctx=None, slots_split: bool = False):
     """x: [B, 1, D]; cache: [B, S, Hkv, hd]; lengths: [B] tokens already in
-    the cache.  Returns (out [B,1,D], cache_k, cache_v), the caches
-    updated in place."""
+    the cache.  The new token's K/V go to ring slot ``len % S``; returns
+    (out [B,1,D], cache_k, cache_v).  Unlike the reference, which returns
+    new arrays, the caches are written in place (a decode step would
+    otherwise copy every cache whole).  With a ``ctx`` that has a mesh,
+    ``params`` are :func:`repro_torch.models.transformer.gather_layer`'s
+    and the caches this rank's block, its ring slots when ``slots_split``
+    (module docstring)."""
     b = x.shape[0]
+    tp = ctx.tp() if ctx is not None and ctx.have_mesh else None
+    a_tp = tp_for(cfg, tp)
     q, k_new, v_new = _project_qkv(params, x, cfg, lengths[:, None])
-    cache_k, cache_v = cache_update(cache_k, cache_v, k_new, v_new, lengths)
-    s = cache_k.shape[1]
+    if a_tp is not None:
+        if kv_heads_split(cfg, a_tp):
+            q, k_new, v_new = gather_heads([q, k_new, v_new], tp.group)
+        else:                 # wk / wv whole: every KV head is here
+            (q,) = gather_heads([q], tp.group)
+    s_loc = cache_k.shape[1]
+    lo, s = (tp.rank * s_loc, s_loc * tp.size) if slots_split \
+        else (0, s_loc)
+    # ring slot len % S, written by the rank whose block holds it
+    pos = lengths.long() % s - lo
+    own = ((pos >= 0) & (pos < s_loc))[:, None, None]
+    slot = pos.clamp(0, s_loc - 1)
+    bidx = torch.arange(b, device=x.device)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache.index_put_((bidx, slot), torch.where(
+            own, new[:, 0].to(cache.dtype), cache[bidx, slot]))
     # ring validity: before wrap-around slots [0, len+1) hold data, after
-    # it every slot does (a sliding-window cache is sized to the window)
-    valid_count = torch.clamp(lengths + 1, max=s)
-    o, _lse = ref.decode_attention_naive(
-        q.reshape(b, cfg.num_heads, cfg.hd), cache_k, cache_v, valid_count)
-    out = o.reshape(b, 1, cfg.attn_dim) @ params["wo"]
-    return out, cache_k, cache_v
+    # it every slot does (a sliding-window cache is sized to the window);
+    # a rank counts those that fall in its block
+    valid = torch.clamp(torch.clamp(lengths + 1, max=s) - lo, 0, s_loc)
+    o, lse = ref.decode_attention_naive(
+        q.reshape(b, cfg.num_heads, cfg.hd), cache_k, cache_v, valid)
+    if slots_split:
+        # a block with no valid slot has lse -1e30 + log(S/m): weight 0
+        o = srq_combine(o, lse, tp.group).to(q.dtype)
+    return _heads_share(o, params["wo"], a_tp), cache_k, cache_v
+
+
+def decode_cross_attention(params: dict, x: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor, cfg: ArchConfig, tp=None):
+    """One token's cross-attention over the patch K/V its prefill cached
+    (``xk`` / ``xv`` [B, P, Hkv, hd], every patch valid).  x: [B, 1, D],
+    normed.  Under ``tp`` the query heads are all-gathered and each rank
+    takes its heads' share into its ``wo`` block."""
+    b = x.shape[0]
+    q = (x @ params["wq"]).reshape(b, 1, -1, cfg.hd)
+    if tp is not None:
+        (q,) = gather_heads([q], tp.group)
+    every = torch.full((b,), xk.shape[1], dtype=torch.int32,
+                       device=x.device)
+    o, _ = ref.decode_attention_naive(q.reshape(b, cfg.num_heads, cfg.hd),
+                                      xk, xv, every)
+    return _heads_share(o, params["wo"], tp)

@@ -296,6 +296,56 @@ def gather_layer(kind: str, p: Params, spec, cfg: ArchConfig,
     return out
 
 
+class LayerWeights:
+    """Each layer's parameters as it runs them: cast to the compute type
+    on one card; on a mesh (``ctx`` with a mesh, ``params`` this rank's
+    blocks by ``specs``) gathered by :func:`gather_layer`, and the
+    vocabulary tables gathered whole.  The forward, the prefill and the
+    decode step take their weights through it."""
+
+    def __init__(self, params: Params, cfg: ArchConfig,
+                 ctx: Optional[ParallelCtx], specs, dtype):
+        self.mesh = ctx is not None and ctx.have_mesh
+        if self.mesh and specs is None:
+            raise ValueError("a model on a mesh needs the parameters' "
+                             "specs")
+        self.params, self.cfg, self.ctx, self.specs = params, cfg, ctx, specs
+        self.dtype = dtype
+
+    def top(self) -> Params:
+        """The embedding, the unembedding and the final norm, whole."""
+        if not self.mesh:
+            return self.params
+        return {k: self.ctx.gather(self.params[k], self.specs[k])
+                for k in ("embed", "unembed", "final_norm")
+                if k in self.params}
+
+    def layer(self, kind: str, p: Params, spec) -> Params:
+        if not self.mesh:
+            return cast_tree(p, self.dtype)
+        return gather_layer(kind, p, spec, self.cfg, self.ctx, self.dtype)
+
+    def unit_specs(self, pos: int):
+        """Pattern position ``pos``'s specs without the unit dim."""
+        if not self.mesh:
+            return None
+        return tree_map(lambda _, s: _unit_spec(s),
+                        self.params["pattern"][pos],
+                        self.specs["pattern"][pos])
+
+    def remainder(self, i: int, kind: str) -> Params:
+        return self.layer(kind, self.params["remainder"][i],
+                          self.specs["remainder"][i] if self.mesh else None)
+
+    def shared(self) -> Optional[Params]:
+        """zamba2's shared block (None where the model has none)."""
+        p = self.params.get("shared_attn")
+        if p is None:
+            return None
+        return self.layer("shared", p,
+                          self.specs["shared_attn"] if self.mesh else None)
+
+
 AUX0 = {"lb_loss": 0.0, "overflow": 0.0}
 
 
@@ -414,37 +464,20 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     check_remat(remat)
     dev = resolve_device(tokens.device)
     pattern, n_units, rem = segments(cfg)
-    mesh = ctx is not None and ctx.have_mesh
-    if mesh and specs is None:
-        raise ValueError("a forward on a mesh needs the parameters' specs")
+    w = LayerWeights(params, cfg, ctx, specs, compute_dtype)
     mark = layer_out if remat == "layer_out" else (lambda v: v)
-    whole = (lambda k: ctx.gather(params[k], specs[k])) if mesh \
-        else (lambda k: params[k])
-    top = {k: whole(k) for k in ("embed", "unembed", "final_norm")
-           if k in params}
+    top = w.top()
     x = embed_tokens(top, tokens, cfg, compute_dtype)
     if patches is not None:
         patches = patches.to(compute_dtype)
-
-    def layer_params(kind, p, spec):
-        if not mesh:
-            return cast_tree(p, compute_dtype)
-        return gather_layer(kind, p, spec, cfg, ctx, compute_dtype)
-
-    shared = params.get("shared_attn")
-    if shared is not None:
-        shared = layer_params("shared", shared,
-                              specs["shared_attn"] if mesh else None)
-    unit_specs = tuple(tree_map(lambda _, s: _unit_spec(s), p, sp)
-                       for p, sp in zip(params["pattern"],
-                                        specs["pattern"])) if mesh \
-        else (None,) * len(pattern)
+    shared = w.shared()
+    unit_specs = [w.unit_specs(pos) for pos in range(len(pattern))]
 
     def unit_body(x, unit_params):
         aux = dict(AUX0)    # Python floats: a unit without MoE copies none
         for pos, kind in enumerate(pattern):
             x, aux = _apply_layer(
-                kind, layer_params(kind, unit_params[pos], unit_specs[pos]),
+                kind, w.layer(kind, unit_params[pos], unit_specs[pos]),
                 x, cfg, shared, patches, aux, impl, cap_factor, ctx, mark)
         return x, aux["lb_loss"], aux["overflow"]
 
@@ -455,11 +488,9 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         x, lb, of = body(x, unit_params)
         aux = {"lb_loss": aux["lb_loss"] + lb,
                "overflow": aux["overflow"] + of}
-    for i, (p_l, kind) in enumerate(zip(params["remainder"], rem)):
-        x, aux = _apply_layer(
-            kind, layer_params(kind, p_l,
-                               specs["remainder"][i] if mesh else None),
-            x, cfg, shared, patches, aux, impl, cap_factor, ctx, mark)
+    for i, kind in enumerate(rem):
+        x, aux = _apply_layer(kind, w.remainder(i, kind), x, cfg, shared,
+                              patches, aux, impl, cap_factor, ctx, mark)
     return unembed(top, x, cfg), aux
 
 

@@ -1992,3 +1992,153 @@ def test_sharded_train_step_on_cards(card, tmp_path, case):
     _build.library("flash_attention")        # once, before the ranks load
     _build.library("flash_attention_bwd")
     _spawn_ranks(fn, tmp_path / "store", world=world(n))
+
+
+# --------------------------------------------------------------------------- #
+# serving over a mesh on several cards (one NCCL rank a card)
+# --------------------------------------------------------------------------- #
+SERVE_LOGIT_TOL = 2e-3       # of the largest magnitude
+SERVE_MESH_CASES = {         # arch, layers, mesh, batch, prompt, steps, cf
+    "danube_1x4": ("h2o-danube-1.8b", 4, (1, 4), 2, 4224, 8, None),
+    "danube_2x2": ("h2o-danube-1.8b", 4, (2, 2), 2, 4224, 8, None),
+    "zamba2_1x4": ("zamba2-1.2b", 6, (1, 4), 2, 1024, 8, None),
+    # 16 experts over 4 model ranks under EP, at a capacity factor that
+    # drops no token on one card or four
+    "scout_ep_1x4": ("llama4-scout-17b-a16e", 1, (1, 4), 2, 1024, 8, 16.0)}
+
+
+def _serve_cfg(case):
+    import dataclasses
+    arch, layers, _, _, _, _, cf = SERVE_MESH_CASES[case]
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    return dataclasses.replace(cfg, capacity_factor=cf) if cf else cfg
+
+
+def _serve_nccl_want(case) -> dict:
+    """The collectives of the case's prefill and decode step, traced by
+    the dry-run as rank 0 of a placeholder world of the mesh's size, by
+    NCCL's host record names (run in the test's own process, before the
+    ranks start)."""
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_mesh
+    _, _, shape, b, t, _, _ = SERVE_MESH_CASES[case]
+    names = {"allgather_": "nccl:all_gather", "allreduce_": "nccl:all_reduce",
+             "alltoall_base_": "nccl:all_to_all"}
+    out = {}
+    with dryrun.placeholder_group(shape[0] * shape[1]):
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        for kind in ("prefill", "decode"):
+            fn, args = dryrun.build_cell(
+                _serve_cfg(case), ShapeConfig(case, kind, t, b), mesh, {},
+                torch.float32)
+            counts: dict = {}
+            for op in hlo_analysis.trace(fn, *args).ops:
+                if op.coll:
+                    key = names[op.name.split(".")[1]]
+                    counts[key] = counts.get(key, 0) + 1
+            out[kind] = counts
+    return out
+
+
+def _sharded_serve_vs_own(case, want_nccl, dev):
+    """``case``'s prefill and greedy decode over its mesh against this
+    rank's own one-card prefill and decode of the whole batch from the
+    same weights: every step's gathered logits within SERVE_LOGIT_TOL of
+    the largest magnitude, the greedy tokens equal, NCCL's host records
+    of a prefill and a decode step ``want_nccl``; ms of each."""
+    import time
+    import torch.distributed as dist
+    from repro_torch import _tree
+    from repro_torch.launch.mesh import ctx_for_mesh, make_mesh
+    from repro_torch.models import decoding
+    from repro_torch.parallel.sharding import P
+    from repro_torch.train import steps
+    _, _, shape, b, t, n_steps, _ = SERVE_MESH_CASES[case]
+    cfg = _serve_cfg(case)
+    whole = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    ctx = ctx_for_mesh(make_mesh(shape, ("data", "model")))
+    specs = steps.param_specs(whole, ctx)
+    local = _tree.tree_map(torch.Tensor.clone, ctx.shard_tree(whole, specs))
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device=dev,
+                           dtype=torch.int32,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    bspec = P(ctx.batch_axes_for(b) or None)
+    s_specs = decoding.decode_state_specs(decoding.init_decode_state(
+        cfg, b, t + n_steps, torch.float32, "meta"), ctx)
+    ms = {"prefill": {}, "decode": {}}
+
+    def run(sharded):
+        kw = {"ctx": ctx, "specs": specs} if sharded else {}
+        p = local if sharded else whole
+        tk = ctx.shard(tokens, P(*bspec, None)) if sharded else tokens
+        whole_of = (lambda x: ctx.gather(x, bspec)) if sharded \
+            else (lambda x: x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state, lengths = decoding.prefill(p, cfg, tk,
+                                                  max_len=t + n_steps, **kw)
+        torch.cuda.synchronize()
+        ms["prefill"].setdefault(sharded, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        seen, fed = [whole_of(logits)], []
+        for _ in range(n_steps):
+            fed.append(seen[-1].argmax(-1).to(torch.int32))
+            nxt = ctx.shard(fed[-1], bspec) if sharded else fed[-1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = decoding.decode_step(
+                p, cfg, state, nxt, lengths,
+                **(dict(kw, state_specs=s_specs) if sharded else {}))
+            torch.cuda.synchronize()
+            ms["decode"].setdefault(sharded, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            lengths = lengths + 1
+            seen.append(whole_of(logits))
+        return seen, fed
+
+    with torch.no_grad():
+        own = run(False)
+        mesh = run(True)
+        worst = max(float((a - w).abs().max() / w.abs().max())
+                    for a, w in zip(mesh[0], own[0]))
+        assert worst <= SERVE_LOGIT_TOL, worst
+        assert all(bool(torch.equal(a, w)) for a, w in zip(mesh[1], own[1]))
+        tk = ctx.shard(tokens, P(*bspec, None))
+        holder = {}
+        nccl = {"prefill": _host_nccl_records(lambda: holder.update(
+            out=decoding.prefill(local, cfg, tk, max_len=t + n_steps,
+                                 ctx=ctx, specs=specs)))}
+        logits, state, lengths = holder.pop("out")
+        nccl["decode"] = _host_nccl_records(lambda: decoding.decode_step(
+            local, cfg, state, logits.argmax(-1).to(torch.int32), lengths,
+            ctx=ctx, specs=specs, state_specs=s_specs))
+    assert nccl == want_nccl, (nccl, want_nccl)
+    if dist.get_rank() == 0:
+        _mesh_print({"case": case, "mesh": shape, "layers": cfg.num_layers,
+                     "batch": [b, t], "steps": n_steps,
+                     "logit_rel_max": worst, "nccl_host": nccl,
+                     "ms": {k: {("sharded" if s else "one_card"): v
+                                for s, v in d.items()}
+                            for k, d in ms.items()},
+                     "card": torch.cuda.get_device_name(dev)})
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_MESH_CASES))
+def test_sharded_serve_on_cards(card, tmp_path, case):
+    """Prefill and decode over NCCL, one rank a card, four cards (skips
+    below four): danube at full width, 4 layers, 2 x 4,224 tokens (the
+    4,224 roll its 4,096-slot ring; on (1, 4) each card holds 1,024 slots
+    and 2 of the 8 KV heads' projections), zamba2 at 6 layers, one scout
+    layer under expert parallelism decoding through ``moe_ep``."""
+    import functools
+    from repro_torch import _build
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs 4 cards, this machine has {n}")
+    want = _serve_nccl_want(case)
+    _build.library("flash_attention")        # once, before the ranks load
+    _build.library("ssd_scan")
+    _spawn_ranks(functools.partial(_sharded_serve_vs_own, case, want),
+                 tmp_path / "store", world=4)

@@ -27,6 +27,7 @@ A test that starts a placeholder group does so through
 ``dryrun.placeholder_group``, which destroys it on exit, and asserts that
 no group is left up: the xdist workers run several files in turn.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -50,14 +51,15 @@ from repro.parallel.sharding import single_device_ctx
 from repro.train import steps as jsteps
 from repro_torch import _build, _tree
 from repro_torch._device import meta_launch
-from repro_torch.configs import ShapeConfig, get_arch, tiny_config
+from repro_torch.configs import SHAPES, ShapeConfig, get_arch, tiny_config
 from repro_torch.kernels import jet_flash_attention as jfa
 from repro_torch.kernels import mamba2_ssd as mssd
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, hlo_analysis, inspect_hlo
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import api
+from repro_torch.launch.mesh import PRODUCTION, ctx_for_mesh, make_mesh
+from repro_torch.models import api, decoding, transformer
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import Mesh
 from repro_torch.train import steps
 
 torch.set_num_threads(1)
@@ -203,21 +205,23 @@ def _port_trace(cfg, impl="ref", shape=TINY):
                               api.input_specs(cfg, shape, torch.float32))
 
 
-def _dense_moe_extra(cfg) -> float:
+def _dense_moe_extra(cfg, shape=TINY, passes: int = 2) -> float:
     """The reference's dense MoE work beyond the port's capacity dispatch
     in one step, from the shapes: each MoE layer's expert FFN (2 or 3
     products of 2·D·F a token and expert) runs on all N tokens instead of
-    C a slab, four times (forward, replay, and the two products of each
-    in the backward), and its one-hot combine (2·N·E·D) twice (forward
-    and replay; its backward into the experts' outputs is an outer
-    product, no dot)."""
-    n = TINY.global_batch * TINY.seq_len
+    C a slab, twice a pass (a train step's passes: the forward and the
+    replay, each product with its two in the backward), and its one-hot
+    combine (2·N·E·D) once a pass (its backward into the experts' outputs
+    is an outer product, no dot).  A prefill is one pass with no
+    backward: ``passes=1`` counts its FFN once."""
+    n = shape.global_batch * shape.seq_len
     e = cfg.num_experts
     c = max(1, int(cfg.capacity_factor * n / e))
     mats = 3 if cfg.mlp in ("swiglu", "geglu") else 2
     layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
-    ffn = 4 * e * (n - c) * 2 * cfg.d_model * cfg.d_ff * mats
-    combine = 2 * 2 * n * e * cfg.d_model
+    ffn = (4 if passes == 2 else 1) * e * (n - c) * 2 * cfg.d_model \
+        * cfg.d_ff * mats
+    combine = passes * 2 * n * e * cfg.d_model
     return layers * (ffn + combine)
 
 
@@ -233,6 +237,55 @@ def test_dot_flops_match_the_reference_compile(name):
     got = hlo_analysis.analyze(_port_trace(cfg).ops)["dot_flops"]
     ref = _ref_dot_flops(name)
     want = ref - (_dense_moe_extra(cfg) if cfg.num_experts else 0.0)
+    ratio = got / want
+    msg = f"{name}: port {got:.0f}, reference {ref:.0f} ({want:.0f} " \
+          f"compared), ratio {ratio:.6f}"
+    if name == "h2o-danube-1.8b":
+        assert got == want, msg
+    else:
+        assert abs(ratio - 1.0) <= FLOP_TOL, msg
+
+
+TINY_PREFILL = ShapeConfig("tiny", "prefill", 64, 2)
+
+
+def _ref_prefill_dot_flops(name: str) -> float:
+    cfg = jtiny(JARCHS[name])
+    params = jax.eval_shape(lambda: japi.init_params(cfg, jax.random.key(0)))
+    batch = japi.input_specs(cfg, JShape("tiny", "prefill",
+                                         TINY_PREFILL.seq_len,
+                                         TINY_PREFILL.global_batch),
+                             jnp.float32)
+
+    def fn(p, b):
+        return japi.prefill(p, cfg, single_device_ctx(), b["tokens"],
+                            b.get("patches"), max_len=TINY_PREFILL.seq_len,
+                            compute_dtype=jnp.float32)
+    hlo = jax.jit(fn).lower(params, batch).compile().as_text()
+    return jhlo.analyze(hlo)["dot_flops"]
+
+
+def _port_prefill_dot_flops(cfg) -> float:
+    @torch.no_grad()
+    def fn(p, b):
+        return api.prefill(p, cfg, b["tokens"], b.get("patches"),
+                           max_len=TINY_PREFILL.seq_len, impl="ref")
+    tr = hlo_analysis.trace(fn, api.abstract_params(cfg), api.input_specs(
+        cfg, TINY_PREFILL, torch.float32))
+    return hlo_analysis.analyze(tr.ops)["dot_flops"]
+
+
+@pytest.mark.parametrize("name", FLOP_ARCHS)
+def test_prefill_dot_flops_match_the_reference_compile(name):
+    """One unsharded tiny prefill (batch 2 x 64, float32, the plain
+    versions) against the reference's single-device compile of its
+    ``prefill``, at the train cells' tiers; scout after the reference's
+    dense MoE work in one forward is taken off."""
+    cfg = tiny_config(get_arch(name))
+    got = _port_prefill_dot_flops(cfg)
+    ref = _ref_prefill_dot_flops(name)
+    want = ref - (_dense_moe_extra(cfg, TINY_PREFILL, passes=1)
+                  if cfg.num_experts else 0.0)
     ratio = got / want
     msg = f"{name}: port {got:.0f}, reference {ref:.0f} ({want:.0f} " \
           f"compared), ratio {ratio:.6f}"
@@ -309,6 +362,33 @@ def test_placeholder_world_equals_gloo_ranks(name, gloo_collectives,
         assert g == w, f"{name}: collective {i}: {g} != {w}"
 
 
+@pytest.mark.parametrize("kind", ("prefill", "decode"))
+@pytest.mark.parametrize("name", ("h2o-danube-1.8b", "zamba2-1.2b"))
+def test_placeholder_world_equals_gloo_ranks_serving(name, kind,
+                                                     gloo_collectives,
+                                                     no_group_left):
+    """The serve cells' prefill and decode step: the head exchange and
+    the slot split (all-to-all, all-gathers, the combine) collective for
+    collective as on 8 gloo ranks."""
+    import torch_dryrun_ranks as ranks
+    with dryrun.placeholder_group(ranks.WORLD):
+        mesh = make_mesh(ranks.MESH, ("data", "model"), "cpu")
+        fn, args = dryrun.build_cell(
+            tiny_config(get_arch(name)),
+            ShapeConfig("ranks", kind, ranks.SEQ, ranks.BATCH), mesh, {},
+            torch.float32)
+        got = ranks.collectives(hlo_analysis.trace(fn, *args).ops)
+    want = gloo_collectives[f"{name}/{kind}"]
+    assert len(got) == len(want) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, f"{name} {kind}: collective {i}: {g} != {w}"
+    # the KV heads go to their slot blocks by an all-to-all where the
+    # model axis splits them (zamba2's 4), else projected whole (danube's 2)
+    split = tiny_config(get_arch(name)).num_kv_heads % ranks.MESH[1] == 0
+    assert any(row[0].startswith("c10d.alltoall") for row in got) == \
+        (kind == "prefill" and split)
+
+
 # --------------------------------------------------------------------------- #
 # counts the card measured; the one-card kernel launches
 # --------------------------------------------------------------------------- #
@@ -340,6 +420,67 @@ def test_danube_mesh_step_collectives_as_on_the_card(no_group_left):
     assert got == want == {"nccl:all_gather": 88,
                            "nccl:_reduce_scatter_base": 44,
                            "nccl:all_reduce": 34}
+
+
+def _serve_counts(cfg, params, ctx, specs, b: int, t: int) -> dict:
+    """NCCL's names and counts of the collectives of one prefill of ``b``
+    x ``t`` tokens and one decode step after it, traced."""
+    out = {}
+    tokens = torch.zeros((b, t), dtype=torch.int32, device=params[
+        "final_norm"].device)
+    s_specs = decoding.decode_state_specs(decoding.init_decode_state(
+        cfg, b, t, torch.float32, "meta"), ctx)
+    with torch.no_grad():
+        tr = hlo_analysis.trace(lambda: decoding.prefill(
+            params, cfg, tokens, ctx=ctx, specs=specs))
+        out["prefill"] = _nccl_counts(tr.ops)
+        _, state, lengths = decoding.prefill(params, cfg, tokens, ctx=ctx,
+                                             specs=specs)
+        tr = hlo_analysis.trace(lambda: decoding.decode_step(
+            params, cfg, state, tokens[:, 0], lengths, ctx=ctx, specs=specs,
+            state_specs=s_specs))
+        out["decode"] = _nccl_counts(tr.ops)
+    return out
+
+
+SERVE_MESH_CFGS = {"danube": ("h2o-danube-1.8b", None),
+                   "zamba2_6": ("zamba2-1.2b", 6)}
+
+
+@pytest.mark.parametrize("size", ("tiny_gloo", "full_placeholder"))
+@pytest.mark.parametrize("model", sorted(SERVE_MESH_CFGS))
+def test_mesh_serve_collectives_as_designed(model, size, tmp_path,
+                                            no_group_left):
+    """``chip_smoke.mesh_serve_collectives``, the NCCL records its
+    ``serve_mesh`` phase gates, against the collectives a prefill and a
+    decode step issue on a one-rank mesh: tiny widths on a real gloo
+    group, and at full width on meta tensors in a placeholder world."""
+    from repro_torch.launch.mesh import init_group
+    arch, layers = SERVE_MESH_CFGS[model]
+    cfg = get_arch(arch)
+    if size == "tiny_gloo":
+        cfg = tiny_config(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    want = _smoke().mesh_serve_collectives(cfg)
+    if size == "tiny_gloo":
+        init_group("gloo", 0, 1, str(tmp_path / "store"))
+        group = contextlib.nullcontext()
+        params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    else:
+        group = dryrun.placeholder_group(1)
+        params = api.abstract_params(cfg)
+    try:
+        with group:
+            ctx = ctx_for_mesh(make_mesh((1, 1), ("data", "model"), "cpu"))
+            specs = steps.param_specs(params, ctx)
+            got = _serve_counts(cfg, ctx.shard_tree(params, specs), ctx,
+                                specs, 2, 64)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert got == want
 
 
 def test_scout_expert_parallel_collectives_as_on_four_cards(no_group_left):
@@ -409,9 +550,79 @@ def test_production_meshes(mesh, shape, tmp_path, no_group_left):
     assert on_disk["ok"] and on_disk["mesh_shape"] == shape
 
 
-def test_serve_cells_wait_for_a4d(no_group_left):
-    with pytest.raises(NotImplementedError, match="A4d"):
-        dryrun.build_cell("h2o-danube-1.8b", "decode_32k", None)
+@pytest.mark.parametrize("arch,shape,mesh,shape_of_mesh", [
+    ("h2o-danube-1.8b", "decode_32k", "single", {"data": 16, "model": 16}),
+    ("zamba2-1.2b", "long_500k", "multi",
+     {"pod": 2, "data": 16, "model": 16})])
+def test_serve_cells_on_the_production_meshes(arch, shape, mesh,
+                                              shape_of_mesh, tmp_path,
+                                              no_group_left):
+    """A decode cell traces on each production mesh: the state's blocks
+    among the arguments (the 128 lanes over 16 data ranks; the batch of
+    1 replicated over pod and data), the slots over the 16 model ranks,
+    no kernel launched (decode runs the plain ring decode) and a
+    collective of every kind the design issues."""
+    rec = dryrun.run_cell(arch, shape, mesh, str(tmp_path))
+    assert rec["ok"], rec.get("error")
+    assert rec["mesh_shape"] == shape_of_mesh
+    assert rec["flops_per_device"] > 0 and rec["temp_size_in_bytes"] > 0
+    assert not any(rec["kernel_launches"].values())
+    counts = rec["collective_counts"]
+    assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
+    cfg = get_arch(arch)
+    b, s = SHAPES[shape].global_batch, SHAPES[shape].seq_len
+    b_loc = b // 16 if b % 16 == 0 else b
+    s_loc = min(s, cfg.sliding_window or s) // 16
+    kv_block = 2 * b_loc * s_loc * cfg.num_kv_heads * cfg.hd * 2  # bf16
+    n_attn = sum(k in ("attn_dense", "mamba_attn")
+                 for k in transformer.layer_kinds(cfg))
+    assert rec["argument_size_in_bytes"] >= kv_block * n_attn
+
+
+DECODE_CELLS = [(a, s, m) for a, s, m in dryrun.list_cells(every=True)
+                if SHAPES[s].kind == "decode"]
+
+
+def _ref_state_specs(arch: str, shape: str, multi: bool) -> list:
+    """The reference dry-run's decode-state specs (its ``kv_spec``) of a
+    production cell, from its own ``build_cell`` on an abstract mesh."""
+    from jax.sharding import AbstractMesh, PartitionSpec
+    from repro.launch import dryrun as jdry
+    shp, axes = PRODUCTION[multi]
+    specs = jdry.build_cell(arch, shape, AbstractMesh(shp, axes), {})[3]
+    return [tuple(p) for p in jax.tree.leaves(
+        specs[1], is_leaf=lambda x: isinstance(x, PartitionSpec))]
+
+
+@pytest.mark.parametrize("arch,shape,mesh", DECODE_CELLS)
+def test_decode_state_specs_equal_the_reference_kv_spec(arch, shape, mesh):
+    """``decode_state_specs`` gives every leaf of every production decode
+    cell's state the layout the reference's dry-run gives it."""
+    shp, axes = PRODUCTION[mesh == "multi"]
+    state = api.input_specs(get_arch(arch), SHAPES[shape])["state"]
+    specs = decoding.decode_state_specs(state, ctx_for_mesh(Mesh(axes,
+                                                                 shp)))
+    got = [tuple(p) for p in _tree.flatten_up_to(state, specs)]
+    want = _ref_state_specs(arch, shape, mesh == "multi")
+    assert got == want
+    kv = [p for (path, _), p in zip(_tree.flatten(state), got)
+          if "kv" in path]
+    assert all("model" in p for p in kv)
+
+
+def test_cli_lists_every_shape_and_the_66_cells():
+    """The CLI's default shapes are all four; ``--all --mesh both`` lists
+    the reference's 66 cells: 10 archs x 3 shapes + 3 sub-quadratic
+    archs x ``long_500k``, each on both meshes."""
+    cells = dryrun.list_cells(every=True)
+    assert len(cells) == 66 == len(set(cells))
+    assert {s for _, s, _ in cells} == set(SHAPES) == {
+        "train_4k", "prefill_32k", "decode_32k", "long_500k"}
+    assert {s for _, s, _ in dryrun.list_cells("h2o-danube-1.8b")} == \
+        set(SHAPES)
+    assert sorted(a for a, s, m in cells
+                  if s == "long_500k" and m == "single") == sorted(
+        a for a in JARCHS if get_arch(a).subquadratic)
 
 
 def test_a_group_already_up_is_refused(tmp_path, no_group_left):

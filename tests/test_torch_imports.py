@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py``, no script under ``tools/`` and not the port sides of
 the multi-rank tests (``tests/torch_multidev_port.py``,
-``tests/torch_train_mesh_port.py``, ``tests/torch_dryrun_ranks.py``)
+``tests/torch_train_mesh_port.py``, ``tests/torch_dryrun_ranks.py``,
+``tests/torch_serve_mesh_port.py``)
 imports ``jax``
 or the reference package ``repro`` (``repro_torch`` itself is allowed);
 the reference side (``tests/torch_multidev_ref.py``) imports nothing of
@@ -19,7 +20,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) \
     + [ROOT / "tests" / "torch_multidev_port.py",
        ROOT / "tests" / "torch_train_mesh_port.py",
-       ROOT / "tests" / "torch_dryrun_ranks.py"]
+       ROOT / "tests" / "torch_dryrun_ranks.py",
+       ROOT / "tests" / "torch_serve_mesh_port.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -53,7 +55,8 @@ def test_scan_covers_the_package_and_the_smoke_script():
             "adamw.py", "compression.py", "pipeline.py", "ckpt.py",
             "steps.py", "loop.py", "train.py", "_tree.py", "sharding.py",
             "collectives.py", "compat.py", "mesh.py",
-            "torch_multidev_port.py", "torch_train_mesh_port.py"} <= names
+            "torch_multidev_port.py", "torch_train_mesh_port.py",
+            "torch_dryrun_ranks.py", "torch_serve_mesh_port.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 
